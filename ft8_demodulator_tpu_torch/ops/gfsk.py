@@ -1,0 +1,144 @@
+"""GFSK modulator: tone ids -> phase-continuous complex baseband (native TX).
+
+Port of ``ft8_demodulator_tpu/ops/gfsk.py`` without ``reference_quirk``:
+symbol k's Gaussian pulse is centred at sample (k + 0.5) * sps, the WSJT-X
+alignment.  The frequency track is three outer products (each symbol slot
+sees exactly three Gaussian pulse segments) and the phase accumulation is
+hierarchical so that it stays accurate in float32:
+
+* within a symbol slot: cumsum over <= sps samples (values stay small),
+* across slots: a cumulative product of 79 unit phasors, so the growing
+  integer part of the phase never has to be represented.
+
+Waveform convention: ``w[n] = sin(phi_n) - j cos(phi_n) = -j exp(j phi_n)``,
+raised-cosine amplitude ramps over the first/last sps/8 samples.  Complex
+signals are native ``complex64`` tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..protocol import constants as C
+from ..protocol.encode import encode_tones
+
+__all__ = ["gauss_window", "gfsk_frequency_track", "ft8_passband"]
+
+_GFSK_BT = 2.0
+
+
+# XLA's float32 erf: x * P(x^2) / Q(x^2) on x clamped to erfinv(1 - 2^-23),
+# Horner steps fused multiply-adds.  torch.special.erf differs from it by a
+# few ulp, and the TX sums that difference over 79 symbol phases.
+_ERF_ALPHA = (0.00022905065861350646, 0.0034082910107109506,
+              0.050955695062380861, 0.18520832239976145, 1.128379143519084)
+_ERF_BETA = (-1.1791602954361697e-7, 0.000023547966471313185,
+             0.0010179625278914885, 0.014070470171167667,
+             0.11098505178285362, 0.49746925110067538, 1.0)
+_ERF_CLAMP = 3.7439211627767994
+
+
+def _erf_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 erf with XLA's rounding; each Horner step is one fused
+    multiply-add (the float64 product of two float32 values is exact)."""
+    x = torch.clamp(x.to(torch.float32), -_ERF_CLAMP, _ERF_CLAMP)
+    x2 = (x * x).double()
+
+    def horner(coeffs):
+        acc = torch.full_like(x, coeffs[0])
+        for c in coeffs[1:]:
+            acc = (x2 * acc.double() + float(np.float32(c))).float()
+        return acc
+
+    return (x * horner(_ERF_ALPHA)) / horner(_ERF_BETA)
+
+
+def gauss_window(bt: float, t: torch.Tensor) -> torch.Tensor:
+    """Gaussian frequency-smoothing pulse (integral of a Gaussian over 1 sym):
+    0.5*(erf(k*bt*(t+.5)) - erf(k*bt*(t-.5))) with k = pi*sqrt(2/ln 2)."""
+    k = np.pi * np.sqrt(2.0 / np.log(2.0))
+    return 0.5 * (_erf_f32(k * bt * (t + 0.5)) - _erf_f32(k * bt * (t - 0.5)))
+
+
+def _window_segments(sps: int, dtype, device=None) -> torch.Tensor:
+    """(3, sps) Gaussian pulse split into its three symbol-length segments."""
+    t = (torch.arange(3 * sps, dtype=dtype, device=device) - 1.5 * sps) / sps
+    return gauss_window(_GFSK_BT, t).reshape(3, sps)
+
+
+def gfsk_frequency_track(tones: torch.Tensor, sps: int,
+                         dtype=torch.float32) -> torch.Tensor:
+    """(..., 79) tone ids -> (..., 79, sps) tone-unit frequency track.
+
+    track[s] = te[s]*w2 + te[s+1]*w1 + te[s+2]*w0 with
+    te = [t0, t0..t78, t78] (first/last tone extended past the frame).
+    """
+    w0, w1, w2 = _window_segments(sps, dtype, tones.device)
+    t = tones.to(dtype)
+    te = torch.cat([t[..., :1], t, t[..., -1:]], dim=-1)      # (..., 81)
+    return (te[..., 0:79, None] * w2
+            + te[..., 1:80, None] * w1
+            + te[..., 2:81, None] * w0)
+
+
+def _phase_fraction(track: torch.Tensor, sps: int, fs: float, f0: float,
+                    dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase (in cycles mod 1) at every sample, split as (slot phasor, frac).
+
+    Returns (E_slot[..., 79] complex unit phasors at slot starts,
+             frac[..., 79, sps] fractional cycles within each slot).
+    """
+    df = C.TONE_SPACING_HZ / fs          # cycles per sample per tone unit
+    c0 = f0 / fs                         # carrier cycles per sample
+
+    inc = track * df                                     # (..., 79, sps)
+    cs = torch.cumsum(inc, dim=-1) - inc                 # exclusive
+    r = torch.arange(sps, dtype=dtype, device=track.device)
+    frac_carrier = torch.remainder(c0 * r, 1.0)
+    frac = torch.remainder(cs + frac_carrier, 1.0)       # (..., 79, sps)
+
+    # slot-start phases as unit phasors: the integer cycle count is never
+    # represented (f32-exact for 79 products)
+    carrier_slot = float(np.mod(np.float32(c0 * sps), np.float32(1.0)))
+    slot_cycles = torch.remainder(inc.sum(-1) + carrier_slot, 1.0)
+    slot_phasor = torch.polar(torch.ones_like(slot_cycles),
+                              2.0 * np.pi * slot_cycles)
+    e = torch.cumprod(slot_phasor, dim=-1)
+    e = torch.cat([torch.ones_like(e[..., :1]), e[..., :-1]], dim=-1)
+    return e, frac
+
+
+def _baseband_complex(tones: torch.Tensor, sps: int, fs: float,
+                      f0: float) -> torch.Tensor:
+    """(..., 79) tone ids -> (..., 79*sps) complex64 baseband."""
+    dtype = torch.float32
+    track = gfsk_frequency_track(tones, sps, dtype)
+    e_slot, frac = _phase_fraction(track, sps, fs, f0, dtype)
+    w = e_slot[..., :, None] * torch.polar(torch.ones_like(frac),
+                                           2.0 * np.pi * frac)
+    w = -1j * w                  # sin(phi) - j cos(phi) = -j exp(j phi)
+    w = w.reshape(*tones.shape[:-1], C.NUM_SYMBOLS * sps)
+
+    # raised-cosine amplitude ramp over the first/last sps//8 samples
+    n = C.NUM_SYMBOLS * sps
+    nramp = sps // 8
+    i = torch.arange(n, dtype=dtype, device=tones.device)
+    up = 0.5 * (1.0 - torch.cos(8.0 * np.pi * i / sps))
+    down = 0.5 * (1.0 + torch.cos(8.0 * np.pi * (n - 1 - i) / sps))
+    ramp = torch.where(i < nramp, up, 1.0)
+    ramp = torch.where(i >= n - nramp, down, ramp)
+    return (w * ramp).to(torch.complex64)
+
+
+def ft8_passband(payload, fs: float, f0: float, fc: float,
+                 device=None) -> torch.Tensor:
+    """(..., 10) payload bytes -> float32 passband transmission.
+
+    Mixing to fc equals generating the baseband at carrier f0 + fc, which
+    keeps the whole phase inside the float32-safe accumulator.
+    """
+    payload = torch.as_tensor(np.asarray(payload, np.uint8), device=device)
+    sps = int(C.SYMBOL_PERIOD_S * fs)
+    tones = encode_tones(payload)
+    return _baseband_complex(tones, sps, float(fs), float(f0 + fc)).real

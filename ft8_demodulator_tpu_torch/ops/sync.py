@@ -1,0 +1,210 @@
+"""Costas sync scoring and candidate search on the time-major waterfall.
+
+Port of the time-major path of ``ft8_demodulator_tpu/ops/sync.py``: each of
+the <=84 (Costas cell, comparison) terms is a statically offset 2-D slice of
+the padded (T, F) dB grid, added in the reference's order, so float32
+scores are bit-identical to the JAX stencil on the CPU.  Candidate
+selection reproduces ``lax.top_k``'s lowest-index tie order with stable
+sorts.  Every function takes leading batch dimensions.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..protocol import constants as C
+
+__all__ = ["SearchGrid", "search_grid", "sync_scores_tf",
+           "find_candidates_tf", "cell_mask_tensors"]
+
+# The reference scans start times from 10 symbols before the slot up to
+# num_blocks - 59 symbols.
+PRE_ROLL_SYMBOLS = 10
+_MIN_TAIL_SYMBOLS = C.NUM_DATA_SYMBOLS + 1  # 59
+# Extra candidate rows screened beyond max_candidates (tie slack).
+_ROW_SLACK = 12
+
+
+class SearchGrid(NamedTuple):
+    """Static geometry of the candidate search over one waterfall."""
+
+    time_osr: int
+    freq_osr: int
+    num_blocks: int
+    t_start: int        # first abs_time scanned (negative: pre-roll)
+    num_times: int      # abs_time values scanned
+    num_freqs: int      # abs_freq values scanned
+
+
+def search_grid(num_freq_bins: int, num_frames: int, time_osr: int,
+                freq_osr: int) -> SearchGrid:
+    num_blocks = num_frames // time_osr
+    t_start = -PRE_ROLL_SYMBOLS * time_osr
+    t_stop = num_blocks * time_osr - _MIN_TAIL_SYMBOLS * time_osr
+    num_times = max(0, t_stop - t_start)
+    num_freqs = max(0, num_freq_bins - 7 * freq_osr)
+    return SearchGrid(time_osr, freq_osr, num_blocks, t_start,
+                      num_times, num_freqs)
+
+
+def _cell_masks(g: SearchGrid) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-(cell, t) validity masks, shape (21, num_times) each (host consts).
+
+    The masks only depend on base = floor(abs_time / time_osr), never on
+    frequency.
+    """
+    t = g.t_start + np.arange(g.num_times)
+    base = np.floor_divide(t, g.time_osr)
+    cell = np.zeros((C.NUM_COSTAS_SEQS * C.COSTAS_LEN, g.num_times), bool)
+    prev = np.zeros_like(cell)
+    nxt = np.zeros_like(cell)
+    for m in range(C.NUM_COSTAS_SEQS):
+        for k in range(C.COSTAS_LEN):
+            i = m * C.COSTAS_LEN + k
+            b = m * C.SYNC_SEQ_STRIDE + k
+            ba = base + b
+            cell[i] = (ba >= 0) & (ba < g.num_blocks)
+            if k > 0:
+                prev[i] = cell[i] & (ba > 0)
+            if k < C.COSTAS_LEN - 1:
+                nxt[i] = cell[i] & (ba + 1 < g.num_blocks)
+    return cell, prev, nxt
+
+
+@functools.lru_cache(maxsize=16)
+def cell_mask_tensors(g: SearchGrid,
+                      device: torch.device) -> tuple[torch.Tensor, ...]:
+    """(cell, prev, next) bool (21, num_times) mask tensors, cached."""
+    return tuple(torch.as_tensor(m, device=device) for m in _cell_masks(g))
+
+
+def _sub_grid(g: SearchGrid, t_start: int, num_times: int) -> SearchGrid:
+    return SearchGrid(g.time_osr, g.freq_osr, g.num_blocks, t_start,
+                      num_times, g.num_freqs)
+
+
+def sync_scores_tf(mag_tf: torch.Tensor, g: SearchGrid,
+                   masks=None) -> torch.Tensor:
+    """Time-major waterfall (..., T, F) -> scores (..., num_times, num_freqs).
+
+    score(t, f) = mean over valid comparisons of
+    [power(costas cell) - power(neighbour cell)]; -inf where no comparison
+    is in bounds.  Grids with a pre-roll (t_start < 0) whose main part
+    needs no right padding are scored in two pieces, the pre-roll columns
+    on a short leading slice and the main columns on the unpadded grid, as
+    the JAX stencil does.  ``masks``: (cell, prev, next) as
+    :func:`cell_mask_tensors` returns them for ``g``; None takes the cached
+    ones.
+    """
+    if masks is None:
+        masks = cell_mask_tensors(g, mag_tf.device)
+    main_cols = g.num_times + g.t_start
+    main_right_pad = main_cols + (C.NUM_SYMBOLS - 1) * g.time_osr \
+        - mag_tf.shape[-2]
+    if g.t_start < 0 and main_cols > 0 and main_right_pad <= 0:
+        w_pre = min(mag_tf.shape[-2], (C.NUM_SYMBOLS - 1) * g.time_osr)
+        split = -g.t_start
+        pre = _sync_scores_tf_impl(mag_tf[..., :w_pre, :],
+                                   _sub_grid(g, g.t_start, split),
+                                   [m[:, :split] for m in masks])
+        main = _sync_scores_tf_impl(mag_tf, _sub_grid(g, 0, main_cols),
+                                    [m[:, split:] for m in masks])
+        return torch.cat([pre, main], dim=-2)
+    return _sync_scores_tf_impl(mag_tf, g, masks)
+
+
+def _sync_scores_tf_impl(mag_tf: torch.Tensor, g: SearchGrid,
+                         masks) -> torch.Tensor:
+    tau, phi = g.time_osr, g.freq_osr
+    num_frames = mag_tf.shape[-2]
+    left = max(0, -g.t_start)
+    right = max(0, g.t_start + g.num_times
+                + (C.NUM_SYMBOLS - 1) * tau - num_frames)
+    padded = F.pad(mag_tf, (0, 0, left, right))
+
+    def cell_power(b: int, tone: int) -> torch.Tensor:
+        start = left + g.t_start + b * tau
+        return padded[..., start: start + g.num_times,
+                      tone * phi: tone * phi + g.num_freqs]
+
+    cell_m, prev_m, next_m = (m.to(torch.float32)[:, :, None] for m in masks)
+    lead = mag_tf.shape[:-2]
+    total = mag_tf.new_zeros((*lead, g.num_times, g.num_freqs))
+    count = mag_tf.new_zeros((g.num_times, 1))
+
+    for m in range(C.NUM_COSTAS_SEQS):
+        for k in range(C.COSTAS_LEN):
+            i = m * C.COSTAS_LEN + k
+            b = m * C.SYNC_SEQ_STRIDE + k
+            tone = int(C.COSTAS_PATTERN[k])
+            cur = cell_power(b, tone)
+
+            freq_contrib = torch.zeros_like(cur)
+            n_freq = 0
+            if tone > 0:
+                freq_contrib += cur - cell_power(b, tone - 1)
+                n_freq += 1
+            if tone < 7:
+                freq_contrib += cur - cell_power(b, tone + 1)
+                n_freq += 1
+            total += cell_m[i] * freq_contrib
+            count += cell_m[i] * float(n_freq)
+
+            if k > 0:
+                total += prev_m[i] * (cur - cell_power(b - 1, tone))
+                count += prev_m[i]
+            if k < C.COSTAS_LEN - 1:
+                total += next_m[i] * (cur - cell_power(b + 1, tone))
+                count += next_m[i]
+
+    # one reciprocal per time row, then a multiply: XLA rewrites the JAX
+    # stencil's division by the broadcast count this way, and the scores
+    # stay bit-identical to it
+    inv = 1.0 / torch.clamp(count, min=1.0)
+    return torch.where(count > 0, total * inv, -torch.inf)
+
+
+def _top_k_stable(x: torch.Tensor, k: int):
+    """Top-k along the last axis, ties to the lowest index (lax.top_k's
+    order; torch.topk promises none)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def find_candidates_tf(scores_tf: torch.Tensor, g: SearchGrid,
+                       max_candidates: int, min_score: float):
+    """Top-K candidates over a time-major (..., num_times, num_freqs) grid.
+
+    Returns (abs_time, abs_freq, score, valid), each (..., K), sorted by
+    descending score with ties to the lowest (freq, time) flat index.
+    Exact row-max screening: at most K distinct frequency rows can hold
+    the top K, so the K + 12 rows with the largest maxima are screened
+    (ties to the lowest frequency) and the flat top-K runs over those rows
+    in screen order, as the JAX function does.  Cells below min_score are
+    -inf and yield valid = False.
+    """
+    masked = torch.where(scores_tf >= min_score, scores_tf, -torch.inf)
+    num_times, num_freqs = masked.shape[-2:]
+    lead = masked.shape[:-2]
+    rows_needed = max_candidates + _ROW_SLACK
+    if num_freqs <= rows_needed or num_freqs * num_times == 0:
+        flat = masked.transpose(-1, -2).reshape(*lead, -1)
+        vals, idx = _top_k_stable(flat, max_candidates)
+    else:
+        row_max = masked.amax(dim=-2)                        # (..., F)
+        _, rows = _top_k_stable(row_max, rows_needed)        # (..., R)
+        sub = torch.gather(
+            masked, -1, rows.unsqueeze(-2).expand(*lead, num_times,
+                                                  rows_needed))
+        flat = sub.transpose(-1, -2).reshape(*lead, -1)      # (..., R*T)
+        vals, i2 = _top_k_stable(flat, max_candidates)
+        idx = torch.gather(rows, -1, i2 // num_times) * num_times \
+            + i2 % num_times
+    abs_freq = (idx // g.num_times).to(torch.int32)
+    abs_time = (g.t_start + idx % g.num_times).to(torch.int32)
+    return abs_time, abs_freq, vals, torch.isfinite(vals)

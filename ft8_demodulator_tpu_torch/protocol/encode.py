@@ -1,0 +1,98 @@
+"""FT8 encode path: payload bytes -> CRC -> LDPC codeword -> 79 tone ids.
+
+The whole bit pipeline is linear over GF(2): encode is one integer product
+with the (174, 77) matrix ``C.ENCODE_MATRIX``, a mod 2 and a Gray-map
+gather.  Every function is batched over leading dimensions and runs on the
+device of its input.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from . import constants as C
+
+__all__ = [
+    "payload_to_bits",
+    "crc14",
+    "encode_codeword",
+    "codeword_to_tones",
+    "frame_tones",
+    "encode_tones",
+]
+
+
+@functools.lru_cache(maxsize=8)
+def _table(name: str, device: torch.device) -> torch.Tensor:
+    """A protocol table of ``C`` as an int64 tensor on ``device``."""
+    return torch.as_tensor(np.asarray(getattr(C, name)), dtype=torch.int64,
+                           device=device)
+
+
+def _gf2_matvec(bits: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """(..., n) 0/1 bits times the (m, n) 0/1 matrix, mod 2 -> (..., m).
+
+    Integer arithmetic (exact), as a broadcast multiply-reduce: the card
+    has no integer matmul.
+    """
+    return (bits.unsqueeze(-2) * mat).sum(-1) % 2
+
+
+def _msb_weights(nbits: int, device) -> torch.Tensor:
+    return 2 ** torch.arange(nbits - 1, -1, -1, device=device)
+
+
+def payload_to_bits(payload: torch.Tensor) -> torch.Tensor:
+    """(..., 10) uint8 payload bytes -> (..., 77) int64 bits, MSB first.
+
+    The low 3 bits of byte 9 are outside the 77-bit payload and are ignored.
+    """
+    payload = payload.to(torch.int64)
+    shifts = torch.arange(7, -1, -1, device=payload.device)
+    bits = (payload.unsqueeze(-1) >> shifts) & 1
+    return bits.reshape(*payload.shape[:-1], 80)[..., : C.PAYLOAD_BITS]
+
+
+def crc14(bits77: torch.Tensor) -> torch.Tensor:
+    """CRC-14 of the 77-bit payload (computed over 82 bits incl. 5 zeros).
+
+    Returns the checksum as an int64 per leading index.
+    """
+    crc_bits = _gf2_matvec(bits77.to(torch.int64),
+                           _table("CRC_MATRIX_77", bits77.device))
+    return (crc_bits * _msb_weights(C.CRC_BITS, bits77.device)).sum(-1)
+
+
+def encode_codeword(bits77: torch.Tensor) -> torch.Tensor:
+    """(..., 77) payload bits -> (..., 174) codeword bits.
+
+    codeword = [payload77 | crc14 | parity83], one GF(2) product.
+    """
+    return _gf2_matvec(bits77.to(torch.int64),
+                       _table("ENCODE_MATRIX", bits77.device))
+
+
+def codeword_to_tones(codeword: torch.Tensor) -> torch.Tensor:
+    """(..., 174) codeword bits -> (..., 58) Gray-coded 8-FSK tone ids."""
+    groups = codeword.reshape(*codeword.shape[:-1], C.NUM_DATA_SYMBOLS, 3)
+    vals = groups[..., 0] * 4 + groups[..., 1] * 2 + groups[..., 2]
+    return _table("GRAY_MAP", codeword.device)[vals]
+
+
+def frame_tones(data_tones: torch.Tensor) -> torch.Tensor:
+    """(..., 58) data tones -> (..., 79) frame with 3 Costas blocks."""
+    dev = data_tones.device
+    data_idx = torch.as_tensor(np.maximum(C.FRAME_DATA_INDEX, 0),
+                               dtype=torch.int64, device=dev)
+    is_costas = torch.as_tensor(C.FRAME_IS_COSTAS, device=dev)
+    gathered = data_tones[..., data_idx]
+    return torch.where(is_costas, _table("FRAME_COSTAS_TONE", dev), gathered)
+
+
+def encode_tones(payload: torch.Tensor) -> torch.Tensor:
+    """(..., 10) payload bytes -> (..., 79) tone ids (the full TX symbol map)."""
+    return frame_tones(codeword_to_tones(encode_codeword(
+        payload_to_bits(payload))))
