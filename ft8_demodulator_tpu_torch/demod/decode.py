@@ -1,20 +1,26 @@
-"""End-to-end FT8 slot decoder, the STANDARD path.
+"""End-to-end FT8 slot decoder: the STANDARD and DEEP paths.
 
-    fused waterfall kernel -> sync stencil -> top-K candidates
-    -> LLR gathers -> batched LDPC BP -> GF(2) CRC -> payloads + accept mask
+    STANDARD: fused waterfall kernel -> sync stencil -> top-K candidates
+              -> Hann LLR gathers -> batched LDPC BP -> GF(2) CRC
+    DEEP (mf_first): dual-output waterfall kernel (dB grid + boxcar MF
+              power grid) -> sync -> top-K -> MF LLR gathers from the
+              boxcar grid -> BP -> CRC -> OSD on the rows BP left
+    -> payloads + accept mask
 
-Port of the STANDARD slice of ``ft8_demodulator_tpu/demod/decode.py``:
-``decode_slots`` (the bench path), ``decode_slot`` for real input without
-the matched-filter or coherent retries, and ``finish_decode`` without OSD.
-The front half always runs the fused waterfall of
-``ops/waterfall_cuda.py`` (the CUDA kernel on the card, its plain version
-on the CPU).
+Port of ``ft8_demodulator_tpu/demod/decode.py`` for real input on block
+geometries: ``decode_slots`` (the bench path), ``decode_slot`` with the
+OSD, matched-filter retry (``use_mf``) and ``mf_first`` options, and
+``finish_decode`` with the gated OSD.  The fronts always run the fused
+kernels of ``ops/waterfall_cuda.py`` (the CUDA kernels on the card, their
+plain versions on the CPU); ``mf_first`` always takes the boxcar-grid
+route, which the JAX package takes on the TPU.
 
 The per-geometry constants (DFT matrices, combine phases, sync masks, BP
-routing, parity-check and CRC matrices, Gray map) are the buffers of one
-``SlotDecoder`` module, cached per (geometry, device); ``.to(device)``
-moves them.  ``SlotDecoder.from_arrays`` loads them from numpy arrays, for
-instance the ones the JAX package builds.
+routing, parity-check and CRC matrices, Gray map, OSD basis and row
+syndromes) are the buffers of one ``SlotDecoder`` module, cached per
+(geometry, device); ``.to(device)`` moves them.
+``SlotDecoder.from_arrays`` loads them from numpy arrays, for instance the
+ones the JAX package builds.
 """
 
 from __future__ import annotations
@@ -27,22 +33,24 @@ from torch import nn
 
 from ..ops.ldpc_decode import BPTables, _build_routing, bp_decode_batch, \
     make_bp_tables
-from ..ops.llr import extract_llrs_tf
+from ..ops import osd
+from ..ops.llr import (extract_llrs_matched_blocks, extract_llrs_matched_grid,
+                       extract_llrs_tf)
 from ..ops.sync import (SearchGrid, _cell_masks, find_candidates_tf,
                         search_grid, sync_scores_tf)
 from ..ops.waterfall import (WaterfallParams, _block_combine_phases,
-                             _block_dft_matrices, _pick_backend,
-                             waterfall_params)
-from ..ops.waterfall_cuda import block_waterfall_tf_fused_batch
+                             _block_dft_matrices, _block_spectrum,
+                             _require_block, waterfall_params)
+from ..ops.waterfall_cuda import (block_waterfall_mf_tf_fused_batch,
+                                  block_waterfall_tf_fused_batch)
 from ..protocol import constants as C
 from .types import SlotDecodeResult
 
 __all__ = ["SlotDecoder", "decoder_arrays", "slot_decoder", "decode_slot",
-           "decode_slots", "finish_decode"]
+           "decode_slots", "finish_decode", "mf_retry"]
 
 # where ROADMAP.md lists the options this slice does not port yet
-_TODO_MF = "ROADMAP.md, queue 1, 'MF family + K3'"
-_TODO_OSD = "ROADMAP.md, queue 1, 'OSD + K4'"
+_TODO_MF = "ROADMAP.md, queue 1, 'rest of the MF family'"
 _TODO_DECODERS = "ROADMAP.md, queue 1, 'remaining decoders'"
 _TODO_WATERFALL = "ROADMAP.md, queue 1, 'waterfall backends and complex input'"
 
@@ -72,11 +80,12 @@ def decoder_arrays(p: WaterfallParams, num_frames: int
         "mi_mask": mi_mask,
         "parity_check": C.PARITY_CHECK, "crc_matrix_77": C.CRC_MATRIX_77,
         "gray_map": C.GRAY_MAP,
+        "osd_basis": osd._basis(), "osd_row_syndromes": osd._ROW_SYNDROMES_NP,
     }
 
 
 class SlotDecoder(nn.Module):
-    """Constants of the STANDARD decode for one (geometry, num_frames), as
+    """Constants of the decode for one (geometry, num_frames), as
     registered buffers."""
 
     def __init__(self, arrays: dict[str, np.ndarray]):
@@ -102,6 +111,8 @@ class SlotDecoder(nn.Module):
             "parity_check": (C.LDPC_M, C.LDPC_N),
             "crc_matrix_77": (C.CRC_BITS, C.PAYLOAD_BITS),
             "gray_map": (8,),
+            "osd_basis": (C.LDPC_K, C.LDPC_N),
+            "osd_row_syndromes": (C.LDPC_K, C.CRC_BITS),
         }
         for key, shape in shapes.items():
             if np.shape(arrays[key]) != shape:
@@ -124,6 +135,10 @@ class SlotDecoder(nn.Module):
         self.register_buffer(
             "crc_t", t("crc_matrix_77", torch.float32).T.contiguous())
         self.register_buffer("gray_map", t("gray_map", torch.int64))
+        tables = osd.make_osd_tables(arrays["osd_basis"],
+                                     arrays["osd_row_syndromes"], "cpu")
+        for key, value in tables._asdict().items():
+            self.register_buffer(f"osd_{key}", value)
 
     @classmethod
     def from_arrays(cls, arrays: dict[str, np.ndarray],
@@ -141,6 +156,10 @@ class SlotDecoder(nn.Module):
 
     def bp_tables(self) -> BPTables:
         return BPTables(*(getattr(self, f) for f in BPTables._fields))
+
+    def osd_tables(self) -> osd.OSDTables:
+        return osd.OSDTables(*(getattr(self, f"osd_{f}")
+                               for f in osd.OSDTables._fields))
 
 
 @functools.lru_cache(maxsize=8)
@@ -176,15 +195,25 @@ def finish_decode(llrs: torch.Tensor, abs_time: torch.Tensor,
                   ) -> SlotDecodeResult:
     """(..., 174) LLRs + candidate metadata -> SlotDecodeResult.
 
-    BP -> CRC -> payload pack.  ``decoder`` supplies the BP and CRC tables;
+    BP -> CRC -> payload pack.  ``use_osd`` runs ordered-statistics
+    decoding (``ops/osd.py``) on the valid candidates whose BP decode did
+    not pass the CRC; an accepted OSD codeword replaces the BP one (its
+    ldpc_errors read 0).  ``decoder`` supplies the BP, CRC and OSD tables;
     None builds them.
     """
-    if use_osd:
-        raise _not_ported("use_osd", _TODO_OSD)
     tables = decoder.bp_tables() if decoder is not None else None
+    crc_t = decoder.crc_t if decoder is not None else None
     plain, ldpc_errors = bp_decode_batch(llrs, max_iterations, tables)
-    crc_calc, crc_extracted = _crc_of_plain(
-        plain, decoder.crc_t if decoder is not None else None)
+    crc_calc, crc_extracted = _crc_of_plain(plain, crc_t)
+
+    if use_osd:
+        bp_success = (ldpc_errors == 0) & (crc_calc == crc_extracted)
+        osd_plain, take = osd.osd_decode_masked(
+            llrs, cand_valid & ~bp_success,
+            tables=decoder.osd_tables() if decoder is not None else None)
+        plain = torch.where(take[..., None], osd_plain, plain)
+        ldpc_errors = torch.where(take, 0, ldpc_errors)
+        crc_calc, crc_extracted = _crc_of_plain(plain, crc_t)
 
     # payload bytes: 77 bits + 3 zero pad, packed MSB-first
     lead = plain.shape[:-1]
@@ -204,17 +233,86 @@ def finish_decode(llrs: torch.Tensor, abs_time: torch.Tensor,
     )
 
 
+def _merge_results(res: SlotDecodeResult,
+                   retry: SlotDecodeResult) -> SlotDecodeResult:
+    """Rows that succeed in ``retry`` replace their failed originals in
+    ``res`` (candidate coordinates are shared, so decodes are a strict
+    superset)."""
+    take = ~res.success & retry.success
+    pick = lambda a, b: torch.where(take, a, b)
+    return SlotDecodeResult(
+        success=res.success | retry.success,
+        payload=torch.where(take[..., None], retry.payload, res.payload),
+        crc=pick(retry.crc, res.crc),
+        crc_extracted=pick(retry.crc_extracted, res.crc_extracted),
+        ldpc_errors=pick(retry.ldpc_errors, res.ldpc_errors),
+        abs_time=res.abs_time, abs_freq=res.abs_freq, score=res.score,
+        candidate_valid=res.candidate_valid,
+    )
+
+
+def _mf_llrs(wave: torch.Tensor, p: WaterfallParams, abs_time: torch.Tensor,
+             abs_freq: torch.Tensor,
+             decoder: SlotDecoder | None = None) -> torch.Tensor:
+    """Matched-filter LLRs for candidates at absolute audio coordinates,
+    from the block spectra of the whole wave (block geometry only)."""
+    spec = _block_spectrum(wave, p, p.num_frames(wave.shape[-1]))
+    return extract_llrs_matched_blocks(
+        spec, abs_time, abs_freq, p.time_osr, p.freq_osr,
+        decoder.gray_map if decoder is not None else None)
+
+
+def mf_retry(wave: torch.Tensor, p: WaterfallParams, res: SlotDecodeResult,
+             t0_hops: int = 0, f0_rows: int = 0, max_iterations: int = 20,
+             use_osd: bool = False,
+             decoder: SlotDecoder | None = None) -> SlotDecodeResult:
+    """Matched-filter second chance for candidates BP(+OSD) could not
+    crack.
+
+    Re-extracts each candidate's LLRs from boxcar symbol DFTs of the audio
+    and re-runs the decode; rows that now succeed replace their failed
+    originals (a strict superset of the first pass).  t0_hops / f0_rows
+    translate crop-relative candidate indices to absolute ones.
+    """
+    _require_block(p)
+    llrs = _mf_llrs(wave, p, res.abs_time + t0_hops, res.abs_freq + f0_rows,
+                    decoder)
+    return _merge_results(res, finish_decode(
+        llrs, res.abs_time, res.abs_freq, res.score, res.candidate_valid,
+        max_iterations, use_osd, decoder))
+
+
+def _candidates(mag_tf: torch.Tensor, g: SearchGrid, max_candidates: int,
+                min_score: float, decoder: SlotDecoder | None):
+    """Time-major dB grid(s) (..., T, F) -> sync -> top-K."""
+    masks = decoder.masks() if decoder is not None else None
+    return find_candidates_tf(sync_scores_tf(mag_tf, g, masks), g,
+                              max_candidates, min_score)
+
+
 def _front_from_mag_tf(mag_tf: torch.Tensor, g: SearchGrid,
                        max_candidates: int, min_score: float,
                        decoder: SlotDecoder | None = None):
-    """Time-major dB grid(s) (..., T, F) -> sync -> top-K -> LLRs (no BP)."""
-    masks = decoder.masks() if decoder is not None else None
+    """Time-major dB grid(s) (..., T, F) -> sync -> top-K -> Hann LLRs (no
+    BP)."""
     gray = decoder.gray_map if decoder is not None else None
-    scores = sync_scores_tf(mag_tf, g, masks)
-    abs_time, abs_freq, score, cand_valid = find_candidates_tf(
-        scores, g, max_candidates, min_score)
+    abs_time, abs_freq, score, cand_valid = _candidates(
+        mag_tf, g, max_candidates, min_score, decoder)
     llrs = extract_llrs_tf(mag_tf, abs_time, abs_freq, g.time_osr,
                            g.freq_osr, g.num_blocks, gray)
+    return llrs, abs_time, abs_freq, score, cand_valid
+
+
+def _front_mf_grid(mag_tf: torch.Tensor, box_tf: torch.Tensor,
+                   g: SearchGrid, max_candidates: int, min_score: float,
+                   decoder: SlotDecoder | None = None):
+    """dB grid(s) (..., T, F) + boxcar grid(s) (..., T + 2(tau-1), F) ->
+    sync -> top-K on the dB grid -> MF LLRs from the boxcar grid."""
+    gray = decoder.gray_map if decoder is not None else None
+    abs_time, abs_freq, score, cand_valid = _candidates(
+        mag_tf, g, max_candidates, min_score, decoder)
+    llrs = extract_llrs_matched_grid(box_tf, abs_time, abs_freq, g.time_osr,
+                                     g.freq_osr, gray)
     return llrs, abs_time, abs_freq, score, cand_valid
 
 
@@ -229,16 +327,6 @@ def _check_decoder(decoder: SlotDecoder, p: WaterfallParams,
                          f"audio on {device}")
 
 
-def _require_standard(p: WaterfallParams, use_osd: bool = False,
-                      mf_first: bool = False) -> None:
-    if use_osd:
-        raise _not_ported("use_osd", _TODO_OSD)
-    if mf_first:
-        raise _not_ported("mf_first", _TODO_MF)
-    if _pick_backend(p, None) != "block":
-        raise _not_ported(f"the non-block geometry {p}", _TODO_WATERFALL)
-
-
 def decode_slots(waves: torch.Tensor, p: WaterfallParams, num_frames: int,
                  max_candidates: int = 20, min_score: float = 10.0,
                  max_iterations: int = 20, use_osd: bool = False,
@@ -247,17 +335,19 @@ def decode_slots(waves: torch.Tensor, p: WaterfallParams, num_frames: int,
                  decoder: SlotDecoder | None = None) -> SlotDecodeResult:
     """Batched real audio (B, n) f32 -> SlotDecodeResult with (B, K) rows.
 
-    * the front half (fused waterfall -> sync -> top-K -> LLRs) runs in
-      pieces of `chunk` slots, one waterfall launch per piece;
-    * LDPC BP + CRC run over groups of `bp_chunk` slots (bp_chunk * K
-      candidate rows at once); the all-halted early exit waits for the
-      slowest row of a group.
+    * the front half runs in pieces of `chunk` slots, one waterfall launch
+      per piece: the dB waterfall -> sync -> top-K -> Hann LLRs, or with
+      ``mf_first`` the dual-output waterfall -> sync -> top-K -> MF LLRs
+      from the boxcar grid;
+    * LDPC BP + CRC (+ OSD with ``use_osd``) run over groups of `bp_chunk`
+      slots (bp_chunk * K candidate rows at once); the all-halted early
+      exit waits for the slowest row of a group.
 
     B must be a multiple of `chunk`; `bp_chunk` is clamped to B and rounded
     down to a divisor of B.  ``decoder`` defaults to the cached one of this
     geometry on the device of ``waves``.
     """
-    _require_standard(p, use_osd, mf_first)
+    _require_block(p)
     b = waves.shape[0]
     if b % chunk:
         raise ValueError(f"batch {b} not a multiple of chunk {chunk}")
@@ -268,10 +358,16 @@ def decode_slots(waves: torch.Tensor, p: WaterfallParams, num_frames: int,
 
     fronts = []
     for w in waves.split(chunk):
-        mags = block_waterfall_tf_fused_batch(w, p, num_frames,
-                                              decoder.waterfall_consts())
-        fronts.append(_front_from_mag_tf(mags, g, max_candidates, min_score,
-                                         decoder))
+        if mf_first:
+            mags, boxes = block_waterfall_mf_tf_fused_batch(
+                w, p, num_frames, decoder.waterfall_consts())
+            fronts.append(_front_mf_grid(mags, boxes, g, max_candidates,
+                                         min_score, decoder))
+        else:
+            mags = block_waterfall_tf_fused_batch(
+                w, p, num_frames, decoder.waterfall_consts())
+            fronts.append(_front_from_mag_tf(mags, g, max_candidates,
+                                             min_score, decoder))
     # (B*K, ...) candidate rows: llrs, abs_time, abs_freq, score, valid
     front = [torch.cat(parts).flatten(0, 1) for parts in zip(*fronts)]
 
@@ -280,7 +376,7 @@ def decode_slots(waves: torch.Tensor, p: WaterfallParams, num_frames: int,
         bp_chunk -= 1
     rows = bp_chunk * max_candidates
     groups = [finish_decode(*(a[i: i + rows] for a in front),
-                            max_iterations, decoder=decoder)
+                            max_iterations, use_osd, decoder)
               for i in range(0, b * max_candidates, rows)]
     return SlotDecodeResult(*(
         torch.cat(parts).reshape(b, max_candidates, *parts[0].shape[1:])
@@ -299,21 +395,34 @@ def decode_slot(wave: torch.Tensor, p: WaterfallParams, num_frames: int,
                 decoder: SlotDecoder | None = None) -> SlotDecodeResult:
     """Real audio (n,) -> SlotDecodeResult (K rows).
 
-    The real-input decode without the matched-filter or coherent retries;
-    those options raise NotImplementedError.
+    ``mf_first`` decodes every candidate from matched-filter LLRs of the
+    dual-output waterfall's boxcar grid in one BP(+OSD) pass (row for row
+    what :func:`decode_slots` gives); otherwise the Hann LLRs decode and
+    ``use_mf`` adds the matched-filter retry (:func:`mf_retry`).
+    ``is_complex``, ``mf_refine`` and ``coherent`` raise
+    NotImplementedError.
     """
     if is_complex:
         raise _not_ported("is_complex", _TODO_WATERFALL)
-    if use_mf or mf_refine:
-        raise _not_ported("use_mf / mf_refine", _TODO_MF)
+    if mf_refine:
+        raise _not_ported("mf_refine", _TODO_MF)
     if coherent:
         raise _not_ported("coherent", _TODO_DECODERS)
-    _require_standard(p, use_osd, mf_first)
+    _require_block(p)
     if decoder is None:
         decoder = slot_decoder(p, num_frames, wave.device)
     _check_decoder(decoder, p, num_frames, wave.device)
+    if mf_first:
+        mags, boxes = block_waterfall_mf_tf_fused_batch(
+            wave[None], p, num_frames, decoder.waterfall_consts())
+        outs = _front_mf_grid(mags[0], boxes[0], decoder.g, max_candidates,
+                              min_score, decoder)
+        return finish_decode(*outs, max_iterations, use_osd, decoder)
     mag_tf = block_waterfall_tf_fused_batch(wave[None], p, num_frames,
                                             decoder.waterfall_consts())[0]
     outs = _front_from_mag_tf(mag_tf, decoder.g, max_candidates, min_score,
                               decoder)
-    return finish_decode(*outs, max_iterations, decoder=decoder)
+    res = finish_decode(*outs, max_iterations, use_osd, decoder)
+    if use_mf:
+        res = mf_retry(wave, p, res, 0, 0, max_iterations, use_osd, decoder)
+    return res

@@ -184,6 +184,34 @@ def _block_power(spec: torch.Tensor, p: WaterfallParams, num_frames: int,
     return x.real * x.real + x.imag * x.imag
 
 
+def _block_boxcar_tf(spec: torch.Tensor, p: WaterfallParams, num_frames: int,
+                     phases: tuple[torch.Tensor, torch.Tensor] | None = None
+                     ) -> torch.Tensor:
+    """Boxcar (no-window) one-symbol DFT power grid, time-major.
+
+    Complex block spectra (..., nb, Kx) -> (..., num_frames + 2*(time_osr
+    - 1), num_freq_bins).  Row j is |X|^2 of the boxcar symbol DFT whose
+    window starts at block j - (time_osr - 1): the phase combine of
+    :func:`_block_power` without the Hann stencil, over spectra padded by
+    time_osr - 1 zero blocks at each end, so partially captured edge
+    symbols carry their exact partial sums.  The Hann frame t uses the
+    same combine as row t + time_osr - 1.
+    """
+    if phases is None:
+        phases = tuple(torch.as_tensor(m, device=spec.device)
+                       for m in _block_combine_phases(p))
+    tau, phi = p.time_osr, p.freq_osr
+    k0, k1 = phi, phi + p.num_freq_bins
+    nbrows = num_frames + 2 * (tau - 1)
+    w = torch.complex(*phases)[:, k0:k1]
+    zeros = spec.new_zeros((*spec.shape[:-2], tau - 1, k1 - k0))
+    padded = torch.cat([zeros, spec[..., k0:k1], zeros], dim=-2)
+    u = padded[..., 0:nbrows, :] * w[0]
+    for s in range(1, tau):
+        u = u + padded[..., s: s + nbrows, :] * w[s]
+    return u.real * u.real + u.imag * u.imag
+
+
 def _power_to_db(power: torch.Tensor, p: WaterfallParams) -> torch.Tensor:
     return 10.0 * torch.log10(_DB_FLOOR + power * _db_scale(p))
 

@@ -1,27 +1,34 @@
-"""Fused block-DFT -> dB waterfall on the card (time-major output).
+"""Fused block-DFT waterfalls on the card (time-major outputs).
 
-Counterpart of ``ft8_demodulator_tpu/ops/waterfall_pallas.py``.  The CUDA
-kernel ``csrc/waterfall_tf.cu`` replaces both TPU kernels there, ``_kernel``
-(:123) and its VMEM-overflow variant ``_kernel_strips`` (:191): it streams
-the weight columns each thread block needs through shared memory, so one
-kernel serves every block geometry, 20 kHz at osr 2x2 included.
+Counterpart of ``ft8_demodulator_tpu/ops/waterfall_pallas.py``.  One CUDA
+source, ``csrc/waterfall_tf.cu``, replaces its three TPU kernels:
 
-What bounds it on the card: the DFT products.  At 12 kHz, osr 2x2 a slot
-costs ~1.38 GFLOP against 0.72 MB of audio in and 1.43 MB of dB grid out,
-so the kernel is compute-bound.  The design keeps the block spectra in
-shared memory (they never reach device memory) and runs the products as a
-register-tiled GEMM on the CUDA cores; the source's header note has the
-tiling.  Tensor cores are later work.
+* :func:`block_waterfall_tf_fused_batch` (the dB grid) replaces ``_kernel``
+  (:123) and its VMEM-overflow variant ``_kernel_strips`` (:191): the CUDA
+  kernel streams the weight columns each thread block needs through shared
+  memory, so one kernel serves every block geometry;
+* :func:`block_waterfall_mf_tf_fused_batch` (the dB grid and the boxcar
+  matched-filter power grid from one combine) replaces ``_kernel_mf``
+  (:444), the front of the DEEP decode.
+
+What bounds them on the card: the DFT products.  At 12 kHz a slot costs
+~1.38 GFLOP at osr 2x2 and ~2.77 GFLOP at osr 4x4 against 0.72 MB of audio
+in and 1.4 MB (2x2) or 11.5 MB (4x4, both grids) out, so the kernels are
+compute-bound.  The design keeps the block spectra in shared memory (they
+never reach device memory) and runs the products as a register-tiled GEMM
+on the CUDA cores; the source's header note has the tiling.  Tensor cores
+are later work.
 
 Numerics: both DFT operands are rounded to bf16 (the audio in the kernel,
 the matrices stored as bf16 buffers) and the products accumulate in f32,
-the rounding of the TPU kernel.  :func:`block_waterfall_tf_fused_batch_plain`
-is the plain PyTorch version of the same function: the same bf16-cast
-operands, an f32 matmul, then the ``_block_power`` / dB epilogue.
+the rounding of the TPU kernels.  The ``_plain`` functions are the plain
+PyTorch versions of the same functions: the same bf16-cast operands, an
+f32 matmul, then the ``_block_power`` / dB and ``_block_boxcar_tf``
+epilogues.
 
-:func:`block_waterfall_tf_fused_batch` takes the plain version for a CPU
-tensor; for a CUDA tensor it launches the kernel or raises.  Its
-``launches`` attribute counts kernel launches.
+Each wrapper takes its plain version for a CPU tensor; for a CUDA tensor it
+launches its kernel or raises.  Its ``launches`` attribute counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -31,12 +38,15 @@ import functools
 
 import torch
 
-from .waterfall import (WaterfallParams, _block_combine_phases,
-                        _block_dft_matrices, _block_geometry_ok,
-                        _block_waterfall_tf, _blocks, _db_scale)
+from .waterfall import (WaterfallParams, _block_boxcar_tf,
+                        _block_combine_phases, _block_dft_matrices,
+                        _block_geometry_ok, _block_waterfall_tf, _blocks,
+                        _db_scale)
 
 __all__ = ["block_waterfall_tf_fused_batch",
-           "block_waterfall_tf_fused_batch_plain", "fused_constants"]
+           "block_waterfall_tf_fused_batch_plain",
+           "block_waterfall_mf_tf_fused_batch",
+           "block_waterfall_mf_tf_fused_batch_plain", "fused_constants"]
 
 # grid dimension z of the launch is the batch
 _MAX_BATCH = 65535
@@ -63,9 +73,29 @@ def block_waterfall_tf_fused_batch_plain(waves: torch.Tensor,
     bf16-rounded operands, float32 products and epilogue.
     """
     cos_m, sin_m, wc, ws = consts or fused_constants(p, waves.device)
-    blocks = _blocks(waves, p, num_frames).to(torch.bfloat16).float()
-    spec = torch.complex(blocks @ cos_m.float(), blocks @ sin_m.float())
+    spec = _bf16_spectra(waves, p, num_frames, cos_m, sin_m)
     return _block_waterfall_tf(spec, p, num_frames, phases=(wc, ws))
+
+
+def block_waterfall_mf_tf_fused_batch_plain(waves: torch.Tensor,
+                                            p: WaterfallParams,
+                                            num_frames: int, consts=None
+                                            ) -> tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """Plain PyTorch version of the dual-output kernel: (B, n) -> (dB
+    (B, num_frames, nbins), boxcar power (B, num_frames + 2*(tau-1),
+    nbins)), both from the same bf16-operand spectra."""
+    cos_m, sin_m, wc, ws = consts or fused_constants(p, waves.device)
+    spec = _bf16_spectra(waves, p, num_frames, cos_m, sin_m)
+    return (_block_waterfall_tf(spec, p, num_frames, phases=(wc, ws)),
+            _block_boxcar_tf(spec, p, num_frames, phases=(wc, ws)))
+
+
+def _bf16_spectra(waves, p, num_frames, cos_m, sin_m) -> torch.Tensor:
+    """Complex block spectra from bf16-rounded audio and weights, float32
+    products."""
+    blocks = _blocks(waves, p, num_frames).to(torch.bfloat16).float()
+    return torch.complex(blocks @ cos_m.float(), blocks @ sin_m.float())
 
 
 @functools.lru_cache(maxsize=1)
@@ -73,10 +103,12 @@ def _library():
     from ..utils.build import kernel_library
 
     kl = kernel_library()
-    fn = kl.lib.ft8_waterfall_tf
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    for name, pointers in (("ft8_waterfall_tf", 6),
+                           ("ft8_waterfall_mf_tf", 7)):
+        fn = getattr(kl.lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     for name in ("ft8_waterfall_tf_tile_rows", "ft8_waterfall_tf_tile_cols"):
         getattr(kl.lib, name).argtypes = []
         getattr(kl.lib, name).restype = ctypes.c_int
@@ -126,28 +158,65 @@ def block_waterfall_tf_fused_batch(waves: torch.Tensor, p: WaterfallParams,
                                                     consts)
     if waves.device.type != "cuda":
         raise ValueError(f"no kernel for device {waves.device}")
+    out = torch.empty((waves.shape[0], num_frames, p.num_freq_bins),
+                      dtype=torch.float32, device=waves.device)
+    _launch("ft8_waterfall_tf", waves, p, num_frames, consts, (out,))
+    block_waterfall_tf_fused_batch.launches += 1
+    return out
 
+
+def block_waterfall_mf_tf_fused_batch(waves: torch.Tensor,
+                                      p: WaterfallParams, num_frames: int,
+                                      consts=None
+                                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Real audio (B, n) f32 -> (time-major dB waterfalls (B, num_frames,
+    nbins), boxcar power grids (B, num_frames + 2*(tau-1), nbins)), f32.
+
+    Row j of a boxcar grid is |X|^2 of the one-symbol boxcar DFT whose
+    window starts at block j - (tau-1) (``ops/waterfall.py``
+    ``_block_boxcar_tf``); frame t of the dB grid is the Hann stencil of
+    the same combine at row t + tau - 1.  ``consts`` as for
+    :func:`block_waterfall_tf_fused_batch`.  A CPU tensor goes through
+    :func:`block_waterfall_mf_tf_fused_batch_plain`; a CUDA tensor through
+    the CUDA kernel (a build or launch failure raises).
+    """
+    consts = consts or fused_constants(p, waves.device)
+    _check_inputs(waves, p, num_frames, consts)
+    if waves.device.type == "cpu":
+        return block_waterfall_mf_tf_fused_batch_plain(waves, p, num_frames,
+                                                       consts)
+    if waves.device.type != "cuda":
+        raise ValueError(f"no kernel for device {waves.device}")
+    b, nbins = waves.shape[0], p.num_freq_bins
+    db = torch.empty((b, num_frames, nbins), dtype=torch.float32,
+                     device=waves.device)
+    box = torch.empty((b, num_frames + 2 * (p.time_osr - 1), nbins),
+                      dtype=torch.float32, device=waves.device)
+    _launch("ft8_waterfall_mf_tf", waves, p, num_frames, consts, (db, box))
+    block_waterfall_mf_tf_fused_batch.launches += 1
+    return db, box
+
+
+def _launch(name: str, waves, p: WaterfallParams, num_frames: int, consts,
+            outs: tuple[torch.Tensor, ...]) -> None:
+    """Launch kernel ``name`` of the library on the current stream."""
     lib = _library()
     tau, phi = p.time_osr, p.freq_osr
     if tau > lib.ft8_waterfall_tf_tile_rows() \
             or 2 * phi >= lib.ft8_waterfall_tf_tile_cols():
         raise ValueError(f"osr {tau}x{phi} exceeds the kernel's tile")
     waves = waves.contiguous()
-    b = waves.shape[0]
-    out = torch.empty((b, num_frames, p.num_freq_bins), dtype=torch.float32,
-                      device=waves.device)
     with torch.cuda.device(waves.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ft8_waterfall_tf(
-            waves.data_ptr(), consts[0].data_ptr(), consts[1].data_ptr(),
-            consts[2].data_ptr(), consts[3].data_ptr(), out.data_ptr(),
-            b, waves.shape[1], p.hop, p.num_freq_bins + 2 * phi,
-            p.num_freq_bins, num_frames, tau, phi, _db_scale(p), stream)
+        err = getattr(lib, name)(
+            waves.data_ptr(), *(c.data_ptr() for c in consts),
+            *(o.data_ptr() for o in outs), waves.shape[0], waves.shape[1],
+            p.hop, p.num_freq_bins + 2 * phi, p.num_freq_bins, num_frames,
+            tau, phi, _db_scale(p), stream)
     if err != 0:
-        raise RuntimeError("waterfall_tf launch failed: "
+        raise RuntimeError(f"{name} launch failed: "
                            + lib.ft8_cuda_error_string(err).decode())
-    block_waterfall_tf_fused_batch.launches += 1
-    return out
 
 
 block_waterfall_tf_fused_batch.launches = 0
+block_waterfall_mf_tf_fused_batch.launches = 0

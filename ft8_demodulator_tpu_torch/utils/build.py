@@ -1,10 +1,12 @@
 """Build the package's CUDA kernels and load them with ctypes.
 
-``csrc/*.cu`` compile with nvcc into one shared library with a plain C
-interface, at first use, into ``_build/`` beside this package (listed in
-``.gitignore``).  The library's name carries a hash of the sources and
-flags, so an edited source builds anew and an unchanged one loads the
-earlier build.  A build failure raises; nothing falls back.
+Each ``csrc/*.cu`` compiles with its own nvcc process, all started
+together, into an object file; one more nvcc call links the objects into a
+shared library with a plain C interface.  This happens at first use, into
+``_build/`` beside this package (listed in ``.gitignore``).  The library's
+name carries a hash of the sources and flags, so an edited source builds
+anew and an unchanged one loads the earlier build.  A build failure
+raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _NVCC_TIMEOUT_S = 600
 
 
@@ -59,24 +61,52 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise on the first that fails.
+    Returns their outputs, concatenated."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs, failed = [], []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=_NVCC_TIMEOUT_S)
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed with exit code {proc.returncode}"
+                              f":\n{' '.join(cmd)}\n{out}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
+
+
 @functools.lru_cache(maxsize=1)
 def kernel_library() -> KernelLibrary:
     """Build (if needed) and load the kernels of ``csrc/``."""
-    lib_path = BUILD_DIR / f"libft8_kernels_{_digest()}.so"
+    digest = _digest()
+    lib_path = BUILD_DIR / f"libft8_kernels_{digest}.so"
     log_path = lib_path.with_suffix(".log")
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc, tag = _nvcc(), f"{digest}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in _sources()]
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=_NVCC_TIMEOUT_S)
-        if proc.returncode != 0:
+        try:
+            log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                             str(src)]
+                            for src, obj in zip(_sources(), objs)])
+            log += _run_all([[nvcc, "-shared", "-o", str(tmp),
+                              *map(str, objs)]])
+            log_path.write_text(log)
+            os.replace(tmp, lib_path)
+        finally:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
+            for obj in objs:
+                obj.unlink(missing_ok=True)
     log = log_path.read_text() if log_path.exists() else ""
     return KernelLibrary(ctypes.CDLL(str(lib_path)), lib_path, log)

@@ -1,4 +1,5 @@
-"""The CUDA fused-waterfall kernel against its plain PyTorch version.
+"""The CUDA kernels against their plain PyTorch versions: the fused
+waterfall (dB only and dual output) and the OSD elimination.
 
 Needs a CUDA card: every test takes the ``cuda`` fixture, which skips when
 there is none.  The file imports neither JAX nor the JAX package, and uses
@@ -12,6 +13,8 @@ import pytest
 import torch
 
 from ft8_demodulator_tpu_torch.demod import decode as tdec
+from ft8_demodulator_tpu_torch.ops import osd as tosd
+from ft8_demodulator_tpu_torch.ops import osd_cuda as tosc
 from ft8_demodulator_tpu_torch.ops import waterfall_cuda as twc
 from ft8_demodulator_tpu_torch.ops.gfsk import ft8_passband
 from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
@@ -20,6 +23,9 @@ pytestmark = pytest.mark.cuda
 
 # bf16 operands on both sides; float32 sums in another order -> 5e-3 dB
 ATOL_DB = 5e-3
+# the boxcar power grid, same operands and sum order argument: relative
+# 1e-4 of each cell plus 1e-4 of the grid's mean power (cells in nulls)
+BOX_RTOL = 1e-4
 
 
 @pytest.fixture
@@ -53,6 +59,48 @@ def test_kernel_matches_plain(cuda, fs, osr, b):
     torch.testing.assert_close(got, want, rtol=0, atol=ATOL_DB)
 
 
+@pytest.mark.parametrize("fs,b", [(12000.0, 2), (2000.0, 3)])
+def test_mf_kernel_matches_plain(cuda, fs, b):
+    p = waterfall_params(fs, 4, 4)
+    n = int(fs * 15)
+    nf = p.num_frames(n)
+    waves = _noisy(9, b, n).to(cuda)
+    db, box = twc.block_waterfall_mf_tf_fused_batch(waves, p, nf)
+    want_db, want_box = twc.block_waterfall_mf_tf_fused_batch_plain(
+        waves, p, nf)
+    single = twc.block_waterfall_tf_fused_batch(waves, p, nf)
+    torch.cuda.synchronize()
+    assert db.shape == (b, nf, p.num_freq_bins)
+    assert box.shape == (b, nf + 6, p.num_freq_bins)
+    assert torch.isfinite(db).all() and torch.isfinite(box).all()
+    torch.testing.assert_close(db, want_db, rtol=0, atol=ATOL_DB)
+    torch.testing.assert_close(db, single, rtol=0, atol=ATOL_DB)
+    torch.testing.assert_close(box, want_box, rtol=BOX_RTOL,
+                               atol=BOX_RTOL * float(want_box.mean()))
+    # the first and last tau - 1 rows are partial sums, not zeros
+    assert (box[:, :3].amax(-1) > 0).all() and (box[:, -3:].amax(-1)
+                                                 > 0).all()
+
+
+def _tied_bases(rows, device, seed=0):
+    """Packed permuted bases from random LLRs with forced zero ties."""
+    rng = np.random.default_rng(seed)
+    llr = rng.standard_normal((rows, 174)).astype(np.float32)
+    llr[rng.random(llr.shape) < 0.2] = 0.0
+    llr = torch.as_tensor(llr, device=device)
+    order = torch.sort(-llr.abs(), dim=-1, stable=True).indices
+    return tosd._permute_pack(order, tosd.osd_tables(device))
+
+
+@pytest.mark.parametrize("rows", [1, 3, 4097])
+def test_osd_kernel_matches_plain_bit_for_bit(cuda, rows):
+    bases = _tied_bases(rows, cuda)
+    red, pcol = tosc.reduce_basis_batch(bases)
+    want_red, want_pcol = tosc.reduce_basis_batch_plain(bases)
+    torch.cuda.synchronize()
+    assert torch.equal(red, want_red) and torch.equal(pcol, want_pcol)
+
+
 def test_launch_counter(cuda):
     p = waterfall_params(2000.0, 2, 2)
     n = 30000
@@ -64,6 +112,37 @@ def test_launch_counter(cuda):
     twc.block_waterfall_tf_fused_batch_plain(waves, p, nf)
     torch.cuda.synchronize()
     assert twc.block_waterfall_tf_fused_batch.launches == before + 2
+    p4 = waterfall_params(2000.0, 4, 4)
+    before = twc.block_waterfall_mf_tf_fused_batch.launches
+    twc.block_waterfall_mf_tf_fused_batch(waves, p4, p4.num_frames(n))
+    twc.block_waterfall_mf_tf_fused_batch_plain(waves, p4, p4.num_frames(n))
+    bases = _tied_bases(5, cuda)
+    before_osd = tosc.reduce_basis_batch.launches
+    rows_osd = tosc.reduce_basis_batch.rows
+    tosc.reduce_basis_batch(bases)
+    tosc.reduce_basis_batch_plain(bases)
+    torch.cuda.synchronize()
+    assert twc.block_waterfall_mf_tf_fused_batch.launches == before + 1
+    assert tosc.reduce_basis_batch.launches == before_osd + 1
+    assert tosc.reduce_basis_batch.rows == rows_osd + 5
+
+
+def _planted(seed, fs, n):
+    rng = np.random.default_rng(seed)
+    payloads = rng.integers(0, 256, size=(4, 10), dtype=np.uint8)
+    payloads[:, 9] &= 0xF8
+    waves = 0.3 * rng.standard_normal((4, n)).astype(np.float32)
+    for i in range(4):
+        sig = ft8_passband(payloads[i], fs, 350.0 + 80.0 * i, 0.0).numpy()
+        waves[i, 300: 300 + len(sig)] += sig
+    return torch.as_tensor(waves), payloads
+
+
+def _decode_sets(res, b):
+    ok = res.success[b].cpu().numpy()
+    return {(bytes(pl), int(t), int(f)) for pl, t, f in zip(
+        res.payload[b].cpu().numpy()[ok], res.abs_time[b].cpu().numpy()[ok],
+        res.abs_freq[b].cpu().numpy()[ok])}
 
 
 def test_decode_slots_card_matches_cpu(cuda):
@@ -71,29 +150,58 @@ def test_decode_slots_card_matches_cpu(cuda):
     n = int(fs * 15)
     p = waterfall_params(fs, 2, 2)
     nf = p.num_frames(n)
-    rng = np.random.default_rng(11)
-    payloads = rng.integers(0, 256, size=(4, 10), dtype=np.uint8)
-    payloads[:, 9] &= 0xF8
-    waves = 0.3 * rng.standard_normal((4, n)).astype(np.float32)
-    for i in range(4):
-        sig = ft8_passband(payloads[i], fs, 350.0 + 80.0 * i, 0.0).numpy()
-        waves[i, 300: 300 + len(sig)] += sig
-    waves = torch.as_tensor(waves)
+    waves, payloads = _planted(11, fs, n)
     kw = dict(max_candidates=10, min_score=1.0, chunk=2)
     before = twc.block_waterfall_tf_fused_batch.launches
     card = tdec.decode_slots(waves.to(cuda), p, nf, **kw)
     assert twc.block_waterfall_tf_fused_batch.launches == before + 2
     host = tdec.decode_slots(waves, p, nf, **kw)
     for b in range(4):
-        sets = []
-        for res in (card, host):
-            ok = res.success[b].cpu().numpy()
-            sets.append({(bytes(pl), int(t), int(f)) for pl, t, f in zip(
-                res.payload[b].cpu().numpy()[ok],
-                res.abs_time[b].cpu().numpy()[ok],
-                res.abs_freq[b].cpu().numpy()[ok])})
-        assert sets[0] == sets[1], f"slot {b}"
-        assert bytes(payloads[b]) in {s[0] for s in sets[0]}
+        card_set = _decode_sets(card, b)
+        assert card_set == _decode_sets(host, b), f"slot {b}"
+        assert bytes(payloads[b]) in {s[0] for s in card_set}
+
+
+def test_deep_decode_slots_card_matches_cpu(cuda):
+    """The DEEP decode (osr 4x4, K 40, OSD, mf_first) through both
+    kernels: the card decodes what the plain versions decode."""
+    fs = 2000.0
+    n = int(fs * 15)
+    p = waterfall_params(fs, 4, 4)
+    nf = p.num_frames(n)
+    waves, payloads = _planted(12, fs, n)
+    kw = dict(max_candidates=40, min_score=1.0, use_osd=True, mf_first=True,
+              chunk=2)
+    mf_before = twc.block_waterfall_mf_tf_fused_batch.launches
+    osd_before = tosc.reduce_basis_batch.launches
+    card = tdec.decode_slots(waves.to(cuda), p, nf, **kw)
+    assert twc.block_waterfall_mf_tf_fused_batch.launches == mf_before + 2
+    assert tosc.reduce_basis_batch.launches > osd_before
+    host = tdec.decode_slots(waves, p, nf, **kw)
+    for b in range(4):
+        card_set = _decode_sets(card, b)
+        assert card_set == _decode_sets(host, b), f"slot {b}"
+        assert bytes(payloads[b]) in {s[0] for s in card_set}
+
+
+def test_deep_search_decode_slot_card_matches_cpu(cuda):
+    """decode_slot with the DEEP_SEARCH preset (Hann LLRs, BP + OSD, the
+    matched-filter retry on float64-summed block spectra)."""
+    from ft8_demodulator_tpu_torch.config import DEEP_SEARCH as cfg
+
+    fs = 2000.0
+    n = int(fs * 15)
+    p = cfg.waterfall(fs)
+    waves, payloads = _planted(13, fs, n)
+    kw = dict(max_candidates=cfg.max_candidates, min_score=cfg.min_score,
+              use_osd=cfg.use_osd, use_mf=cfg.use_mf)
+    for b in (0, 3):
+        card = tdec.decode_slot(waves[b].to(cuda), p, p.num_frames(n), **kw)
+        host = tdec.decode_slot(waves[b], p, p.num_frames(n), **kw)
+        lift = lambda r: tdec.SlotDecodeResult(*(a[None] for a in r))
+        card_set = _decode_sets(lift(card), 0)
+        assert card_set == _decode_sets(lift(host), 0), f"slot {b}"
+        assert bytes(payloads[b]) in {s[0] for s in card_set}
 
 
 def test_kernel_rejects_bad_constants(cuda):
@@ -101,6 +209,12 @@ def test_kernel_rejects_bad_constants(cuda):
     nf = p.num_frames(30000)
     waves = _noisy(5, 1, 30000).to(cuda)
     cos_m, sin_m, wc, ws = twc.fused_constants(p, cuda)
-    with pytest.raises(ValueError, match="constant"):
-        twc.block_waterfall_tf_fused_batch(
-            waves, p, nf, (cos_m.float(), sin_m, wc, ws))
+    for fn in (twc.block_waterfall_tf_fused_batch,
+               twc.block_waterfall_mf_tf_fused_batch):
+        with pytest.raises(ValueError, match="constant"):
+            fn(waves, p, nf, (cos_m.float(), sin_m, wc, ws))
+        with pytest.raises(ValueError, match="constant"):
+            fn(waves, p, nf, (cos_m, sin_m, wc.cpu(), ws))
+    with pytest.raises(ValueError, match="int32"):
+        tosc.reduce_basis_batch(torch.zeros((2, 91, 6), dtype=torch.int64,
+                                            device=cuda))

@@ -1,14 +1,18 @@
-"""The STANDARD slot decode, PyTorch port (CPU, plain waterfall) vs JAX.
+"""The slot decodes, PyTorch port (CPU, plain kernels) vs JAX.
 
 Four slots with planted signals at fs 2 kHz go through the port's
-decode_slots and through two JAX references:
+decode_slots and through two JAX references, for the STANDARD decode (osr
+2x2, K 10) and the DEEP one (osr 4x4, K 40, min_score 1, OSD, mf_first):
 
-* the Pallas fused waterfall in interpret mode, then _front_from_mag_tf
-  and finish_decode: each slot decodes the same payloads at the same
-  (abs_time, abs_freq) with the same CRC (rows may come in another order:
-  the two grids differ in float32 summation order, so near-tied sidelobe
-  candidates may swap rows);
-* JAX decode_slots (the float32 XLA pair): the same payload set per slot.
+* the JAX package's route through its Pallas kernels in interpret mode
+  (STANDARD: the fused waterfall, _front_from_mag_tf, finish_decode;
+  DEEP: the dual-output waterfall, sync_scores_tf, find_candidates_tf,
+  extract_llrs_matched_grid, finish_decode with OSD): each slot decodes
+  the same payloads at the same (abs_time, abs_freq) with the same CRC
+  (rows may come in another order: the grids differ in float32 summation
+  order, so near-tied sidelobe candidates may swap rows);
+* JAX decode_slots (on the CPU the float32 XLA route, for DEEP the block
+  spectra route): the same payload set per slot.
 """
 
 import numpy as np
@@ -18,13 +22,19 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from ft8_demodulator_tpu import config as jconfig
 from ft8_demodulator_tpu.demod import decode as jdec
 from ft8_demodulator_tpu.ops import ldpc_decode as jbp
+from ft8_demodulator_tpu.ops import llr as jllr
+from ft8_demodulator_tpu.ops import osd as josd
 from ft8_demodulator_tpu.ops import sync as jsync
 from ft8_demodulator_tpu.ops import waterfall as jwf
 from ft8_demodulator_tpu.ops.waterfall_pallas import \
+    block_waterfall_mf_tf_fused_batch as jax_mf_batch
+from ft8_demodulator_tpu.ops.waterfall_pallas import \
     block_waterfall_tf_fused_batch as jax_fused_batch
 from ft8_demodulator_tpu.protocol import constants as JC
+from ft8_demodulator_tpu_torch import config as tconfig
 from ft8_demodulator_tpu_torch.demod import decode as tdec
 from ft8_demodulator_tpu_torch.ops.gfsk import ft8_passband
 from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
@@ -125,6 +135,8 @@ def _jax_arrays(p, num_frames):
         "mi_mask": mi_mask,
         "parity_check": JC.PARITY_CHECK, "crc_matrix_77": JC.CRC_MATRIX_77,
         "gray_map": JC.GRAY_MAP,
+        "osd_basis": josd._basis(),
+        "osd_row_syndromes": josd._ROW_SYNDROMES_NP,
     }
 
 
@@ -165,10 +177,139 @@ def test_decode_slots_rejects_ragged_chunk_and_unported_options(slots):
     w = torch.as_tensor(waves[:3])
     with pytest.raises(ValueError, match="multiple of chunk"):
         tdec.decode_slots(w, p, nf, chunk=2)
-    for opt in ("use_osd", "mf_first"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tdec.decode_slots(w, p, nf, chunk=1, **{opt: True})
-    for opt in ("is_complex", "use_osd", "use_mf", "mf_first", "mf_refine",
-                "coherent"):
+    # 3 steps per symbol: no block geometry
+    p3 = waterfall_params(FS, 2, 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tdec.decode_slots(w, p3, p3.num_frames(N), chunk=1)
+    for opt in ("is_complex", "mf_refine", "coherent"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tdec.decode_slot(w[0], p, nf, **{opt: True})
+
+
+# --- the DEEP decode: osr 4x4, K 40, min_score 1, OSD, mf_first ----------
+
+K_DEEP = 40
+DEEP = dict(max_candidates=K_DEEP, min_score=1.0, use_osd=True,
+            mf_first=True)
+
+
+@pytest.fixture(scope="module")
+def deep_result(slots):
+    waves, _ = slots
+    p = waterfall_params(FS, 4, 4)
+    return tdec.decode_slots(torch.as_tensor(waves), p, p.num_frames(N),
+                             chunk=2, bp_chunk=4, **DEEP)
+
+
+def test_deep_decodes_planted_payloads_with_osd_rows(slots, deep_result):
+    """Every planted payload decodes, and OSD accepts rows that BP alone
+    leaves (the same decode without OSD)."""
+    waves, payloads = slots
+    p = waterfall_params(FS, 4, 4)
+    for b in range(B):
+        assert bytes(payloads[b]) in {d[0] for d in _decodes(deep_result,
+                                                             b)}
+    bp_only = tdec.decode_slots(torch.as_tensor(waves), p, p.num_frames(N),
+                                chunk=2, bp_chunk=4,
+                                **dict(DEEP, use_osd=False))
+    assert not (bp_only.success & ~deep_result.success).any()
+    assert int((deep_result.success & ~bp_only.success).sum()) > 0
+
+
+def test_deep_matches_jax_grid_route(slots, deep_result):
+    """Row sets equal to the JAX grid route with the Pallas dual-output
+    kernel in interpret mode."""
+    waves, _ = slots
+    p = jwf.waterfall_params(FS, 4, 4)
+    nf = p.num_frames(N)
+    g = jsync.search_grid(p.num_freq_bins, nf, p.time_osr, p.freq_osr)
+    mags, boxes = jax_mf_batch(jnp.asarray(waves), p, nf, interpret=True)
+    for b in range(B):
+        scores = jsync.sync_scores_tf(mags[b], g)
+        abs_time, abs_freq, score, ok = jsync.find_candidates_tf(
+            scores, g, K_DEEP, 1.0)
+        llrs = jllr.extract_llrs_matched_grid(boxes[b], abs_time, abs_freq,
+                                              p.time_osr, p.freq_osr)
+        want = jdec.finish_decode(llrs, abs_time, abs_freq, score, ok, 20,
+                                  True)
+        jres = jax.tree_util.tree_map(lambda a: a[None], want)
+        assert _decodes(deep_result, b) == _decodes(jres, 0), f"slot {b}"
+
+
+def test_deep_matches_jax_decode_slots(slots, deep_result):
+    waves, _ = slots
+    p = jwf.waterfall_params(FS, 4, 4)
+    want = jdec.decode_slots(jnp.asarray(waves), p, p.num_frames(N),
+                             chunk=2, bp_chunk=4, **DEEP)
+    for b in range(B):
+        assert {d[0] for d in _decodes(deep_result, b)} == \
+            {d[0] for d in _decodes(want, b)}, f"slot {b}"
+
+
+def test_deep_decode_slot_equals_decode_slots(slots, deep_result):
+    waves, _ = slots
+    p = waterfall_params(FS, 4, 4)
+    for b in (0, 3):
+        one = tdec.decode_slot(torch.as_tensor(waves[b]), p, p.num_frames(N),
+                               **DEEP)
+        for name, got, want in zip(one._fields, one, deep_result):
+            torch.testing.assert_close(got, want[b], rtol=0, atol=0,
+                                       msg=name)
+
+
+def test_mf_retry_matches_jax(slots):
+    """The matched-filter retry on the same first-pass result: the same
+    rows decode as in JAX, a superset of the first pass."""
+    waves, _ = slots
+    jp = jwf.waterfall_params(FS, 4, 4)
+    p = waterfall_params(FS, 4, 4)
+    nf = p.num_frames(N)
+    for b in (0, 2):
+        first = jdec.decode_slot(jnp.asarray(waves[b]), jp, nf,
+                                 max_candidates=K_DEEP, min_score=1.0)
+        want = jdec.mf_retry(jnp.asarray(waves[b]), jp, first, 0, 0, 20,
+                             True)
+        first_t = tdec.SlotDecodeResult(*(torch.as_tensor(np.array(a))
+                                          for a in first))
+        got = tdec.mf_retry(torch.as_tensor(waves[b]), p, first_t,
+                            use_osd=True)
+        lift = lambda r: jax.tree_util.tree_map(lambda a: a[None], r)
+        assert _decodes(lift(got), 0) == _decodes(lift(want), 0), f"slot {b}"
+        assert _decodes(lift(first), 0) <= _decodes(lift(got), 0)
+
+
+def test_deep_search_preset_matches_jax_decode_slot(slots):
+    """decode_slot with the DEEP_SEARCH preset (Hann LLRs, BP + OSD, the
+    matched-filter retry): the JAX payload set per slot."""
+    waves, payloads = slots
+    assert tuple(tconfig.DEEP_SEARCH) == tuple(jconfig.DEEP_SEARCH)
+    assert tuple(tconfig.STANDARD) == tuple(jconfig.STANDARD)
+    assert tconfig.DecoderConfig._fields == jconfig.DecoderConfig._fields
+    cfg = tconfig.DEEP_SEARCH
+    p = cfg.waterfall(FS)
+    nf = p.num_frames(N)
+    kw = dict(max_candidates=cfg.max_candidates, min_score=cfg.min_score,
+              max_iterations=cfg.max_iterations, use_osd=cfg.use_osd,
+              use_mf=cfg.use_mf)
+    for b in (1, 2):
+        got = tdec.decode_slot(torch.as_tensor(waves[b]), p, nf, **kw)
+        want = jdec.decode_slot(jnp.asarray(waves[b]),
+                                jconfig.DEEP_SEARCH.waterfall(FS), nf, **kw)
+        got_set = {d[0] for d in _decodes(
+            jax.tree_util.tree_map(lambda a: a[None], got), 0)}
+        assert bytes(payloads[b]) in got_set
+        assert got_set == {d[0] for d in _decodes(
+            jax.tree_util.tree_map(lambda a: a[None], want), 0)}, f"slot {b}"
+
+
+def test_deep_decoder_from_jax_arrays_decodes_identically(slots,
+                                                          deep_result):
+    waves, _ = slots
+    p = waterfall_params(FS, 4, 4)
+    nf = p.num_frames(N)
+    dec = tdec.SlotDecoder.from_arrays(
+        _jax_arrays(jwf.waterfall_params(FS, 4, 4), nf), "cpu")
+    res = tdec.decode_slots(torch.as_tensor(waves), p, nf, chunk=2,
+                            bp_chunk=4, decoder=dec, **DEEP)
+    for name, got, want in zip(res._fields, res, deep_result):
+        torch.testing.assert_close(got, want, rtol=0, atol=0, msg=name)

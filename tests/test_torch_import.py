@@ -14,7 +14,10 @@ def test_torch_import_without_jax():
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "import ft8_demodulator_tpu_torch.config\n"
         "import ft8_demodulator_tpu_torch.demod.decode\n"
+        "import ft8_demodulator_tpu_torch.ops.osd\n"
+        "import ft8_demodulator_tpu_torch.ops.osd_cuda\n"
         "import ft8_demodulator_tpu_torch.ops.waterfall_cuda\n"
         "assert 'ft8_demodulator_tpu' not in sys.modules\n"
         "print('ok')\n")

@@ -64,6 +64,33 @@ def test_extract_llrs_tf_matches_jax(rng):
     np.testing.assert_array_equal(both[1], got)
 
 
+def test_extract_llrs_tf_matches_jax_deep_geometry(rng):
+    """The DEEP geometry (osr 4x4) with 40 candidates, pre-roll and
+    end-clipped times included: atol 1e-5, clipped symbols exactly 0."""
+    p = waterfall_params(FS, 4, 4)
+    nf = p.num_frames(N)
+    tau, phi = p.time_osr, p.freq_osr
+    wave = jnp.asarray(rng.standard_normal(N).astype(np.float32))
+    mag = np.asarray(_block_waterfall_tf(_block_spectrum(wave, p, nf), p,
+                                         nf))
+    num_blocks = nf // tau
+    abs_time = np.concatenate([[-40, -1, 0, 3, nf - 79 * tau, nf - 40 * tau,
+                                nf - 2],
+                               rng.integers(-40, nf - 79 * tau, 33)]) \
+        .astype(np.int32)
+    abs_freq = rng.integers(0, p.num_freq_bins - 7 * phi, len(abs_time)) \
+        .astype(np.int32)
+    want = np.asarray(jllr.extract_llrs_tf(jnp.asarray(mag),
+                                           jnp.asarray(abs_time),
+                                           jnp.asarray(abs_freq), tau, phi,
+                                           num_blocks))
+    got = tllr.extract_llrs_tf(_t(mag), _t(abs_time), _t(abs_freq), tau,
+                               phi, num_blocks).numpy()
+    assert got.shape == want.shape == (40, 174)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got == 0, want == 0)
+
+
 def _noisy_codeword_llrs(rng, rows, snr_scale):
     """LLRs of random codewords with Gaussian noise, plus an all-zero row
     and a row that hard-decides to the all-zero codeword."""
@@ -126,5 +153,10 @@ def test_finish_decode_identical(rng):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w),
                                       err_msg=name)
     assert got.success.any()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdec.finish_decode(*(_t(a) for a in args), 20, use_osd=True)
+    # with OSD on the valid rows BP left: the same fields as JAX
+    want = jdec.finish_decode(*(jnp.asarray(a) for a in args), 20, True)
+    got_osd = tdec.finish_decode(*(_t(a) for a in args), 20, use_osd=True)
+    for name, g, w in zip(got_osd._fields, got_osd, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                      err_msg=name)
+    assert (got_osd.success & ~got.success).any()

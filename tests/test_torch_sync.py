@@ -23,9 +23,9 @@ FS = 2000.0
 N = int(FS * 15)
 
 
-def _grid(rng):
-    """A JAX-computed time-major dB grid of noise at fs 2 kHz, osr 2x2."""
-    p = waterfall_params(FS, 2, 2)
+def _grid(rng, osr=(2, 2)):
+    """A JAX-computed time-major dB grid of noise at fs 2 kHz."""
+    p = waterfall_params(FS, *osr)
     nf = p.num_frames(N)
     wave = jnp.asarray(rng.standard_normal(N).astype(np.float32))
     mag = np.array(_block_waterfall_tf(_block_spectrum(wave, p, nf), p,
@@ -121,3 +121,29 @@ def test_find_candidates_narrow_grid(rng):
     tg = tsync.SearchGrid(*g)
     scores = rng.standard_normal((30, 25)).astype(np.float32).round(1)
     _assert_candidates_equal(scores, (g, tg), 20, 0.0)
+
+
+# --- the DEEP geometry: osr 4x4, K 40, min_score 1 -----------------------
+
+def test_sync_scores_tf_bit_identical_deep_geometry(rng):
+    mag, p = _grid(rng, (4, 4))
+    jg, tg = _grids(p, mag.shape[0])
+    assert tuple(jg) == tuple(tg)
+    want = np.asarray(jsync.sync_scores_tf(jnp.asarray(mag), jg))
+    got = tsync.sync_scores_tf(torch.as_tensor(mag), tg).numpy()
+    assert got.shape == want.shape == (jg.num_times, jg.num_freqs)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_find_candidates_deep_geometry(rng):
+    """Top-40 above min_score 1 on the slot's sync scores, then on
+    integer-valued scores with many exact ties."""
+    mag, p = _grid(rng, (4, 4))
+    pair = _grids(p, mag.shape[0])
+    scores = np.array(jsync.sync_scores_tf(jnp.asarray(mag), pair[0]))
+    _, _, _, valid = _assert_candidates_equal(scores, pair, 40, 1.0)
+    assert valid.sum() > 0
+    g = pair[0]
+    ties = rng.integers(0, 4, (g.num_times, g.num_freqs)).astype(np.float32)
+    ties[rng.random(ties.shape) < 0.1] = -np.inf
+    _assert_candidates_equal(ties, pair, 40, 1.0)
