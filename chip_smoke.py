@@ -1,5 +1,5 @@
 """Chip smoke test of the PyTorch port: the STANDARD and DEEP slot decodes
-on one card.
+and the host decode API on one card.
 
     python3 chip_smoke.py
 
@@ -13,12 +13,17 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    max |difference| <= 5e-3 dB;
 4. the main path at full size: decode_slots on 256 synthetic 0-dB slots at
    12 kHz (K 20, min_score 10, 20 BP iterations, chunk 16, bp_chunk 256);
-   every planted payload must decode, and the kernel's launch counter must
-   show that the front half went through it (256 / 16 launches);
+   every planted payload must decode, and the launch counters must show
+   that the front half went through the waterfall and sync kernels (256 /
+   16 launches each);
 5. the first 8 of those slots decoded on the CPU (plain waterfall) as well:
    the same payloads at the same (abs_time, abs_freq) on both;
-6. times: the kernel and its plain version (CUDA events, warm, batch 16),
-   end-to-end decode_slots slots/s at batch 256, peak device memory;
+6. decode_slots on 4 synthetic 0-dB slots at 20 kHz (K2's geometry,
+   chunk 4): yield 4/4 and one waterfall launch; times: the kernel and
+   its plain version at 12 kHz batch 16 and 20 kHz batch 4 (device time
+   from torch.profiler kernel intervals, warm; a window counts only when
+   it holds every device event of its calls), end-to-end decode_slots
+   slots/s at batch 256, peak device memory;
 7. the dual-output (dB + boxcar) waterfall kernel against its plain
    version on noisy slots at osr 4x4: 12 kHz (batch 8) and 2 kHz (batch
    8); dB max |difference| <= 5e-3, boxcar |difference| <= 1e-4 x the
@@ -29,15 +34,35 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    (not multiples of the kernel's 4 candidates per block);
 9. the DEEP path at full size: decode_slots on the same 256 slots at osr
    4x4 (K 40, min_score 1, 20 BP iterations, OSD, mf_first, chunk 8,
-   bp_chunk 256); every planted payload must decode, the dual-output
-   kernel must launch 256 / 8 times and the OSD kernel at least once;
+   bp_chunk 256); every planted payload must decode, the dual-output and
+   sync kernels must launch 256 / 8 times each and the OSD kernel at least
+   once;
    OSD-accepted rows (against the same decode without OSD) must be > 0;
    the first 4 slots decoded on the CPU must give the same sets;
 10. times: the dual-output kernel (batch 8, 12 kHz) and the OSD kernel
-   (1024 rows, the OSD pass size) against their plain versions (CUDA
-   events, warm, min of 2 x 20 in the order plain, kernel, kernel,
-   plain); DEEP decode_slots slots/s at batch 256 over 5 runs; peak
-   device memory.
+   (1024 rows, the OSD pass size) against their plain versions (device
+   time, as in phase 6); DEEP decode_slots slots/s at batch 256 over 5
+   runs; peak device memory;
+11. the sync stencil kernels against their plain versions, bit for bit
+   (identical -inf masks; the fallback bound 1e-4 with identical
+   candidates is reported, not required bit-exactness, if they differ):
+   time-major on dB grids at 12 kHz osr 2x2 (batch 16) and 4x4 (batch 8)
+   and 2 kHz 2x2 (batch 3); frequency-major at 12 kHz 2x2 and 4x4 and on
+   a cropped (strided) view; ptxas's registers, shared memory and spills;
+12. the host API decode_ft8_message on one crowded 15-s 12 kHz capture
+   (15 signals at -12..+5 dB, 300-2800 Hz, >= 60 Hz apart, plus one 13 dB
+   under the strongest, 30 Hz above it and a symbol later): STANDARD, DEEP
+   (the CLI's --deep preset), mf_first and passes=2; each run decodes every
+   planted payload above its stated SNR and nothing unplanted, gives the
+   rows the CPU gives (payloads, times, frequencies; score within 1e-4,
+   SNR within 0.1), launches the frequency-major sync kernel (and the OSD
+   kernel under DEEP); the buried signal decodes only in the second pass;
+13. times (device time as in phase 6): both sync kernels against their
+   plain versions at the decodes' sizes; decode_ft8_message ms per
+   capture, STANDARD and DEEP; the stage split of decode_ft8_message and
+   of decode_slots at batch 256 (STANDARD and DEEP), host and device ms
+   per ft8.<stage> record_function range of the decoders, from profiler
+   traces of the real calls; peak device memory.
 
 Then one JSON line with the kernels, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}.  Without a CUDA card it exits 1 and
@@ -47,9 +72,11 @@ prints no result.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -79,6 +106,19 @@ OSD_SOURCE = "ft8_demodulator_tpu_torch/csrc/osd_eliminate.cu"
 MF_REPLACES = "ft8_demodulator_tpu/ops/waterfall_pallas.py:444"
 OSD_REPLACES = "ft8_demodulator_tpu/ops/osd.py:212"
 OSD_TIMED_ROWS = 1024
+# the sync stencil kernels
+SYNC_SOURCE = "ft8_demodulator_tpu_torch/csrc/sync_stencil.cu"
+K5_REPLACES = "ft8_demodulator_tpu/ops/sync_pallas_tf.py:162"
+K6_REPLACES = "ft8_demodulator_tpu/ops/sync_pallas.py:154"
+K2_REPLACES = "ft8_demodulator_tpu/ops/waterfall_pallas.py:191"
+SYNC_FALLBACK_ATOL = 1e-4
+# the host API on a crowded capture
+CROWD_SEED = 11
+CROWD_SIGNALS = 15
+BURIED_DB = 13.0              # under the strongest signal
+API_SCORE_ATOL = 1e-4
+API_SNR_ATOL = 0.1
+API_REPS = 5
 
 
 def _phase(n: int, text: str) -> None:
@@ -93,26 +133,27 @@ def _nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _synth_slots(device):
-    """BATCH noisy 12 kHz slots, each holding one FT8 signal at 0 dB, from
-    numpy.random.default_rng(42) (bench.py's recipe)."""
+def _synth_slots(device, fs: float = FS, batch: int = BATCH,
+                 seed: int = 42):
+    """``batch`` noisy slots at ``fs``, each holding one FT8 signal at 0 dB,
+    from numpy.random.default_rng(seed) (bench.py's recipe)."""
     from ft8_demodulator_tpu_torch.ops.gfsk import _baseband_complex
     from ft8_demodulator_tpu_torch.protocol import constants as C
     from ft8_demodulator_tpu_torch.protocol.encode import encode_tones
 
-    rng = np.random.default_rng(42)
-    n = int(FS * SLOT_S)
-    sps = int(C.SYMBOL_PERIOD_S * FS)
-    payloads = rng.integers(0, 256, size=(BATCH, 10), dtype=np.uint8)
+    rng = np.random.default_rng(seed)
+    n = int(fs * SLOT_S)
+    sps = int(C.SYMBOL_PERIOD_S * fs)
+    payloads = rng.integers(0, 256, size=(batch, 10), dtype=np.uint8)
     payloads[:, 9] &= 0xF8
     noise = torch.as_tensor(
-        rng.standard_normal((BATCH, n)).astype(np.float32), device=device)
-    f0s = (500.0 + 100.0 * rng.integers(0, 40, BATCH)).astype(np.float32)
+        rng.standard_normal((batch, n)).astype(np.float32), device=device)
+    f0s = (500.0 + 100.0 * rng.integers(0, 40, batch)).astype(np.float32)
 
     tones = encode_tones(torch.as_tensor(payloads, device=device))
-    sig = torch.zeros((BATCH, n), dtype=torch.float32, device=device)
-    for i in range(BATCH):
-        wave = _baseband_complex(tones[i], sps, FS, float(f0s[i])).real
+    sig = torch.zeros((batch, n), dtype=torch.float32, device=device)
+    for i in range(batch):
+        wave = _baseband_complex(tones[i], sps, fs, float(f0s[i])).real
         sig[i, : wave.shape[0]] = wave
         power = torch.mean(wave ** 2)
         sig[i] += noise[i] * torch.sqrt(power)
@@ -126,7 +167,8 @@ def _ptxas_report(log: str) -> list[str]:
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             name = entry.group(1)
-            for short in ("waterfall_kernel", "osd_eliminate_kernel"):
+            for short in ("waterfall_kernel", "osd_eliminate_kernel",
+                          "sync_kernel"):
                 if short in name:
                     name = short + {"ILb1E": "<true>", "ILb0E": "<false>"}.get(
                         name[name.index(short) + len(short):][:5], "")
@@ -146,27 +188,84 @@ def _decode_sets(res, slots):
              for k in np.flatnonzero(ok[b])} for b in range(slots)]
 
 
-def _event_ms(fn, reps: int) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# profiler windows taken again because they lacked device events:
+# "what events-seen/events-expected"
+_RETAKEN: list[str] = []
+
+
+def _trace_events(fn, reps: int) -> list[dict]:
+    """The chrome-trace events of a torch.profiler trace of ``reps`` calls
+    of ``fn``, up to a synchronize."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
+def _device_events(events: list[dict], name: str | None = None
+                   ) -> list[dict]:
+    """Kernels, copies and memsets; with ``name`` only the kernels whose
+    name holds it."""
+    return [e for e in events
+            if e.get("ph") == "X" and e.get("cat") in _DEVICE_CATS
+            and (name is None or (e["cat"] == "kernel"
+                                  and name in e.get("name", "")))]
+
+
+def _busy_ms(events: list[dict]) -> float:
+    """The union of the events' intervals, ms."""
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted((float(e["ts"]), float(e["ts"])
+                          + float(e.get("dur", 0.0))) for e in events):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e3
+
+
+def _device_ms(fn, reps: int, name: str | None = None) -> tuple[float, int]:
+    """(device ms per call of ``fn``, device events per call): the union of
+    the device intervals of a torch.profiler trace over ``reps`` warm
+    calls, divided by ``reps``.  ``name``: only the kernels whose name
+    holds it (a hand kernel; its wrapper launches exactly one per call).
+
+    A window counts only when it holds every device event of its calls:
+    exactly ``reps`` for a hand kernel, else ``reps`` times the count of a
+    one-call trace.  A window short of that is taken again (and noted in
+    ``_RETAKEN``); the third one raises."""
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    for _ in range(3):
+        per_call = 1 if name else len(_device_events(_trace_events(fn, 1)))
+        events = _device_events(_trace_events(fn, reps), name)
+        if per_call > 0 and len(events) == reps * per_call:
+            return _busy_ms(events) / reps, per_call
+        _RETAKEN.append(f"{name or 'plain'} {len(events)}/{reps * per_call}")
+    raise RuntimeError(f"three incomplete profiler windows: {_RETAKEN[-3:]}")
 
 
-def _kernel_vs_plain_ms(kernel, plain, reps: int = 20) -> tuple[float, float]:
-    """(kernel ms, plain ms): warm, min of 2 x reps each, in the order
+def _kernel_vs_plain_ms(kernel, plain, name: str, reps: int = 20,
+                        plain_reps: int | None = None
+                        ) -> tuple[float, float, int]:
+    """(kernel ms, plain ms, the plain version's device events per call)
+    of device time, warm, min of 2 complete windows each, in the order
     plain, kernel, kernel, plain."""
-    for fn in (kernel, plain):
-        fn()
     times = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        times[name].append(_event_ms(kernel if name == "kernel" else plain,
-                                     reps))
-    return min(times["kernel"]), min(times["plain"])
+    for which in ("plain", "kernel", "kernel", "plain"):
+        if which == "kernel":
+            times[which].append(_device_ms(kernel, reps, name)[0])
+        else:
+            ms, per_call = _device_ms(plain, plain_reps or reps)
+            times[which].append(ms)
+    return min(times["kernel"]), min(times["plain"]), per_call
 
 
 def _tied_bases(rows: int, seed: int, device):
@@ -187,6 +286,7 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     kernels' JSON records."""
     from ft8_demodulator_tpu_torch.demod.decode import decode_slots
     from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
+    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
     from ft8_demodulator_tpu_torch.ops import waterfall_cuda as wc
     from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
 
@@ -258,6 +358,7 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
               bp_chunk=BP_CHUNK)
     torch.cuda.synchronize()
     mf.launches = 0
+    sc.sync_scores_tf_kernel.launches = 0
     oc.reduce_basis_batch.launches = 0
     oc.reduce_basis_batch.rows = 0
     t0 = time.perf_counter()
@@ -265,11 +366,14 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     mf_launches = mf.launches
+    k5_launches = sc.sync_scores_tf_kernel.launches
     osd_launches = oc.reduce_basis_batch.launches
     osd_rows = oc.reduce_basis_batch.rows
-    if mf_launches != BATCH // DEEP_CHUNK:
-        raise RuntimeError(f"dual-output kernel launched {mf_launches} "
-                           f"times, want {BATCH // DEEP_CHUNK}")
+    if mf_launches != BATCH // DEEP_CHUNK \
+            or k5_launches != BATCH // DEEP_CHUNK:
+        raise RuntimeError(f"dual-output / sync kernels launched "
+                           f"{mf_launches} / {k5_launches} times, want "
+                           f"{BATCH // DEEP_CHUNK}")
     if osd_launches < 1:
         raise RuntimeError("the OSD kernel was not launched")
     if res.success.shape != (BATCH, DEEP_CANDIDATES) \
@@ -291,7 +395,8 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
         raise RuntimeError("OSD accepted no row on the 0-dB slots")
     _phase(9, f"DEEP decode_slots {BATCH} slots at {FS / 1000:g} kHz osr "
               f"{DEEP_OSR[0]}x{DEEP_OSR[1]}: yield {decoded}/{BATCH}, "
-              f"dual-output kernel launches {mf_launches}, OSD kernel "
+              f"dual-output kernel launches {mf_launches}, sync kernel "
+              f"launches {k5_launches}, OSD kernel "
               f"launches {osd_launches} reducing {osd_rows} rows, "
               f"{int(res.success.sum())} successful rows of which "
               f"{osd_accepted} OSD-accepted, {unplanted} unplanted decodes, "
@@ -310,14 +415,16 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
 
     w8 = waves[:DEEP_CHUNK].contiguous()
     consts = wc.fused_constants(p, dev)
-    mf_ms, mf_plain_ms = _kernel_vs_plain_ms(
-        lambda: mf(w8, p, nf, consts), lambda: mf_plain(w8, p, nf, consts))
+    mf_ms, mf_plain_ms, mf_plain_ev = _kernel_vs_plain_ms(
+        lambda: mf(w8, p, nf, consts), lambda: mf_plain(w8, p, nf, consts),
+        "waterfall_kernel")
     kx = p.num_freq_bins + 2 * p.freq_osr
     dft_flop = 4 * (nf + p.time_osr - 1) * p.hop * kx * DEEP_CHUNK
     bases = _tied_bases(OSD_TIMED_ROWS, 3, dev)
-    osd_ms, osd_plain_ms = _kernel_vs_plain_ms(
+    osd_ms, osd_plain_ms, osd_plain_ev = _kernel_vs_plain_ms(
         lambda: oc.reduce_basis_batch(bases),
-        lambda: oc.reduce_basis_batch_plain(bases))
+        lambda: oc.reduce_basis_batch_plain(bases), "osd_eliminate_kernel",
+        plain_reps=5)
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -332,13 +439,15 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     _phase(10, f"[{smi}] dual-output kernel batch {DEEP_CHUNK} at "
                f"{FS / 1000:g} kHz osr 4x4: kernel {mf_ms:.4f} ms "
                f"({dft_flop / (mf_ms * 1e-3) / 1e12:.1f} TFLOP/s of DFT), "
-               f"plain {mf_plain_ms:.4f} ms; OSD kernel {OSD_TIMED_ROWS} "
+               f"plain {mf_plain_ms:.4f} ms ({mf_plain_ev} device events "
+               f"per call); OSD kernel {OSD_TIMED_ROWS} "
                f"rows: kernel {osd_ms * 1e3:.1f} us, plain "
-               f"{osd_plain_ms * 1e3:.1f} us (min of 2 x 20 warm); DEEP "
+               f"{osd_plain_ms * 1e3:.1f} us ({osd_plain_ev} device events "
+               f"per call) (device time, min of 2 complete windows); DEEP "
                f"decode_slots batch {BATCH}: slots/s over {DEEP_REPS} runs "
                f"min {rates[0]:.1f}, median {rates[len(rates) // 2]:.1f}, "
                f"max {rates[-1]:.1f}; peak memory {peak_mib:.1f} MiB")
-    return [
+    return rates, peak_mib, k5_launches, [
         {"name": "waterfall_mf_tf", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": MF_REPLACES,
          "launches": mf_launches,
@@ -350,6 +459,323 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     ]
 
 
+def _sync_phase(dev, log: str):
+    """Phase 11: both sync kernels against their plain versions.  Returns
+    ({label: max |diff|}, every case bit-exact, the time-major (STANDARD,
+    DEEP) chunk grids and the frequency-major (STANDARD, DEEP) captures)."""
+    from ft8_demodulator_tpu_torch.ops import sync as so
+    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
+    from ft8_demodulator_tpu_torch.ops import waterfall_cuda as wc
+    from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
+
+    diffs, exact = {}, True
+
+    def check(label, got, want, g, time_major):
+        nonlocal exact
+        torch.cuda.synchronize()
+        if got.shape != want.shape or bool(torch.isnan(got).any()):
+            raise RuntimeError(f"{label}: malformed scores {tuple(got.shape)}")
+        if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
+            raise RuntimeError(f"{label}: -inf masks differ")
+        fin = torch.isfinite(want)
+        diffs[label] = float((got - want)[fin].abs().max()) \
+            if bool(fin.any()) else 0.0
+        if diffs[label] > SYNC_FALLBACK_ATOL:
+            raise RuntimeError(f"{label}: max |diff| {diffs[label]} > "
+                               f"{SYNC_FALLBACK_ATOL}")
+        if not torch.equal(got, want):
+            exact = False
+            find = so.find_candidates_tf if time_major else so.find_candidates
+            for k, ms in ((20, 10.0), (40, 1.0)):
+                if not all(torch.equal(a, b) for a, b in zip(
+                        find(got, g, k, ms), find(want, g, k, ms))):
+                    raise RuntimeError(f"{label}: candidates differ")
+
+    chunks, captures = [], []
+    for fs, osr, b in ((12000.0, 2, CHUNK), (12000.0, 4, DEEP_CHUNK),
+                       (2000.0, 2, 3)):
+        p = waterfall_params(fs, osr, osr)
+        ns = int(fs * SLOT_S)
+        nf = p.num_frames(ns)
+        rng = np.random.default_rng(int(fs) + osr)
+        w = torch.as_tensor(rng.standard_normal((b, ns)).astype(np.float32),
+                            device=dev)
+        mag_tf = wc.block_waterfall_tf_fused_batch(w, p, nf)
+        g = so.search_grid(p.num_freq_bins, nf, osr, osr)
+        check(f"K5 {fs / 1000:g} kHz {osr}x{osr} batch {b}",
+              sc.sync_scores_tf_kernel(mag_tf, g),
+              so.sync_scores_tf(mag_tf, g), g, True)
+        if fs != FS:
+            continue
+        mag = mag_tf[0].transpose(0, 1).contiguous()        # one capture
+        check(f"K6 {fs / 1000:g} kHz {osr}x{osr}",
+              sc.sync_scores_kernel(mag, g), so.sync_scores(mag, g), g,
+              False)
+        chunks.append((mag_tf, g))
+        captures.append((mag, g))
+        if osr == 2:
+            crop = mag[200:1400, 6:170]
+            gc = so.search_grid(*crop.shape, osr, osr)
+            check("K6 cropped view", sc.sync_scores_kernel(crop, gc),
+                  so.sync_scores(crop.contiguous(), gc), gc, False)
+    report, keep = [], False
+    for line in _ptxas_report(log):
+        if line.endswith(":"):
+            keep = line.startswith("sync_kernel")
+        if keep:
+            report.append(line)
+    _phase(11, "sync kernels vs plain, max |diff| "
+               + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+               + f"; -inf masks equal; bit for bit: "
+               f"{'yes' if exact else 'no (within the fallback bound, '}"
+               f"{'' if exact else 'candidates identical)'}; ptxas: "
+               + " ".join(report))
+    return diffs, exact, chunks, captures
+
+
+def _crowded_capture():
+    """One 15-s 12 kHz capture from numpy.random.default_rng(CROWD_SEED):
+    CROWD_SIGNALS signals at SNRs spread evenly over -12..+5 dB (in 2500
+    Hz, unit noise), 300-2750 Hz, >= 60 Hz apart, starting in 0-1.5 s,
+    plus a buried one BURIED_DB under the strongest, 30 Hz above it and
+    one symbol later.  Returns (wave (n,) float32 numpy, payloads (16,
+    10), snr_db (16,)); the buried one is last."""
+    from ft8_demodulator_tpu_torch.ops.gfsk import _baseband_complex
+    from ft8_demodulator_tpu_torch.protocol import constants as C
+    from ft8_demodulator_tpu_torch.protocol.encode import encode_tones
+
+    rng = np.random.default_rng(CROWD_SEED)
+    n = int(FS * SLOT_S)
+    sps = int(C.SYMBOL_PERIOD_S * FS)
+    while True:
+        f0 = np.sort(rng.uniform(300.0, 2750.0, CROWD_SIGNALS))
+        if np.diff(f0).min() >= 60.0:
+            break
+    snr = rng.permutation(np.linspace(-12.0, 5.0, CROWD_SIGNALS))
+    starts = (rng.uniform(0.0, 1.5, CROWD_SIGNALS) * FS).astype(int)
+    payloads = rng.integers(0, 256, (CROWD_SIGNALS + 1, 10), dtype=np.uint8)
+    payloads[:, 9] &= 0xF8
+    wave = rng.standard_normal(n)
+    strong = int(np.argmax(snr))
+    f0 = np.append(f0, f0[strong] + 30.0)
+    snr = np.append(snr, snr[strong] - BURIED_DB)
+    starts = np.append(starts, starts[strong] + sps)
+    tones = encode_tones(torch.as_tensor(payloads))
+    for i in range(CROWD_SIGNALS + 1):
+        sig = _baseband_complex(tones[i], sps, FS, float(f0[i])).real.numpy()
+        amp = np.sqrt(2.0 * 10.0 ** (snr[i] / 10.0) * 2500.0 / (FS / 2.0))
+        wave[starts[i]: starts[i] + len(sig)] += amp * sig
+    return wave.astype(np.float32), payloads, snr
+
+
+DEEP_API = dict(bins_per_tone=4, steps_per_symbol=4, max_candidates=40,
+                min_score=1.0, use_osd=True, use_mf=True)
+# (options, every planted signal at or above this SNR must decode)
+API_RUNS = {
+    "STANDARD": ({}, -4.0),
+    "DEEP": (DEEP_API, 0.0),
+    "mf_first": (dict(DEEP_API, use_mf=False, mf_first=True), 0.0),
+    "passes=2": (dict(passes=2), -11.0),
+}
+
+
+def _api_phase(dev) -> tuple[int, dict]:
+    """Phase 12: decode_ft8_message on the crowded capture, card vs CPU.
+    Returns (frequency-major sync kernel launches, card rows per run)."""
+    from ft8_demodulator_tpu_torch.demod.decode import decode_ft8_message
+    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
+    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
+
+    wave, payloads, snr = _crowded_capture()
+    planted = {bytes(pl): float(s) for pl, s in zip(payloads, snr)}
+    buried = bytes(payloads[-1])
+    k6_total, out, lines = 0, {}, []
+    for name, (kw, min_snr) in API_RUNS.items():
+        torch.cuda.synchronize()
+        sc.sync_scores_kernel.launches = 0
+        oc.reduce_basis_batch.launches = 0
+        t0 = time.perf_counter()
+        card = decode_ft8_message(wave, FS, device=dev, **kw)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        k6, k4 = sc.sync_scores_kernel.launches, oc.reduce_basis_batch.launches
+        k6_total += k6
+        host = decode_ft8_message(wave, FS, **kw)
+        got = [r.message.payload for r in card]
+        if k6 < 1 or (name == "DEEP" and k4 < 1):
+            raise RuntimeError(f"{name}: sync kernel {k6}, OSD kernel {k4} "
+                               "launches")
+        if [(r.message.payload, r.time_sec, r.freq_hz) for r in card] != \
+                [(r.message.payload, r.time_sec, r.freq_hz) for r in host]:
+            raise RuntimeError(f"{name}: card rows {got} != CPU rows "
+                               f"{[r.message.payload for r in host]}")
+        for a, b in zip(card, host):
+            if abs(a.score - b.score) > API_SCORE_ATOL \
+                    or abs(a.snr_db - b.snr_db) > API_SNR_ATOL:
+                raise RuntimeError(f"{name}: card score / SNR {a.score} / "
+                                   f"{a.snr_db}, CPU {b.score} / {b.snr_db}")
+        unplanted = [pl for pl in got if pl not in planted]
+        missed = sorted(s for pl, s in planted.items()
+                        if s >= min_snr and pl not in got)
+        if unplanted or missed:
+            raise RuntimeError(f"{name}: {len(unplanted)} unplanted decodes,"
+                               f" planted signals missed at {missed} dB")
+        if (name == "STANDARD" and buried in got) \
+                or (name == "passes=2" and buried not in got):
+            raise RuntimeError(f"{name}: the buried signal "
+                               f"{'decoded' if buried in got else 'missed'}")
+        out[name] = card
+        lines.append(f"{name}: {len(card)} rows, all planted >= {min_snr:g} "
+                     f"dB decoded (weakest decoded "
+                     f"{min(planted[pl] for pl in got):.1f} dB), sync kernel "
+                     f"launches {k6}, OSD kernel launches {k4}, first call "
+                     f"{card_s * 1e3:.0f} ms")
+    _phase(12, f"decode_ft8_message on a crowded {FS / 1000:g} kHz capture "
+               f"({CROWD_SIGNALS} + 1 buried signals): "
+               + "; ".join(lines) + "; card == CPU rows in every run; the "
+               "buried signal decodes in the second pass only")
+    return k6_total, out
+
+
+def _stage_split(fn) -> dict[str, tuple[float, float]]:
+    """One warm call of ``fn`` (a decode) under torch.profiler, split by
+    the decoders' ``ft8.<stage>`` record_function ranges: {stage: (host ms
+    inside its ranges, device busy ms of the work launched inside them)}.
+    "other" is device work launched outside every range; "call" the host
+    extent of the traced call's ops and all its device busy ms.  A device
+    event is placed by the host time of its launch (runtime or driver call,
+    by correlation id; else the host op of its external id); one whose
+    launch the trace lacks goes to "unplaced"."""
+    fn()
+    torch.cuda.synchronize()
+    events = _trace_events(fn, 1)
+    host_ops = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+                for e in events if e.get("ph") == "X" and e.get("cat") in (
+                    "cpu_op", "user_annotation", "cuda_runtime",
+                    "cuda_driver")]
+    call_ms = (max(hi for _, hi in host_ops)
+               - min(lo for lo, _ in host_ops)) / 1e3
+    ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                     e["name"][4:]) for e in events
+                    if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                    and e.get("name", "").startswith("ft8."))
+    launched, ext = {}, {}
+    for e in events:
+        args = e.get("args") or {}
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") \
+                and "correlation" in args:
+            launched[args["correlation"]] = float(e["ts"])
+        elif e.get("cat") in ("cpu_op", "user_annotation") \
+                and "External id" in args:
+            ext[args["External id"]] = float(e["ts"])
+    device = _device_events(events)
+    by_stage: dict[str, list[dict]] = {}
+    for e in device:
+        args = e.get("args") or {}
+        t = launched.get(args.get("correlation"),
+                         ext.get(args.get("External id")))
+        stage = "unplaced" if t is None else "other"
+        inside = [r for r in ranges if t is not None and r[0] <= t <= r[1]]
+        if inside:
+            stage = max(inside)[2]              # the innermost range
+        by_stage.setdefault(stage, []).append(e)
+    host: dict[str, float] = {}
+    for lo, hi, stage in ranges:
+        host[stage] = host.get(stage, 0.0) + (hi - lo) / 1e3
+    split = {stage: (host.get(stage, 0.0), _busy_ms(by_stage.get(stage, [])))
+             for stage in dict.fromkeys([r[2] for r in ranges] + ["other"]
+                                        + list(by_stage))}
+    split["call"] = (call_ms, _busy_ms(device))
+    return split
+
+
+def _median_split(fn, reps: int) -> dict[str, tuple[float, float]]:
+    """Per stage the medians of host and device ms over ``reps`` traces."""
+    runs = [_stage_split(fn) for _ in range(reps)]
+    keys = dict.fromkeys(k for r in runs for k in r)
+    mid = lambda xs: sorted(xs)[len(xs) // 2]
+    return {k: (mid([r.get(k, (0.0, 0.0))[0] for r in runs]),
+                mid([r.get(k, (0.0, 0.0))[1] for r in runs])) for k in keys}
+
+
+def _split_text(split: dict[str, tuple[float, float]]) -> str:
+    return ", ".join(f"{k} {h:.2f}/{d:.2f}" for k, (h, d) in split.items())
+
+
+def _median_ms(fn, reps: int) -> float:
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return sorted(runs)[len(runs) // 2]
+
+
+def _time_phase(dev, smi: str, chunks, captures, waves) -> dict:
+    """Phase 13: the sync kernels' device time against their plain
+    versions, decode_ft8_message per capture (whole, and split by stage
+    from profiler traces) and the decode_slots stage split.  Returns the
+    kernel times."""
+    from ft8_demodulator_tpu_torch.demod.decode import (decode_ft8_message,
+                                                        decode_slots)
+    from ft8_demodulator_tpu_torch.ops import sync as so
+    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
+    from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
+
+    kt = {}
+    for (mag_tf, g), label in zip(chunks, ("STANDARD", "DEEP")):
+        kt[f"K5 {label}"] = _kernel_vs_plain_ms(
+            lambda: sc.sync_scores_tf_kernel(mag_tf, g),
+            lambda: so.sync_scores_tf(mag_tf, g), "sync_kernel", plain_reps=5)
+    for (mag, g), label in zip(captures, ("STANDARD", "DEEP")):
+        kt[f"K6 {label}"] = _kernel_vs_plain_ms(
+            lambda: sc.sync_scores_kernel(mag, g),
+            lambda: so.sync_scores(mag, g), "sync_kernel", plain_reps=5)
+
+    wave, _, _ = _crowded_capture()
+    api = {}
+    for name in ("STANDARD", "DEEP"):
+        kw = API_RUNS[name][0]
+        if name == "DEEP":
+            torch.cuda.reset_peak_memory_stats()
+        call = lambda: decode_ft8_message(wave, FS, device=dev, **kw)
+        api[name] = (_median_ms(call, API_REPS), _median_split(call, 3))
+    api_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    slots = {}
+    n = waves.shape[1]
+    for name, osr, kw in (
+            ("STANDARD", 2, dict(max_candidates=MAX_CANDIDATES,
+                                 min_score=MIN_SCORE, chunk=CHUNK)),
+            ("DEEP", 4, dict(max_candidates=DEEP_CANDIDATES,
+                             min_score=DEEP_MIN_SCORE, chunk=DEEP_CHUNK,
+                             use_osd=True, mf_first=True))):
+        p = waterfall_params(FS, osr, osr)
+        slots[name] = _stage_split(lambda: decode_slots(
+            waves, p, p.num_frames(n), max_iterations=BP_ITERATIONS,
+            bp_chunk=BP_CHUNK, **kw))
+
+    _phase(13, f"[{smi}] sync kernels, device time (min of 2 windows): "
+               + ", ".join(f"{key} kernel {a:.4f} ms vs plain {b:.4f} ms "
+                           f"({ev} device events per plain call)"
+                           for key, (a, b, ev) in kt.items())
+               + " (K5 per decode_slots chunk of 16 / 8 slots, K6 per "
+               "capture); profiler windows taken again: "
+               + (", ".join(_RETAKEN) or "none")
+               + f"; decode_ft8_message per capture, median of {API_REPS}: "
+               + "; ".join(
+                   f"{name} {whole:.1f} ms (stages from profiler traces, "
+                   f"host/device ms, median of 3: {_split_text(split)})"
+                   for name, (whole, split) in api.items())
+               + f", DEEP peak memory {api_peak:.1f} MiB; decode_slots "
+               f"batch {BATCH} stages (one profiled call, host/device ms): "
+               + "; ".join(f"{name} {_split_text(st)}"
+                           for name, st in slots.items()))
+    return kt
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -357,6 +783,7 @@ def main() -> int:
         return 1
 
     from ft8_demodulator_tpu_torch.demod.decode import decode_slots
+    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
     from ft8_demodulator_tpu_torch.ops import waterfall_cuda as wc
     from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
     from ft8_demodulator_tpu_torch.utils.build import kernel_library
@@ -409,14 +836,17 @@ def main() -> int:
               max_iterations=BP_ITERATIONS)
     torch.cuda.synchronize()
     wc.block_waterfall_tf_fused_batch.launches = 0
+    sc.sync_scores_tf_kernel.launches = 0
     t0 = time.perf_counter()
     res = decode_slots(waves, p, nf, chunk=CHUNK, bp_chunk=BP_CHUNK, **kw)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = wc.block_waterfall_tf_fused_batch.launches
-    if launches != BATCH // CHUNK:
-        raise RuntimeError(f"waterfall kernel launched {launches} times, "
-                           f"want {BATCH // CHUNK}")
+    k5_std_launches = sc.sync_scores_tf_kernel.launches
+    if launches != BATCH // CHUNK or k5_std_launches != BATCH // CHUNK:
+        raise RuntimeError(f"waterfall / sync kernels launched {launches} "
+                           f"/ {k5_std_launches} times, want "
+                           f"{BATCH // CHUNK}")
     if res.success.shape != (BATCH, MAX_CANDIDATES) \
             or res.payload.shape != (BATCH, MAX_CANDIDATES, 10) \
             or not bool(torch.isfinite(res.score[res.candidate_valid]).all()):
@@ -428,6 +858,7 @@ def main() -> int:
         raise RuntimeError(f"yield {decoded}/{BATCH}: planted payloads lost")
     _phase(4, f"decode_slots {BATCH} slots at {FS / 1000:g} kHz: yield "
               f"{decoded}/{BATCH}, waterfall kernel launches {launches}, "
+              f"sync kernel launches {k5_std_launches}, "
               f"{int(res.success.sum())} successful rows, first call "
               f"{first_s:.2f} s")
 
@@ -444,10 +875,31 @@ def main() -> int:
     b16 = waves[:CHUNK].contiguous()
     consts = wc.fused_constants(p, dev)
     reps = 20
-    kernel_ms, plain_ms = _kernel_vs_plain_ms(
+    kernel_ms, plain_ms, plain_ev = _kernel_vs_plain_ms(
         lambda: wc.block_waterfall_tf_fused_batch(b16, p, nf, consts),
         lambda: wc.block_waterfall_tf_fused_batch_plain(b16, p, nf, consts),
-        reps)
+        "waterfall_kernel", reps)
+    # K2's geometry (20 kHz osr 2x2, where the TPU streams weight strips),
+    # driven through decode_slots and then timed
+    p20 = waterfall_params(20000.0, 2, 2)
+    w20, payloads20 = _synth_slots(dev, 20000.0, 4, 20)
+    nf20 = p20.num_frames(w20.shape[1])
+    torch.cuda.synchronize()
+    wc.block_waterfall_tf_fused_batch.launches = 0
+    res20 = decode_slots(w20, p20, nf20, chunk=4, bp_chunk=BP_CHUNK, **kw)
+    torch.cuda.synchronize()
+    k2_launches = wc.block_waterfall_tf_fused_batch.launches
+    sets20 = _decode_sets(res20, 4)
+    decoded20 = sum(bytes(payloads20[b]) in {s[0] for s in sets20[b]}
+                    for b in range(4))
+    if k2_launches != 1 or decoded20 != 4:
+        raise RuntimeError(f"decode_slots at 20 kHz: waterfall kernel "
+                           f"launches {k2_launches} (want 1), yield "
+                           f"{decoded20}/4")
+    k2_ms, k2_plain_ms, k2_plain_ev = _kernel_vs_plain_ms(
+        lambda: wc.block_waterfall_tf_fused_batch(w20, p20, nf20),
+        lambda: wc.block_waterfall_tf_fused_batch_plain(w20, p20, nf20),
+        "waterfall_kernel", reps)
     # the DFT's multiply-adds (cos and sin), halo recompute not counted
     kx = p.num_freq_bins + 2 * p.freq_osr
     dft_flop = 4 * (nf + p.time_osr - 1) * p.hop * kx * CHUNK
@@ -465,19 +917,43 @@ def main() -> int:
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     _phase(6, f"[{smi}] waterfall batch {CHUNK} at {FS / 1000:g} kHz: "
               f"kernel {kernel_ms:.4f} ms ({tflops:.1f} TFLOP/s of DFT), "
-              f"plain {plain_ms:.4f} ms "
-              f"(min of 2 x {reps} warm launches each); decode_slots "
+              f"plain {plain_ms:.4f} ms ({plain_ev} device events per "
+              f"call); decode_slots on 4 slots at 20 kHz: yield "
+              f"{decoded20}/4, waterfall kernel launches {k2_launches}; "
+              f"there batch 4 kernel {k2_ms:.4f} ms, plain "
+              f"{k2_plain_ms:.4f} ms ({k2_plain_ev} device events per call) "
+              f"(device time over {reps} warm launches, min of 2 complete "
+              f"windows); decode_slots "
               f"batch {BATCH}: {BATCH / e2e_s:.1f} slots/s "
               f"({e2e_s * 1e3:.1f} ms per batch, mean of {reps_e2e}); "
               f"peak memory {peak_mib:.1f} MiB")
 
-    deep_kernels = _deep_phases(dev, smi, waves, payloads)
+    _, _, k5_deep_launches, deep_kernels = _deep_phases(dev, smi, waves,
+                                                        payloads)
+    sync_diffs, _, chunks, captures = _sync_phase(dev, kl.log)
+    k6_launches, _ = _api_phase(dev)
+    kt = _time_phase(dev, smi, chunks, captures, waves)
+    k5_err = max(v for k, v in sync_diffs.items() if k.startswith("K5"))
+    k6_err = max(v for k, v in sync_diffs.items() if k.startswith("K6"))
 
     print(json.dumps({"kernels": [{
         "name": "waterfall_tf", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,
-        "max_abs_err": max(errs.values()), "ms": kernel_ms,
-        "plain_ms": plain_ms}] + deep_kernels}))
+        "max_abs_err": errs[FS], "ms": kernel_ms,
+        "plain_ms": plain_ms}, {
+        "name": "waterfall_tf_strips_geometry", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": K2_REPLACES,
+        "launches": k2_launches, "max_abs_err": errs[20000.0],
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms}] + deep_kernels + [{
+        "name": "sync_scores_tf", "route": "cuda", "source": SYNC_SOURCE,
+        "replaces": K5_REPLACES, "launches": k5_std_launches
+        + k5_deep_launches, "max_abs_err": k5_err,
+        "ms": kt["K5 DEEP"][0], "plain_ms": kt["K5 DEEP"][1]}, {
+        "name": "sync_scores", "route": "cuda", "source": SYNC_SOURCE,
+        "replaces": K6_REPLACES, "launches": k6_launches,
+        "max_abs_err": k6_err, "ms": kt["K6 DEEP"][0],
+        "plain_ms": kt["K6 DEEP"][1]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -1,7 +1,7 @@
-"""End-to-end FT8 slot decoder: the STANDARD and DEEP paths.
+"""End-to-end FT8 decoders: the slot decoders and the host API.
 
-    STANDARD: fused waterfall kernel -> sync stencil -> top-K candidates
-              -> Hann LLR gathers -> batched LDPC BP -> GF(2) CRC
+    STANDARD: fused waterfall kernel -> sync stencil kernel -> top-K
+              candidates -> Hann LLR gathers -> batched LDPC BP -> GF(2) CRC
     DEEP (mf_first): dual-output waterfall kernel (dB grid + boxcar MF
               power grid) -> sync -> top-K -> MF LLR gathers from the
               boxcar grid -> BP -> CRC -> OSD on the rows BP left
@@ -10,17 +10,29 @@
 Port of ``ft8_demodulator_tpu/demod/decode.py`` for real input on block
 geometries: ``decode_slots`` (the bench path), ``decode_slot`` with the
 OSD, matched-filter retry (``use_mf``) and ``mf_first`` options, and
-``finish_decode`` with the gated OSD.  The fronts always run the fused
-kernels of ``ops/waterfall_cuda.py`` (the CUDA kernels on the card, their
-plain versions on the CPU); ``mf_first`` always takes the boxcar-grid
-route, which the JAX package takes on the TPU.
+``finish_decode`` with the gated OSD.  The slot fronts always run the fused
+kernels of ``ops/waterfall_cuda.py`` and the time-major stencil of
+``ops/sync_cuda.py`` (the CUDA kernels on the card, their plain versions
+on the CPU); ``mf_first`` always takes the boxcar-grid route, which the
+JAX package takes on the TPU.
 
-The per-geometry constants (DFT matrices, combine phases, sync masks, BP
-routing, parity-check and CRC matrices, Gray map, OSD basis and row
+The host API ``decode_ft8_message`` (the CLI's decode) runs the
+frequency-major path on one capture: the plain float32 waterfall ->
+crops -> the frequency-major stencil kernel -> top-K -> Hann LLRs (or
+matched-filter LLRs from the block spectra) -> BP (+ OSD) -> SNR estimate
+-> host rows, with subtraction passes.
+
+The per-geometry constants (DFT matrices, combine phases, BP routing, parity-check and CRC matrices, Gray map, OSD basis and row
 syndromes) are the buffers of one ``SlotDecoder`` module, cached per
 (geometry, device); ``.to(device)`` moves them.
 ``SlotDecoder.from_arrays`` loads them from numpy arrays, for instance the
 ones the JAX package builds.
+
+Each stage runs inside a ``torch.profiler.record_function`` range named
+``ft8.<stage>`` (waterfall, sync, top_k, llrs, decode, snr, rows,
+subtract), so a profiler trace of a decode splits its host and device time
+by stage; without a profiler a range is one dispatcher call on entry and
+one on exit.
 """
 
 from __future__ import annotations
@@ -30,29 +42,41 @@ import functools
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ..ops.ldpc_decode import BPTables, _build_routing, bp_decode_batch, \
     make_bp_tables
 from ..ops import osd
-from ..ops.llr import (extract_llrs_matched_blocks, extract_llrs_matched_grid,
-                       extract_llrs_tf)
-from ..ops.sync import (SearchGrid, _cell_masks, find_candidates_tf,
-                        search_grid, sync_scores_tf)
+from ..ops.llr import (extract_llrs, extract_llrs_matched_blocks,
+                       extract_llrs_matched_grid, extract_llrs_tf)
+from ..ops.subtract import subtract_decoded
+from ..ops.sync import (SearchGrid, find_candidates, find_candidates_tf,
+                        search_grid)
+from ..ops.sync_cuda import sync_scores_kernel, sync_scores_tf_kernel
 from ..ops.waterfall import (WaterfallParams, _block_combine_phases,
                              _block_dft_matrices, _block_spectrum,
-                             _require_block, waterfall_params)
+                             _block_waterfall_tf, _require_block,
+                             waterfall_params, waterfall_real)
 from ..ops.waterfall_cuda import (block_waterfall_mf_tf_fused_batch,
                                   block_waterfall_tf_fused_batch)
 from ..protocol import constants as C
-from .types import SlotDecodeResult
+from ..protocol.encode import encode_tones
+from ..utils.metrics import SlotMetrics, summarize_slot
+from .types import FT8Decode, FT8DecodeStatus, FT8Message, SlotDecodeResult
 
 __all__ = ["SlotDecoder", "decoder_arrays", "slot_decoder", "decode_slot",
-           "decode_slots", "finish_decode", "mf_retry"]
+           "decode_slots", "decode_waterfall", "decode_waterfall_mf",
+           "decode_ft8_message", "finish_decode", "mf_retry", "estimate_snr"]
 
 # where ROADMAP.md lists the options this slice does not port yet
-_TODO_MF = "ROADMAP.md, queue 1, 'rest of the MF family'"
-_TODO_DECODERS = "ROADMAP.md, queue 1, 'remaining decoders'"
-_TODO_WATERFALL = "ROADMAP.md, queue 1, 'waterfall backends and complex input'"
+_TODO_MF = "ROADMAP.md, queue 1, item 1 'rest of the MF family'"
+_TODO_DECODERS = "ROADMAP.md, queue 1, item 2 'remaining decoders'"
+_TODO_WATERFALL = ("ROADMAP.md, queue 1, item 3 'waterfall backends and "
+                   "complex input'")
+_TODO_AP = ("ROADMAP.md, queue 1, items 2 'remaining decoders' and 4 'rest "
+            "of the TX' (protocol/message.py)")
+_TODO_BEACON = ("ROADMAP.md, queue 1, item 6 'beacon' "
+                "(beacon.track_known_payload)")
 
 
 def _not_ported(option: str, where: str) -> NotImplementedError:
@@ -63,11 +87,9 @@ def decoder_arrays(p: WaterfallParams, num_frames: int
                    ) -> dict[str, np.ndarray]:
     """The constants of one geometry as numpy arrays, from this package's
     builders (the keys :meth:`SlotDecoder.from_arrays` reads)."""
-    g = search_grid(p.num_freq_bins, num_frames, p.time_osr, p.freq_osr)
     dft_cos, dft_sin = _block_dft_matrices(p.hop, p.nfft, p.num_freq_bins,
                                            p.freq_osr)
     combine_cos, combine_sin = _block_combine_phases(p)
-    cell, prev, nxt = _cell_masks(g)
     var_of_mi, nj_of_mi, mi_of_nj, mi_mask = _build_routing()
     return {
         "fs": np.asarray(p.fs), "freq_osr": np.asarray(p.freq_osr),
@@ -75,7 +97,6 @@ def decoder_arrays(p: WaterfallParams, num_frames: int
         "num_frames": np.asarray(num_frames),
         "dft_cos": dft_cos, "dft_sin": dft_sin,
         "combine_cos": combine_cos, "combine_sin": combine_sin,
-        "cell_mask": cell, "prev_mask": prev, "next_mask": nxt,
         "var_of_mi": var_of_mi, "nj_of_mi": nj_of_mi, "mi_of_nj": mi_of_nj,
         "mi_mask": mi_mask,
         "parity_check": C.PARITY_CHECK, "crc_matrix_77": C.CRC_MATRIX_77,
@@ -101,9 +122,6 @@ class SlotDecoder(nn.Module):
         shapes = {
             "dft_cos": (p.hop, kx), "dft_sin": (p.hop, kx),
             "combine_cos": (p.time_osr, kx), "combine_sin": (p.time_osr, kx),
-            "cell_mask": (21, self.g.num_times),
-            "prev_mask": (21, self.g.num_times),
-            "next_mask": (21, self.g.num_times),
             "var_of_mi": (C.LDPC_M * C.CHECK_MAX_DEG,),
             "nj_of_mi": (C.LDPC_M * C.CHECK_MAX_DEG,),
             "mi_of_nj": (C.LDPC_N * C.VAR_MAX_DEG,),
@@ -125,8 +143,6 @@ class SlotDecoder(nn.Module):
         self.register_buffer("dft_sin", t("dft_sin", torch.bfloat16))
         self.register_buffer("combine_cos", t("combine_cos", torch.float32))
         self.register_buffer("combine_sin", t("combine_sin", torch.float32))
-        for key in ("cell_mask", "prev_mask", "next_mask"):
-            self.register_buffer(key, t(key, torch.bool))
         bp = make_bp_tables(arrays["var_of_mi"], arrays["nj_of_mi"],
                             arrays["mi_of_nj"], arrays["mi_mask"],
                             arrays["parity_check"], "cpu")
@@ -150,9 +166,6 @@ class SlotDecoder(nn.Module):
     def waterfall_consts(self):
         return (self.dft_cos, self.dft_sin, self.combine_cos,
                 self.combine_sin)
-
-    def masks(self):
-        return (self.cell_mask, self.prev_mask, self.next_mask)
 
     def bp_tables(self) -> BPTables:
         return BPTables(*(getattr(self, f) for f in BPTables._fields))
@@ -188,6 +201,7 @@ def _crc_of_plain(plain: torch.Tensor, crc_t: torch.Tensor | None = None
     return crc_calc, crc_extracted
 
 
+@record_function("ft8.decode")
 def finish_decode(llrs: torch.Tensor, abs_time: torch.Tensor,
                   abs_freq: torch.Tensor, score: torch.Tensor,
                   cand_valid: torch.Tensor, max_iterations: int = 20,
@@ -251,6 +265,7 @@ def _merge_results(res: SlotDecodeResult,
     )
 
 
+@record_function("ft8.llrs")
 def _mf_llrs(wave: torch.Tensor, p: WaterfallParams, abs_time: torch.Tensor,
              abs_freq: torch.Tensor,
              decoder: SlotDecoder | None = None) -> torch.Tensor:
@@ -284,10 +299,12 @@ def mf_retry(wave: torch.Tensor, p: WaterfallParams, res: SlotDecodeResult,
 
 def _candidates(mag_tf: torch.Tensor, g: SearchGrid, max_candidates: int,
                 min_score: float, decoder: SlotDecoder | None):
-    """Time-major dB grid(s) (..., T, F) -> sync -> top-K."""
-    masks = decoder.masks() if decoder is not None else None
-    return find_candidates_tf(sync_scores_tf(mag_tf, g, masks), g,
-                              max_candidates, min_score)
+    """Time-major dB grid(s) (..., T, F) -> sync (the stencil kernel on the
+    card) -> top-K."""
+    with record_function("ft8.sync"):
+        scores = sync_scores_tf_kernel(mag_tf, g)
+    with record_function("ft8.top_k"):
+        return find_candidates_tf(scores, g, max_candidates, min_score)
 
 
 def _front_from_mag_tf(mag_tf: torch.Tensor, g: SearchGrid,
@@ -298,8 +315,9 @@ def _front_from_mag_tf(mag_tf: torch.Tensor, g: SearchGrid,
     gray = decoder.gray_map if decoder is not None else None
     abs_time, abs_freq, score, cand_valid = _candidates(
         mag_tf, g, max_candidates, min_score, decoder)
-    llrs = extract_llrs_tf(mag_tf, abs_time, abs_freq, g.time_osr,
-                           g.freq_osr, g.num_blocks, gray)
+    with record_function("ft8.llrs"):
+        llrs = extract_llrs_tf(mag_tf, abs_time, abs_freq, g.time_osr,
+                               g.freq_osr, g.num_blocks, gray)
     return llrs, abs_time, abs_freq, score, cand_valid
 
 
@@ -311,8 +329,9 @@ def _front_mf_grid(mag_tf: torch.Tensor, box_tf: torch.Tensor,
     gray = decoder.gray_map if decoder is not None else None
     abs_time, abs_freq, score, cand_valid = _candidates(
         mag_tf, g, max_candidates, min_score, decoder)
-    llrs = extract_llrs_matched_grid(box_tf, abs_time, abs_freq, g.time_osr,
-                                     g.freq_osr, gray)
+    with record_function("ft8.llrs"):
+        llrs = extract_llrs_matched_grid(box_tf, abs_time, abs_freq,
+                                         g.time_osr, g.freq_osr, gray)
     return llrs, abs_time, abs_freq, score, cand_valid
 
 
@@ -357,15 +376,18 @@ def decode_slots(waves: torch.Tensor, p: WaterfallParams, num_frames: int,
     g = decoder.g
 
     fronts = []
+    consts = decoder.waterfall_consts()
     for w in waves.split(chunk):
         if mf_first:
-            mags, boxes = block_waterfall_mf_tf_fused_batch(
-                w, p, num_frames, decoder.waterfall_consts())
+            with record_function("ft8.waterfall"):
+                mags, boxes = block_waterfall_mf_tf_fused_batch(
+                    w, p, num_frames, consts)
             fronts.append(_front_mf_grid(mags, boxes, g, max_candidates,
                                          min_score, decoder))
         else:
-            mags = block_waterfall_tf_fused_batch(
-                w, p, num_frames, decoder.waterfall_consts())
+            with record_function("ft8.waterfall"):
+                mags = block_waterfall_tf_fused_batch(w, p, num_frames,
+                                                      consts)
             fronts.append(_front_from_mag_tf(mags, g, max_candidates,
                                              min_score, decoder))
     # (B*K, ...) candidate rows: llrs, abs_time, abs_freq, score, valid
@@ -413,16 +435,322 @@ def decode_slot(wave: torch.Tensor, p: WaterfallParams, num_frames: int,
         decoder = slot_decoder(p, num_frames, wave.device)
     _check_decoder(decoder, p, num_frames, wave.device)
     if mf_first:
-        mags, boxes = block_waterfall_mf_tf_fused_batch(
-            wave[None], p, num_frames, decoder.waterfall_consts())
+        with record_function("ft8.waterfall"):
+            mags, boxes = block_waterfall_mf_tf_fused_batch(
+                wave[None], p, num_frames, decoder.waterfall_consts())
         outs = _front_mf_grid(mags[0], boxes[0], decoder.g, max_candidates,
                               min_score, decoder)
         return finish_decode(*outs, max_iterations, use_osd, decoder)
-    mag_tf = block_waterfall_tf_fused_batch(wave[None], p, num_frames,
-                                            decoder.waterfall_consts())[0]
+    with record_function("ft8.waterfall"):
+        mag_tf = block_waterfall_tf_fused_batch(
+            wave[None], p, num_frames, decoder.waterfall_consts())[0]
     outs = _front_from_mag_tf(mag_tf, decoder.g, max_candidates, min_score,
                               decoder)
     res = finish_decode(*outs, max_iterations, use_osd, decoder)
     if use_mf:
         res = mf_retry(wave, p, res, 0, 0, max_iterations, use_osd, decoder)
     return res
+
+
+# ---------------------------------------------------------------------------
+# the frequency-major path and the host API
+# ---------------------------------------------------------------------------
+
+def decode_waterfall(mag: torch.Tensor, g: SearchGrid, max_candidates: int,
+                     min_score: float, max_iterations: int = 20,
+                     use_osd: bool = False,
+                     min_abs_time=None) -> SlotDecodeResult:
+    """Positive-frequency dB waterfall (F, T) -> SlotDecodeResult (K rows).
+
+    Sync (the frequency-major stencil kernel on the card) -> top-K -> Hann
+    LLRs -> BP (+ OSD with ``use_osd``) -> CRC.  ``min_abs_time`` (int,
+    optional) masks out candidate start times below it.
+    """
+    with record_function("ft8.sync"):
+        scores = sync_scores_kernel(mag, g)
+        if min_abs_time is not None:
+            t_idx = g.t_start + torch.arange(g.num_times, device=mag.device)
+            scores = torch.where(t_idx >= min_abs_time, scores, -torch.inf)
+    with record_function("ft8.top_k"):
+        abs_time, abs_freq, score, cand_valid = find_candidates(
+            scores, g, max_candidates, min_score)
+    with record_function("ft8.llrs"):
+        llrs = extract_llrs(mag, abs_time, abs_freq, g.time_osr, g.freq_osr,
+                            g.num_blocks)
+    return finish_decode(llrs, abs_time, abs_freq, score, cand_valid,
+                         max_iterations, use_osd)
+
+
+def decode_waterfall_mf(mag: torch.Tensor, wave: torch.Tensor,
+                        p: WaterfallParams, g: SearchGrid,
+                        t0_hops: int, f0_rows: int, max_candidates: int,
+                        min_score: float, max_iterations: int = 20,
+                        use_osd: bool = False,
+                        is_complex: bool = False,
+                        spec: torch.Tensor | None = None,
+                        mf_refine: bool = False) -> SlotDecodeResult:
+    """MF-first decode: candidates from the (possibly cropped) waterfall
+    ``mag`` (F, T), every candidate decoded from matched-filter LLRs of the
+    block spectra in one BP (+ OSD) pass.  ``spec`` optionally carries the
+    complex block spectra of the uncropped ``wave``; t0_hops / f0_rows
+    translate crop-relative candidates to absolute ones.  ``is_complex``
+    and ``mf_refine`` raise NotImplementedError.
+    """
+    if is_complex:
+        raise _not_ported("is_complex", _TODO_WATERFALL)
+    if mf_refine:
+        raise _not_ported("mf_refine", _TODO_MF)
+    with record_function("ft8.sync"):
+        scores = sync_scores_kernel(mag, g)
+    with record_function("ft8.top_k"):
+        abs_time, abs_freq, score, cand_valid = find_candidates(
+            scores, g, max_candidates, min_score)
+    with record_function("ft8.llrs"):
+        if spec is None:
+            _require_block(p)
+            spec = _block_spectrum(wave, p, p.num_frames(wave.shape[-1]))
+        llrs = extract_llrs_matched_blocks(spec, abs_time + t0_hops,
+                                           abs_freq + f0_rows, p.time_osr,
+                                           p.freq_osr)
+    return finish_decode(llrs, abs_time, abs_freq, score, cand_valid,
+                         max_iterations, use_osd)
+
+
+def _block_spec_and_mag(wave: torch.Tensor, p: WaterfallParams,
+                        num_frames: int):
+    """Complex block spectra (nb, Kx) + the frequency-major dB waterfall
+    (F, T) derived from them."""
+    spec = _block_spectrum(wave, p, num_frames)
+    mag = _block_waterfall_tf(spec, p, num_frames).transpose(-1, -2)
+    return spec, mag.contiguous()
+
+
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """Median of all elements, the mean of the two middle order statistics
+    for an even count (``jnp.median``; ``torch.median`` takes the lower)."""
+    s = torch.sort(x.reshape(-1)).values
+    n = s.numel()
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+
+
+@record_function("ft8.snr")
+def estimate_snr(mag: torch.Tensor, payload: torch.Tensor,
+                 abs_time: torch.Tensor, abs_freq: torch.Tensor,
+                 time_osr: int, freq_osr: int, stack_r: int = 1,
+                 valid_frames: int | None = None) -> torch.Tensor:
+    """(K,) per-decode SNR estimates in dB re 2500 Hz noise bandwidth.
+
+    Each payload (failed rows included: any 10 bytes encode) is re-encoded
+    to its 79-tone track; the estimate is the on-track mean cell power
+    against the global noise floor, the median cell power of the whole
+    waterfall over the median-to-mean ratio of a mean of ``stack_r``
+    exponentials (Wilson-Hilferty; ln 2 at stack_r 1):
+
+        r = mean(P_on) / noise_hat,   SNR_2500 = 10 log10((r - 1) 3.75e-3)
+
+    Frames at or past ``valid_frames`` (zero padding) are left out of both.
+    """
+    num_freqs, num_frames = mag.shape
+    if valid_frames is None:
+        valid_frames = num_frames
+    dev = mag.device
+    tones = encode_tones(payload.to(dev))                 # (K, 79)
+    sym = torch.arange(C.NUM_SYMBOLS, device=dev)
+    abs_time = abs_time.to(dev, torch.int64)
+    abs_freq = abs_freq.to(dev, torch.int64)
+    t_idx = abs_time[:, None] + sym * time_osr            # (K, 79)
+    valid = (t_idx >= 0) & (t_idx < valid_frames) \
+        & (abs_freq + 7 * freq_osr < num_freqs)[:, None]
+    on_db = mag[(abs_freq[:, None] + tones * freq_osr).clamp(0, num_freqs - 1),
+                t_idx.clamp(0, num_frames - 1)]
+    on = 10.0 ** (on_db / 10.0)
+    w = valid.to(torch.float32)
+    s_hat = (on * w).sum(-1) / torch.clamp(w.sum(-1), min=1.0)
+    med_over_mean = (1.0 - 1.0 / (9.0 * stack_r)) ** 3
+    noise_hat = 10.0 ** (_median(mag[:, :valid_frames]) / 10.0) \
+        / med_over_mean
+    r = s_hat / torch.clamp(noise_hat, min=1e-30)
+    return 10.0 * torch.log10(torch.clamp(r - 1.0, min=1e-6) * 3.75e-3)
+
+
+@record_function("ft8.rows")
+def _format_results(res: SlotDecodeResult, hop_seconds: float,
+                    freq_step_hz: float, time_base: float, freq_base: float,
+                    deduplicate: bool, snr_db=None,
+                    min_snr_db: float | None = None) -> list[FT8Decode]:
+    """The fixed-shape result -> host FT8Decode rows (one copy to the host).
+
+    Successful rows in candidate order; duplicates of a payload dropped
+    with ``deduplicate``; rows whose estimated SNR is below ``min_snr_db``
+    dropped (a CRC-lucky false accept, not a weak signal); the reported SNR
+    clamped to [-30, +30] dB and rounded to 0.1.
+    """
+    res = SlotDecodeResult(*(a.cpu().numpy() for a in res))
+    if snr_db is not None:
+        snr_db = snr_db.cpu().numpy()
+    out: list[FT8Decode] = []
+    seen: set[bytes] = set()
+    for k in np.flatnonzero(res.success):
+        if snr_db is not None and min_snr_db is not None \
+                and float(snr_db[k]) < min_snr_db:
+            continue
+        payload = bytes(res.payload[k].tolist())
+        if deduplicate:
+            # the full 10-byte payload, not the 14-bit CRC: distinct
+            # messages colliding on CRC-14 are both reported
+            if payload in seen:
+                continue
+            seen.add(payload)
+        out.append(FT8Decode(
+            message=FT8Message(payload=payload, hash=int(res.crc[k])),
+            status=FT8DecodeStatus(
+                ldpc_errors=int(res.ldpc_errors[k]),
+                crc_extracted=int(res.crc_extracted[k]),
+                crc_calculated=int(res.crc[k])),
+            time_sec=time_base + float(res.abs_time[k]) * hop_seconds,
+            freq_hz=freq_base + float(res.abs_freq[k]) * freq_step_hz,
+            score=float(res.score[k]),
+            snr_db=None if snr_db is None else
+            round(min(max(float(snr_db[k]), -30.0), 30.0), 1),
+        ))
+    return out
+
+
+def _crop(axis_values: np.ndarray, lo: float | None, hi: float | None):
+    """[first, last + 1) of the values inside [lo, hi] (the JAX package's
+    crop, which keeps the whole axis when nothing lies inside)."""
+    mask = (axis_values >= (lo if lo is not None else axis_values[0])) \
+        & (axis_values <= (hi if hi is not None else axis_values[-1]))
+    return int(np.argmax(mask)), int(len(mask) - np.argmax(mask[::-1]))
+
+
+def decode_ft8_message(wave_data, sample_rate: float,
+                       bins_per_tone: int = 2, steps_per_symbol: int = 2,
+                       max_candidates: int = 20, min_score: float = 10.0,
+                       max_iterations: int = 20,
+                       freq_min: float | None = None,
+                       freq_max: float | None = None,
+                       time_min: float | None = None,
+                       time_max: float | None = None,
+                       deduplicate: bool = True,
+                       return_metrics: bool = False,
+                       passes: int = 1,
+                       use_osd: bool = False,
+                       use_mf: bool = False,
+                       mf_first: bool = False,
+                       mf_refine: bool = False,
+                       ap: bool | str = False,
+                       coherent: bool = False,
+                       min_plausible_snr_db: float | None = -26.0,
+                       refine_fixes: bool = False,
+                       device: str | torch.device = "cpu"):
+    """Decode all FT8 messages in a real audio capture (host API).
+
+    The JAX package's ``decode_ft8_message`` on ``device`` (the audio is
+    numpy; the decode runs where ``device`` says, and a CUDA device without
+    a card raises).  Reported time and frequency are physical units with
+    crops applied; duplicate decodes of a message are merged unless
+    ``deduplicate=False``.
+
+    * ``use_osd``: ordered-statistics decoding of the candidates BP leaves;
+    * ``use_mf``: the matched-filter retry of failed candidates;
+    * ``mf_first``: every candidate from matched-filter LLRs in one pass;
+    * ``passes`` > 1: after each pass the decoded transmissions are
+      subtracted and the residual decoded again; later passes report only
+      new payloads;
+    * ``min_plausible_snr_db``: rows with a lower SNR estimate are dropped
+      (None keeps them);
+    * ``return_metrics``: also return the first pass's ``SlotMetrics``.
+
+    Not ported yet (NotImplementedError naming the ROADMAP item): complex
+    input, ``ap``, ``coherent``, ``mf_refine``, ``refine_fixes``; and
+    geometries other than the block one.
+    """
+    wave = np.asarray(wave_data)
+    if np.iscomplexobj(wave):
+        raise _not_ported("complex input", _TODO_WATERFALL)
+    if ap:
+        raise _not_ported("ap", _TODO_AP)
+    if coherent:
+        raise _not_ported("coherent", _TODO_DECODERS)
+    if mf_refine:
+        raise _not_ported("mf_refine", _TODO_MF)
+    if refine_fixes:
+        raise _not_ported("refine_fixes", _TODO_BEACON)
+
+    def _empty():
+        if not return_metrics:
+            return []
+        return [], SlotMetrics(0, 0, 0, float("-inf"), float("nan"), 0.0)
+
+    p = waterfall_params(sample_rate, bins_per_tone, steps_per_symbol)
+    _require_block(p)
+    if wave.shape[-1] < p.nperseg:
+        return _empty()
+    num_frames = p.num_frames(wave.shape[-1])
+    wave_d = torch.as_tensor(wave.astype(np.float32), device=device)
+    hop_seconds = C.SYMBOL_PERIOD_S / p.time_osr
+    freq_step = C.TONE_SPACING_HZ / p.freq_osr
+    f_lo, f_hi, t_lo, t_hi = 0, p.num_freq_bins, 0, num_frames
+    if freq_min is not None or freq_max is not None:
+        f_lo, f_hi = _crop(np.arange(p.num_freq_bins) * freq_step,
+                           freq_min, freq_max)
+    if time_min is not None or time_max is not None:
+        t_lo, t_hi = _crop((np.arange(num_frames) * p.hop + p.nperseg / 2)
+                           / p.fs, time_min, time_max)
+
+    rows: list[FT8Decode] = []
+    seen_payloads: set[bytes] = set()
+    first_res = None
+    for pass_idx in range(max(1, passes)):
+        spec = None
+        with record_function("ft8.waterfall"):
+            if mf_first:
+                # the block spectra feed both the dB waterfall and the
+                # boxcar matched-filter DFTs
+                spec, mag = _block_spec_and_mag(wave_d, p, num_frames)
+            else:
+                mag = waterfall_real(wave_d, p, num_frames)
+        # the crops are views: the stencil kernel reads them in place
+        mag = mag[f_lo:f_hi, t_lo:t_hi]
+
+        g = search_grid(mag.shape[0], mag.shape[1], p.time_osr, p.freq_osr)
+        if g.num_times <= 0 or g.num_freqs <= 0:
+            if pass_idx == 0:
+                return _empty()
+            break
+        if mf_first:
+            res = decode_waterfall_mf(mag, wave_d, p, g, t_lo, f_lo,
+                                      max_candidates, float(min_score),
+                                      max_iterations, use_osd, spec=spec)
+        else:
+            res = decode_waterfall(mag, g, max_candidates, float(min_score),
+                                   max_iterations, use_osd)
+            if use_mf:
+                res = mf_retry(wave_d, p, res, t_lo, f_lo, max_iterations,
+                               use_osd)
+        if first_res is None:
+            first_res = res
+        snr = estimate_snr(mag, res.payload, res.abs_time, res.abs_freq,
+                           p.time_osr, p.freq_osr)
+        new_rows = _format_results(
+            res, hop_seconds, freq_step, time_base=t_lo * hop_seconds,
+            freq_base=f_lo * freq_step, deduplicate=deduplicate, snr_db=snr,
+            min_snr_db=min_plausible_snr_db)
+        # later passes always dedup against everything already reported
+        for r in new_rows:
+            if pass_idx > 0 and r.message.payload in seen_payloads:
+                continue
+            seen_payloads.add(r.message.payload)
+            rows.append(r)
+
+        if pass_idx + 1 < max(1, passes):
+            if not bool(res.success.any()):
+                break
+            with record_function("ft8.subtract"):
+                wave_d = subtract_decoded(wave_d, p, res.payload,
+                                          res.abs_time + t_lo,
+                                          res.abs_freq + f_lo, res.success)
+    if not return_metrics:
+        return rows
+    return rows, summarize_slot(first_res)

@@ -82,15 +82,28 @@ def gfsk_frequency_track(tones: torch.Tensor, sps: int,
             + te[..., 2:81, None] * w0)
 
 
-def _phase_fraction(track: torch.Tensor, sps: int, fs: float, f0: float,
-                    dtype) -> tuple[torch.Tensor, torch.Tensor]:
+def _phase_fraction(track: torch.Tensor, sps: int, fs: float,
+                    f0: float | torch.Tensor, dtype
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Phase (in cycles mod 1) at every sample, split as (slot phasor, frac).
 
     Returns (E_slot[..., 79] complex unit phasors at slot starts,
              frac[..., 79, sps] fractional cycles within each slot).
+    ``f0`` is a Python float (the JAX TX's static carrier) or a 0-d
+    float32 tensor (a carrier computed on the device, as in the
+    subtraction pass).  For a tensor the carrier terms are float32
+    arithmetic in the form XLA gives the JAX function's traced f0: the
+    division by fs becomes a multiply by the float32 reciprocal, and
+    (f0 / fs) * sps folds its two constants.
     """
     df = C.TONE_SPACING_HZ / fs          # cycles per sample per tone unit
-    c0 = f0 / fs                         # carrier cycles per sample
+    if isinstance(f0, torch.Tensor):
+        inv_fs = np.float32(1.0 / fs)
+        c0 = f0 * inv_fs                 # carrier cycles per sample
+        carrier_slot = torch.remainder(f0 * (inv_fs * np.float32(sps)), 1.0)
+    else:
+        c0 = f0 / fs
+        carrier_slot = float(np.mod(np.float32(c0 * sps), np.float32(1.0)))
 
     inc = track * df                                     # (..., 79, sps)
     cs = torch.cumsum(inc, dim=-1) - inc                 # exclusive
@@ -100,7 +113,6 @@ def _phase_fraction(track: torch.Tensor, sps: int, fs: float, f0: float,
 
     # slot-start phases as unit phasors: the integer cycle count is never
     # represented (f32-exact for 79 products)
-    carrier_slot = float(np.mod(np.float32(c0 * sps), np.float32(1.0)))
     slot_cycles = torch.remainder(inc.sum(-1) + carrier_slot, 1.0)
     slot_phasor = torch.polar(torch.ones_like(slot_cycles),
                               2.0 * np.pi * slot_cycles)
@@ -110,8 +122,9 @@ def _phase_fraction(track: torch.Tensor, sps: int, fs: float, f0: float,
 
 
 def _baseband_complex(tones: torch.Tensor, sps: int, fs: float,
-                      f0: float) -> torch.Tensor:
-    """(..., 79) tone ids -> (..., 79*sps) complex64 baseband."""
+                      f0: float | torch.Tensor) -> torch.Tensor:
+    """(..., 79) tone ids -> (..., 79*sps) complex64 baseband; the carrier
+    as :func:`_phase_fraction` takes it."""
     dtype = torch.float32
     track = gfsk_frequency_track(tones, sps, dtype)
     e_slot, frac = _phase_fraction(track, sps, fs, f0, dtype)

@@ -5,8 +5,9 @@ block-geometry matched-filter (MF) paths.  Per candidate, gather the (58
 data symbols x 8 tones) window, reorder it through the Gray map, emit 174
 max-of-4 LLRs and normalise each vector to variance 24.
 
-* :func:`extract_llrs_tf` reads the time-major dB waterfall; symbols
-  outside it contribute zero LLRs.
+* :func:`extract_llrs_tf` reads the time-major dB waterfall, and
+  :func:`extract_llrs` the frequency-major one; symbols outside it
+  contribute zero LLRs.
 * :func:`extract_llrs_matched_grid` reads the boxcar power grid of the
   dual-output waterfall (row j = window start j - (tau-1)); symbol rows
   outside the grid read power 0, which gives equal dB on all 8 tones and
@@ -26,7 +27,7 @@ import torch
 
 from ..protocol import constants as C
 
-__all__ = ["extract_llrs_tf", "extract_llrs_matched_grid",
+__all__ = ["extract_llrs", "extract_llrs_tf", "extract_llrs_matched_grid",
            "extract_llrs_matched_blocks", "normalize_llrs"]
 
 # Bit b of symbol value j (MSB first) — selects the max-of-4 groups.
@@ -81,6 +82,16 @@ def extract_llrs_tf(mag_tf: torch.Tensor, abs_time: torch.Tensor,
     llr = _llr_from_powers(s2)                            # (..., K, 58, 3)
     llr = torch.where(valid[..., None], llr, 0.0)
     return normalize_llrs(llr.reshape(*lead, k, C.LDPC_N))
+
+
+def extract_llrs(mag: torch.Tensor, abs_time: torch.Tensor,
+                 abs_freq: torch.Tensor, time_osr: int, freq_osr: int,
+                 num_blocks: int, gray_map=None) -> torch.Tensor:
+    """Frequency-major waterfall (..., F, T) + candidates (..., K) -> LLRs
+    (..., K, 174): :func:`extract_llrs_tf` on the transposed view (the
+    gathers select the same cells)."""
+    return extract_llrs_tf(mag.transpose(-1, -2), abs_time, abs_freq,
+                           time_osr, freq_osr, num_blocks, gray_map)
 
 
 def normalize_llrs(llr: torch.Tensor) -> torch.Tensor:

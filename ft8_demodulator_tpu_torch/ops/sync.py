@@ -1,11 +1,14 @@
-"""Costas sync scoring and candidate search on the time-major waterfall.
+"""Costas sync scoring and candidate search.
 
-Port of the time-major path of ``ft8_demodulator_tpu/ops/sync.py``: each of
-the <=84 (Costas cell, comparison) terms is a statically offset 2-D slice of
-the padded (T, F) dB grid, added in the reference's order, so float32
-scores are bit-identical to the JAX stencil on the CPU.  Candidate
-selection reproduces ``lax.top_k``'s lowest-index tie order with stable
-sorts.  Every function takes leading batch dimensions.
+Port of ``ft8_demodulator_tpu/ops/sync.py``, both layouts: each of the <=84
+(Costas cell, comparison) terms is a statically offset 2-D slice of the
+padded dB grid, added in the reference's order, so float32 scores are
+bit-identical to the JAX stencil on the CPU.  The frequency-major
+functions (:func:`sync_scores`, :func:`find_candidates`, on (..., F, T)
+grids) run the time-major ones on the transposed view: the stencil is
+elementwise and the flat candidate index is f * num_times + t in both.
+Candidate selection reproduces ``lax.top_k``'s lowest-index tie order with
+stable sorts.  Every function takes leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -19,8 +22,8 @@ import torch.nn.functional as F
 
 from ..protocol import constants as C
 
-__all__ = ["SearchGrid", "search_grid", "sync_scores_tf",
-           "find_candidates_tf", "cell_mask_tensors"]
+__all__ = ["SearchGrid", "search_grid", "sync_scores", "sync_scores_tf",
+           "find_candidates", "find_candidates_tf", "cell_mask_tensors"]
 
 # The reference scans start times from 10 symbols before the slot up to
 # num_blocks - 59 symbols.
@@ -88,8 +91,7 @@ def _sub_grid(g: SearchGrid, t_start: int, num_times: int) -> SearchGrid:
                       num_times, g.num_freqs)
 
 
-def sync_scores_tf(mag_tf: torch.Tensor, g: SearchGrid,
-                   masks=None) -> torch.Tensor:
+def sync_scores_tf(mag_tf: torch.Tensor, g: SearchGrid) -> torch.Tensor:
     """Time-major waterfall (..., T, F) -> scores (..., num_times, num_freqs).
 
     score(t, f) = mean over valid comparisons of
@@ -97,12 +99,9 @@ def sync_scores_tf(mag_tf: torch.Tensor, g: SearchGrid,
     is in bounds.  Grids with a pre-roll (t_start < 0) whose main part
     needs no right padding are scored in two pieces, the pre-roll columns
     on a short leading slice and the main columns on the unpadded grid, as
-    the JAX stencil does.  ``masks``: (cell, prev, next) as
-    :func:`cell_mask_tensors` returns them for ``g``; None takes the cached
-    ones.
+    the JAX stencil does.
     """
-    if masks is None:
-        masks = cell_mask_tensors(g, mag_tf.device)
+    masks = cell_mask_tensors(g, mag_tf.device)
     main_cols = g.num_times + g.t_start
     main_right_pad = main_cols + (C.NUM_SYMBOLS - 1) * g.time_osr \
         - mag_tf.shape[-2]
@@ -116,6 +115,18 @@ def sync_scores_tf(mag_tf: torch.Tensor, g: SearchGrid,
                                     [m[:, split:] for m in masks])
         return torch.cat([pre, main], dim=-2)
     return _sync_scores_tf_impl(mag_tf, g, masks)
+
+
+def sync_scores(mag: torch.Tensor, g: SearchGrid) -> torch.Tensor:
+    """Frequency-major waterfall (..., F, T) -> scores (..., num_freqs,
+    num_times), with the pre-roll split of :func:`sync_scores_tf`.
+
+    The same terms in the same order per cell as the JAX ``sync_scores``;
+    XLA turns its division by the count (broadcast along frequency here)
+    into a reciprocal multiply in this layout too, so the scores are
+    bit-identical to it.
+    """
+    return sync_scores_tf(mag.transpose(-1, -2), g).transpose(-1, -2)
 
 
 def _sync_scores_tf_impl(mag_tf: torch.Tensor, g: SearchGrid,
@@ -208,3 +219,14 @@ def find_candidates_tf(scores_tf: torch.Tensor, g: SearchGrid,
     abs_freq = (idx // g.num_times).to(torch.int32)
     abs_time = (g.t_start + idx % g.num_times).to(torch.int32)
     return abs_time, abs_freq, vals, torch.isfinite(vals)
+
+
+def find_candidates(scores: torch.Tensor, g: SearchGrid, max_candidates: int,
+                    min_score: float):
+    """Top-K candidates over a frequency-major (..., num_freqs, num_times)
+    grid, as the JAX ``find_candidates``: the row screen takes the
+    frequency rows with the largest maxima over time, and the flat index
+    is f * num_times + t with ties to the lowest, exactly as
+    :func:`find_candidates_tf` on the transposed grid."""
+    return find_candidates_tf(scores.transpose(-1, -2), g, max_candidates,
+                              min_score)

@@ -226,10 +226,10 @@ def waterfall_real(wave: torch.Tensor, p: WaterfallParams,
                    num_frames: int) -> torch.Tensor:
     """Real audio (..., n) -> dB waterfall (..., nfft//2, num_frames).
 
-    float32 DFT products (the JAX package's "highest" precision).  Only
-    the block backend is ported; other geometries raise
-    NotImplementedError.
+    float32 DFT products (the JAX package's "highest" precision), laid out
+    frequency-major in memory.  Only the block backend is ported; other
+    geometries raise NotImplementedError.
     """
     _require_block(p)
     return _block_waterfall_tf(_block_spectrum(wave, p, num_frames), p,
-                               num_frames).transpose(-1, -2)
+                               num_frames).transpose(-1, -2).contiguous()

@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions: the fused
-waterfall (dB only and dual output) and the OSD elimination.
+waterfall (dB only and dual output), the OSD elimination and the sync
+stencil (time-major and frequency-major); the host decode API on the card
+against the CPU.
 
 Needs a CUDA card: every test takes the ``cuda`` fixture, which skips when
 there is none.  The file imports neither JAX nor the JAX package, and uses
@@ -15,6 +17,8 @@ import torch
 from ft8_demodulator_tpu_torch.demod import decode as tdec
 from ft8_demodulator_tpu_torch.ops import osd as tosd
 from ft8_demodulator_tpu_torch.ops import osd_cuda as tosc
+from ft8_demodulator_tpu_torch.ops import sync as tsync
+from ft8_demodulator_tpu_torch.ops import sync_cuda as tsc
 from ft8_demodulator_tpu_torch.ops import waterfall_cuda as twc
 from ft8_demodulator_tpu_torch.ops.gfsk import ft8_passband
 from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
@@ -218,3 +222,107 @@ def test_kernel_rejects_bad_constants(cuda):
     with pytest.raises(ValueError, match="int32"):
         tosc.reduce_basis_batch(torch.zeros((2, 91, 6), dtype=torch.int64,
                                             device=cuda))
+
+
+def _db_grid(seed, shape, device, integer=False):
+    """A dB-like grid: noise around -40 dB, or small integers (ties)."""
+    rng = np.random.default_rng(seed)
+    if integer:
+        grid = rng.integers(-3, 4, shape).astype(np.float32)
+    else:
+        grid = (-40.0 + 6.0 * rng.standard_normal(shape)).astype(np.float32)
+    return torch.as_tensor(grid, device=device)
+
+
+def _assert_sync_equal(got, want):
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    assert not torch.isnan(got).any()
+    assert torch.equal(got, want), float((got - want).abs().nan_to_num().max())
+
+
+@pytest.mark.parametrize("fs,osr,b", [(12000.0, (2, 2), 4),
+                                      (12000.0, (4, 4), 2),
+                                      (2000.0, (2, 2), 3),
+                                      (2000.0, (4, 4), 3)])
+def test_sync_kernels_match_plain_bit_for_bit(cuda, fs, osr, b):
+    p = waterfall_params(fs, *osr)
+    nf = p.num_frames(int(fs * 15))
+    g = tsync.search_grid(p.num_freq_bins, nf, *reversed(osr))
+    mag_tf = _db_grid(int(fs) + osr[0], (b, nf, p.num_freq_bins), cuda)
+    before = (tsc.sync_scores_tf_kernel.launches,
+              tsc.sync_scores_kernel.launches)
+    got = tsc.sync_scores_tf_kernel(mag_tf, g)
+    _assert_sync_equal(got, tsync.sync_scores_tf(mag_tf, g))
+    mag = mag_tf.transpose(-1, -2).contiguous()
+    got_fm = tsc.sync_scores_kernel(mag, g)
+    _assert_sync_equal(got_fm, tsync.sync_scores(mag, g))
+    torch.cuda.synchronize()
+    assert torch.equal(got_fm, got.transpose(-1, -2))
+    assert (tsc.sync_scores_tf_kernel.launches,
+            tsc.sync_scores_kernel.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+
+
+def test_sync_kernels_edges(cuda):
+    """The pre-roll split geometry, a 2-D grid, integer grids with ties, a
+    frequency + time crop read in place (strided view), a transposed view,
+    and a grid too narrow for num_freqs."""
+    p = waterfall_params(2000.0, 2, 2)
+    nf = p.num_frames(30000)
+    mag_tf = _db_grid(1, (nf, p.num_freq_bins), cuda)
+    for frames in (nf, 130, 40):
+        g = tsync.search_grid(p.num_freq_bins, frames, 2, 2)
+        _assert_sync_equal(tsc.sync_scores_tf_kernel(mag_tf, g),
+                           tsync.sync_scores_tf(mag_tf, g))
+    ties = _db_grid(2, (2, p.num_freq_bins, nf), cuda, integer=True)
+    g = tsync.search_grid(p.num_freq_bins, nf, 2, 2)
+    _assert_sync_equal(tsc.sync_scores_kernel(ties, g),
+                       tsync.sync_scores(ties, g))
+    crop = ties[1, 40:180, 10:170]
+    gc = tsync.search_grid(*crop.shape, 2, 2)
+    assert not crop.is_contiguous()
+    _assert_sync_equal(tsc.sync_scores_kernel(crop, gc),
+                       tsync.sync_scores(crop.contiguous(), gc))
+    view = ties[0].transpose(-1, -2)
+    _assert_sync_equal(tsc.sync_scores_tf_kernel(view, g),
+                       tsync.sync_scores_tf(view.contiguous(), g))
+    with pytest.raises(ValueError, match="bins"):
+        tsc.sync_scores_kernel(ties[:, :20], g)
+
+
+def test_decode_slots_runs_the_sync_kernel(cuda):
+    fs = 2000.0
+    n = int(fs * 15)
+    p = waterfall_params(fs, 2, 2)
+    waves, _ = _planted(14, fs, n)
+    before = tsc.sync_scores_tf_kernel.launches
+    tdec.decode_slots(waves.to(cuda), p, p.num_frames(n), max_candidates=10,
+                      min_score=1.0, chunk=2)
+    assert tsc.sync_scores_tf_kernel.launches == before + 2
+
+
+@pytest.mark.parametrize("kw", [dict(min_score=5.0),
+                                dict(bins_per_tone=4, steps_per_symbol=4,
+                                     max_candidates=40, min_score=1.0,
+                                     use_osd=True, use_mf=True),
+                                dict(min_score=5.0, passes=2)])
+def test_decode_ft8_message_card_matches_cpu(cuda, kw):
+    """The host API on the card (the frequency-major stencil kernel, and
+    the OSD kernel under DEEP) decodes the rows it decodes on the CPU."""
+    fs = 2000.0
+    n = int(fs * 15)
+    waves, payloads = _planted(15, fs, n)
+    wave = waves.numpy().sum(0) / 2.0
+    before = (tsc.sync_scores_kernel.launches, tosc.reduce_basis_batch.launches)
+    card = tdec.decode_ft8_message(wave, fs, device=cuda, **kw)
+    assert tsc.sync_scores_kernel.launches > before[0]
+    if kw.get("use_osd"):
+        assert tosc.reduce_basis_batch.launches > before[1]
+    host = tdec.decode_ft8_message(wave, fs, **kw)
+    assert [(r.message.payload, r.time_sec, r.freq_hz) for r in card] == \
+        [(r.message.payload, r.time_sec, r.freq_hz) for r in host]
+    for a, b in zip(card, host):
+        assert abs(a.score - b.score) <= 1e-4
+        assert abs(a.snr_db - b.snr_db) <= 0.1
+    assert {bytes(p) for p in payloads} <= {r.message.payload for r in card}

@@ -117,12 +117,9 @@ def test_decode_slots_matches_jax_decode_slots(slots, port_result):
 
 def _jax_arrays(p, num_frames):
     """The decoder constants as the JAX package builds them."""
-    g = jsync.search_grid(p.num_freq_bins, num_frames, p.time_osr,
-                          p.freq_osr)
     dft_cos, dft_sin = jwf._block_dft_matrices(p.hop, p.nfft,
                                                p.num_freq_bins, p.freq_osr)
     combine_cos, combine_sin = jwf._block_combine_phases(p)
-    cell, prev, nxt = jsync._cell_masks(g)
     var_of_mi, nj_of_mi, mi_of_nj, mi_mask = jbp._build_routing()
     return {
         "fs": np.asarray(p.fs), "freq_osr": np.asarray(p.freq_osr),
@@ -130,7 +127,6 @@ def _jax_arrays(p, num_frames):
         "num_frames": np.asarray(num_frames),
         "dft_cos": dft_cos, "dft_sin": dft_sin,
         "combine_cos": combine_cos, "combine_sin": combine_sin,
-        "cell_mask": cell, "prev_mask": prev, "next_mask": nxt,
         "var_of_mi": var_of_mi, "nj_of_mi": nj_of_mi, "mi_of_nj": mi_of_nj,
         "mi_mask": mi_mask,
         "parity_check": JC.PARITY_CHECK, "crc_matrix_77": JC.CRC_MATRIX_77,

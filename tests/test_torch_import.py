@@ -15,10 +15,14 @@ def test_torch_import_without_jax():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import ft8_demodulator_tpu_torch.config\n"
+        "import ft8_demodulator_tpu_torch.demod\n"
         "import ft8_demodulator_tpu_torch.demod.decode\n"
         "import ft8_demodulator_tpu_torch.ops.osd\n"
         "import ft8_demodulator_tpu_torch.ops.osd_cuda\n"
+        "import ft8_demodulator_tpu_torch.ops.subtract\n"
+        "import ft8_demodulator_tpu_torch.ops.sync_cuda\n"
         "import ft8_demodulator_tpu_torch.ops.waterfall_cuda\n"
+        "import ft8_demodulator_tpu_torch.utils.metrics\n"
         "assert 'ft8_demodulator_tpu' not in sys.modules\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
