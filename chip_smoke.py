@@ -600,7 +600,7 @@ def _api_phase(dev) -> tuple[int, dict]:
         card_s = time.perf_counter() - t0
         k6, k4 = sc.sync_scores_kernel.launches, oc.reduce_basis_batch.launches
         k6_total += k6
-        host = decode_ft8_message(wave, FS, **kw)
+        host = decode_ft8_message(wave, FS, device="cpu", **kw)
         got = [r.message.payload for r in card]
         if k6 < 1 or (name == "DEEP" and k4 < 1):
             raise RuntimeError(f"{name}: sync kernel {k6}, OSD kernel {k4} "

@@ -61,6 +61,7 @@ from ..ops.waterfall_cuda import (block_waterfall_mf_tf_fused_batch,
                                   block_waterfall_tf_fused_batch)
 from ..protocol import constants as C
 from ..protocol.encode import encode_tones
+from ..utils.device import entry_device
 from ..utils.metrics import SlotMetrics, summarize_slot
 from .types import FT8Decode, FT8DecodeStatus, FT8Message, SlotDecodeResult
 
@@ -643,14 +644,14 @@ def decode_ft8_message(wave_data, sample_rate: float,
                        coherent: bool = False,
                        min_plausible_snr_db: float | None = -26.0,
                        refine_fixes: bool = False,
-                       device: str | torch.device = "cpu"):
+                       device: str | torch.device = "cuda"):
     """Decode all FT8 messages in a real audio capture (host API).
 
     The JAX package's ``decode_ft8_message`` on ``device`` (the audio is
-    numpy; the decode runs where ``device`` says, and a CUDA device without
-    a card raises).  Reported time and frequency are physical units with
-    crops applied; duplicate decodes of a message are merged unless
-    ``deduplicate=False``.
+    numpy; the decode runs on the card unless the caller passes
+    ``device="cpu"``, and without a card a CUDA device raises).  Reported
+    time and frequency are physical units with crops applied; duplicate
+    decodes of a message are merged unless ``deduplicate=False``.
 
     * ``use_osd``: ordered-statistics decoding of the candidates BP leaves;
     * ``use_mf``: the matched-filter retry of failed candidates;
@@ -677,6 +678,7 @@ def decode_ft8_message(wave_data, sample_rate: float,
         raise _not_ported("mf_refine", _TODO_MF)
     if refine_fixes:
         raise _not_ported("refine_fixes", _TODO_BEACON)
+    device = entry_device(device)
 
     def _empty():
         if not return_metrics:

@@ -22,6 +22,7 @@ import torch
 
 from ..protocol import constants as C
 from ..protocol.encode import encode_tones
+from ..utils.device import entry_device
 
 __all__ = ["gauss_window", "gfsk_frequency_track", "ft8_passband"]
 
@@ -145,13 +146,16 @@ def _baseband_complex(tones: torch.Tensor, sps: int, fs: float,
 
 
 def ft8_passband(payload, fs: float, f0: float, fc: float,
-                 device=None) -> torch.Tensor:
-    """(..., 10) payload bytes -> float32 passband transmission.
+                 device: str | torch.device = "cuda") -> torch.Tensor:
+    """(..., 10) payload bytes -> float32 passband transmission on
+    ``device`` (the card unless the caller asks for the CPU; without a
+    card, a CUDA device raises).
 
     Mixing to fc equals generating the baseband at carrier f0 + fc, which
     keeps the whole phase inside the float32-safe accumulator.
     """
-    payload = torch.as_tensor(np.asarray(payload, np.uint8), device=device)
+    payload = torch.as_tensor(np.asarray(payload, np.uint8),
+                              device=entry_device(device))
     sps = int(C.SYMBOL_PERIOD_S * fs)
     tones = encode_tones(payload)
     return _baseband_complex(tones, sps, float(fs), float(f0 + fc)).real

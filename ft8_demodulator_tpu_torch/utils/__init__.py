@@ -1,1 +1,2 @@
-"""Utilities: building and loading the CUDA kernels."""
+"""Utilities: building and loading the CUDA kernels, the entry points'
+device, the slot metrics."""

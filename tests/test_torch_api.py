@@ -59,7 +59,8 @@ def capture():
     payloads[:, 9] &= 0xF8
     wave = 0.3 * rng.standard_normal(N)
     for i in range(5):
-        sig = ft8_passband(payloads[i], FS, 300.0 + 120.0 * i, 0.0).numpy()
+        sig = ft8_passband(payloads[i], FS, 300.0 + 120.0 * i, 0.0,
+                           device="cpu").numpy()
         start = 320 + 320 * i
         wave[start: start + len(sig)] += (0.4 + 0.3 * i) * sig
     return wave.astype(np.float32), payloads
@@ -95,7 +96,7 @@ CASES = {
 def test_decode_ft8_message_matches_jax(capture, case):
     wave, payloads = capture
     kw = CASES[case]
-    got = tdec.decode_ft8_message(wave, FS, **kw)
+    got = tdec.decode_ft8_message(wave, FS, device="cpu", **kw)
     want = jdec.decode_ft8_message(wave, FS, **kw)
     _assert_rows_equal(got, want)
     found = {r.message.payload for r in got}
@@ -109,6 +110,7 @@ def test_decode_ft8_message_matches_jax(capture, case):
 def test_return_metrics_matches_jax(capture):
     wave, _ = capture
     rows, metrics = tdec.decode_ft8_message(wave, FS, min_score=5.0,
+                                            device="cpu",
                                             return_metrics=True)
     want_rows, want = jdec.decode_ft8_message(wave, FS, min_score=5.0,
                                               return_metrics=True)
@@ -119,6 +121,7 @@ def test_return_metrics_matches_jax(capture):
         assert metrics.asdict()[key] == pytest.approx(value, abs=SCORE_ATOL,
                                                       nan_ok=True), key
     empty = tdec.decode_ft8_message(np.zeros(100, np.float32), FS,
+                                    device="cpu",
                                     return_metrics=True)
     assert empty[0] == [] and empty[1].candidates_found == 0
 
@@ -143,9 +146,10 @@ def _two_signal_slot(rng):
 def test_second_pass_matches_jax_and_finds_buried_signal():
     wave, strong, weak = _two_signal_slot(np.random.default_rng(21))
     kw = dict(max_candidates=20, min_score=5.0)
-    one = tdec.decode_ft8_message(wave, FS, **kw)
+    one = tdec.decode_ft8_message(wave, FS, device="cpu", **kw)
     assert {r.message.payload for r in one} == {strong.tobytes()}
-    got = tdec.decode_ft8_message(wave, FS, passes=2, **kw)
+    got = tdec.decode_ft8_message(wave, FS, passes=2, device="cpu",
+                                  **kw)
     want = jdec.decode_ft8_message(wave, FS, passes=2, **kw)
     _assert_rows_equal(got[:1], want[:1])
     # the second pass decodes residuals that differ by < 1e-4 of the rms:
@@ -155,7 +159,7 @@ def test_second_pass_matches_jax_and_finds_buried_signal():
                                                 weak.tobytes()]
     # a capture of noise stops after the first pass
     noise = np.random.default_rng(5).standard_normal(N).astype(np.float32)
-    assert tdec.decode_ft8_message(noise, FS, passes=3) == []
+    assert tdec.decode_ft8_message(noise, FS, passes=3, device="cpu") == []
 
 
 def test_subtract_decoded_matches_jax():
@@ -286,11 +290,11 @@ def test_unported_options_raise_naming_roadmap(capture):
                      (dict(mf_refine=True), "item 1"),
                      (dict(refine_fixes=True), "item 6")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-            tdec.decode_ft8_message(wave, FS, **kw)
+            tdec.decode_ft8_message(wave, FS, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="item 3"):
-        tdec.decode_ft8_message(wave.astype(np.complex64), FS)
+        tdec.decode_ft8_message(wave.astype(np.complex64), FS, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdec.decode_ft8_message(wave, FS, steps_per_symbol=3)
+        tdec.decode_ft8_message(wave, FS, steps_per_symbol=3, device="cpu")
     p = waterfall_params(FS, 2, 2)
     g = tsync.search_grid(p.num_freq_bins, p.num_frames(N), 2, 2)
     for kw in (dict(is_complex=True), dict(mf_refine=True)):

@@ -137,7 +137,8 @@ def _planted(seed, fs, n):
     payloads[:, 9] &= 0xF8
     waves = 0.3 * rng.standard_normal((4, n)).astype(np.float32)
     for i in range(4):
-        sig = ft8_passband(payloads[i], fs, 350.0 + 80.0 * i, 0.0).numpy()
+        sig = ft8_passband(payloads[i], fs, 350.0 + 80.0 * i, 0.0,
+                           device="cpu").numpy()
         waves[i, 300: 300 + len(sig)] += sig
     return torch.as_tensor(waves), payloads
 
@@ -319,7 +320,7 @@ def test_decode_ft8_message_card_matches_cpu(cuda, kw):
     assert tsc.sync_scores_kernel.launches > before[0]
     if kw.get("use_osd"):
         assert tosc.reduce_basis_batch.launches > before[1]
-    host = tdec.decode_ft8_message(wave, fs, **kw)
+    host = tdec.decode_ft8_message(wave, fs, device="cpu", **kw)
     assert [(r.message.payload, r.time_sec, r.freq_hz) for r in card] == \
         [(r.message.payload, r.time_sec, r.freq_hz) for r in host]
     for a, b in zip(card, host):

@@ -56,7 +56,8 @@ def slots():
     payloads[:, 9] &= 0xF8
     waves = 0.3 * rng.standard_normal((B, N)).astype(np.float32)
     for i in range(B):
-        sig = ft8_passband(payloads[i], FS, 300.0 + 90.0 * i, 0.0).numpy()
+        sig = ft8_passband(payloads[i], FS, 300.0 + 90.0 * i, 0.0,
+                           device="cpu").numpy()
         start = 400 + 250 * i
         waves[i, start: start + len(sig)] += sig
     return waves, payloads

@@ -102,7 +102,8 @@ def test_passband_matches_jax(goldens):
     """ft8_passband (native alignment) against the JAX one at fs 2 kHz,
     atol 1e-4 as for the baseband."""
     payload = goldens["p1_payload"]
-    got = tgfsk.ft8_passband(payload, 2000.0, 300.0, 250.0).numpy()
+    got = tgfsk.ft8_passband(payload, 2000.0, 300.0, 250.0,
+                             device="cpu").numpy()
     want = np.asarray(jgfsk.ft8_passband(jnp.asarray(payload), 2000.0,
                                          300.0, 250.0))
     assert got.dtype == np.float32 and got.shape == want.shape
