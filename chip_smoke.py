@@ -7,10 +7,14 @@ Phases, one line each (any failure raises, and the script exits non-zero):
 
 1. the card: name, count, and nvidia-smi's name and power limit;
 2. build the CUDA kernels from ft8_demodulator_tpu_torch/csrc (nvcc,
-   sm_90a) and print ptxas's registers, shared memory and spills;
+   sm_90a); count the HGMMA (wgmma) and UTMALDG (TMA load) instructions
+   of both fused waterfall instances in cuobjdump -sass (0 raises); print
+   ptxas's registers, shared memory and spills;
 3. the fused waterfall kernel against its plain PyTorch version on noisy
-   slots: 12 kHz osr 2x2 (batch 16) and 20 kHz osr 2x2 (batch 4),
-   max |difference| <= 5e-3 dB;
+   slots: 12 kHz osr 2x2 (batch 16), 20 kHz osr 2x2 (batch 4) and 11,025
+   Hz osr 2x2 (batch 4, a hop of 882, not a multiple of 8),
+   max |difference| <= 5e-3 dB where the plain grid is above -100 dB and
+   <= 5e-2 dB below (see NULL_DB), both against a float64 reference too;
 4. the main path at full size: decode_slots on 256 synthetic 0-dB slots at
    12 kHz (K 20, min_score 10, 20 BP iterations, chunk 16, bp_chunk 256);
    every planted payload must decode, and the launch counters must show
@@ -19,16 +23,19 @@ Phases, one line each (any failure raises, and the script exits non-zero):
 5. the first 8 of those slots decoded on the CPU (plain waterfall) as well:
    the same payloads at the same (abs_time, abs_freq) on both;
 6. decode_slots on 4 synthetic 0-dB slots at 20 kHz (K2's geometry,
-   chunk 4): yield 4/4 and one waterfall launch; times: the kernel and
-   its plain version at 12 kHz batch 16 and 20 kHz batch 4 (device time
-   from torch.profiler kernel intervals, warm; a window counts only when
-   it holds every device event of its calls), end-to-end decode_slots
+   chunk 4): yield 4/4 and one waterfall launch; times: the kernel (its
+   pre-pass included), its plain version and the library yardstick
+   (torch.stft + dB, first held to the float32 plain waterfall) at 12 kHz
+   batch 16 and 20 kHz batch 4 (device time from torch.profiler kernel
+   intervals, warm; a window counts only when it holds every device event
+   of its calls), beside each kernel's bound; end-to-end decode_slots
    slots/s at batch 256, peak device memory;
 7. the dual-output (dB + boxcar) waterfall kernel against its plain
    version on noisy slots at osr 4x4: 12 kHz (batch 8) and 2 kHz (batch
-   8); dB max |difference| <= 5e-3, boxcar |difference| <= 1e-4 x the
+   8); dB max |difference| as in phase 3, boxcar |difference| <= 1e-4 x the
    cell + 1e-4 x the grid's mean power; its dB grid against the dB-only
-   kernel's at 12 kHz <= 5e-3;
+   kernel's at 12 kHz <= 5e-3; the yardstick (a Hann and a rectangular
+   torch.stft) against the float32 plain grids;
 8. the OSD elimination kernel against its plain version, bit for bit, on
    bases permuted by random LLRs with forced zero ties: 4099 and 37 rows
    (not multiples of the kernel's 4 candidates per block);
@@ -39,10 +46,10 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    once;
    OSD-accepted rows (against the same decode without OSD) must be > 0;
    the first 4 slots decoded on the CPU must give the same sets;
-10. times: the dual-output kernel (batch 8, 12 kHz) and the OSD kernel
-   (1024 rows, the OSD pass size) against their plain versions (device
-   time, as in phase 6); DEEP decode_slots slots/s at batch 256 over 5
-   runs; peak device memory;
+10. times: the dual-output kernel (batch 8, 12 kHz; and its yardstick) and
+   the OSD kernel (1024 rows, the OSD pass size) against their plain
+   versions and bounds (device time, as in phase 6); DEEP decode_slots
+   slots/s at batch 256 over 5 runs; peak device memory;
 11. the sync stencil kernels against their plain versions, bit for bit
    (identical -inf masks; the fallback bound 1e-4 with identical
    candidates is reported, not required bit-exactness, if they differ):
@@ -58,22 +65,29 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    SNR within 0.1), launches the frequency-major sync kernel (and the OSD
    kernel under DEEP); the buried signal decodes only in the second pass;
 13. times (device time as in phase 6): both sync kernels against their
-   plain versions at the decodes' sizes; decode_ft8_message ms per
+   plain versions and bounds at the decodes' sizes; decode_ft8_message ms per
    capture, STANDARD and DEEP; the stage split of decode_ft8_message and
    of decode_slots at batch 256 (STANDARD and DEEP), host and device ms
    per ft8.<stage> record_function range of the decoders, from profiler
    traces of the real calls; peak device memory.
 
-Then one JSON line with the kernels, the nvidia-smi line, and the last
-line {"ok": true, "device": {...}}.  Without a CUDA card it exits 1 and
+Then one JSON line with the kernels (each with its launches on the main
+path, device ms, plain ms, bound ms and what bounds it, and the library
+yardstick's ms or null with a note), the nvidia-smi line, and the last
+line {"ok": true, "device": {...}}.  Bounds: the larger of the operations
+over the card's published peak for their type (989 TFLOP/s bf16 tensor
+cores, 67 TFLOP/s outside them) and the bytes over 3.35 TB/s, each input
+read once and each output written once.  Without a CUDA card it exits 1 and
 prints no result.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -92,6 +106,15 @@ MIN_SCORE = 10.0
 BP_ITERATIONS = 20
 CPU_SLOTS = 8
 ATOL_DB = 5e-3
+# Below this level (65-80 dB under a noise grid's mean: a few cells in
+# millions) two float32 sums of the same products in different orders
+# differ by more than ATOL_DB: there the float32 plain version itself is
+# up to 1.2e-2 dB off a float64 sum of the same bf16 operands (NVIDIA H100,
+# 700 W, this script's float64 reference).  Those cells are held to
+# NULL_ATOL_DB, and every line reports both versions against the float64
+# reference.
+NULL_DB = -100.0
+NULL_ATOL_DB = 5e-2
 KERNEL_SOURCE = "ft8_demodulator_tpu_torch/csrc/waterfall_tf.cu"
 REPLACES = "ft8_demodulator_tpu/ops/waterfall_pallas.py:123"
 # the DEEP decode
@@ -119,6 +142,20 @@ BURIED_DB = 13.0              # under the strongest signal
 API_SCORE_ATOL = 1e-4
 API_SNR_ATOL = 0.1
 API_REPS = 5
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
+# bf16 tensor cores, float32 outside them, device memory
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+# a score cell of the sync stencil: at most 84 comparisons, a subtract and
+# an add each
+SYNC_OPS_PER_CELL = 2 * 84
+NO_LIBRARY = {
+    "osd_eliminate": "no PyTorch call does GF(2) elimination",
+    "sync_scores": "the masks drop a term whose neighbour block lies outside"
+                   " the slot, which a zero-padded conv2d would not "
+                   "reproduce",
+}
 
 
 def _phase(n: int, text: str) -> None:
@@ -167,8 +204,8 @@ def _ptxas_report(log: str) -> list[str]:
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             name = entry.group(1)
-            for short in ("waterfall_kernel", "osd_eliminate_kernel",
-                          "sync_kernel"):
+            for short in ("waterfall_kernel", "waterfall_pack_kernel",
+                          "osd_eliminate_kernel", "sync_kernel"):
                 if short in name:
                     name = short + {"ILb1E": "<true>", "ILb0E": "<false>"}.get(
                         name[name.index(short) + len(short):][:5], "")
@@ -176,6 +213,164 @@ def _ptxas_report(log: str) -> list[str]:
         elif "registers" in line or "spill" in line or "smem" in line:
             out.append(line.replace("ptxas info    :", "").strip())
     return out
+
+
+def _sass_counts(lib_path) -> dict[str, dict[str, int]]:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions of each
+    waterfall_kernel instance in the built library, from cuobjdump -sass."""
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = os.path.join(cuda_home, "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump") or tool
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            name = None
+            if "waterfall_kernelILb" in fn:
+                name = "waterfall_kernel<" + (
+                    "true>" if "waterfall_kernelILb1E" in fn else "false>")
+                counts[name] = {"HGMMA": 0, "UTMALDG": 0}
+        elif name is not None:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[name][op] += op in line
+    return counts
+
+
+def _bound(flop: float = 0.0, nbytes: float = 0.0,
+           peak_flops: float = PEAK_BF16) -> tuple[float, str]:
+    """(the least ms the card could take, what bounds it): the larger of the
+    operations over their peak rate and the bytes (each input read once,
+    each output written once) over the memory rate."""
+    t_ops, t_bytes = flop / peak_flops, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _waterfall_bound(p, batch: int, n: int, box: bool) -> tuple[float, str]:
+    """The fused waterfall's bound: the DFT's multiply-adds (cos and sin,
+    the halo not counted) on the bf16 tensor cores against the audio, the
+    cos/sin and combine constants and the output grid(s)."""
+    nf = p.num_frames(n)
+    nb = nf + p.time_osr - 1
+    kx = p.num_freq_bins + 2 * p.freq_osr
+    rows = nf + 2 * (p.time_osr - 1)
+    nbytes = (4 * batch * n + 2 * 2 * p.hop * kx + 4 * 2 * p.time_osr * kx
+              + 4 * batch * nf * p.num_freq_bins
+              + (4 * batch * rows * p.num_freq_bins if box else 0))
+    return _bound(4 * nb * p.hop * kx * batch, nbytes)
+
+
+def _waterfall_grid(p, batch: int, box: bool) -> tuple[int, float]:
+    """(thread blocks, waves on 132 SMs at one block each) of a fused
+    waterfall launch: col tiles x the row tiles of every slot."""
+    from ft8_demodulator_tpu_torch.ops import waterfall_cuda as wc
+
+    nf = p.num_frames(int(p.fs * SLOT_S))
+    rows = nf + (2 * (p.time_osr - 1) if box else 0)
+    row_tiles = -(-rows // (wc.TILE_ROWS - (p.time_osr - 1)))
+    col_tiles = -(-p.num_freq_bins // (wc.TILE_COLS - 2 * p.freq_osr))
+    blocks = col_tiles * batch * row_tiles
+    return blocks, blocks / 132
+
+
+@functools.lru_cache(maxsize=8)
+def _stft_window(n: int, hann: bool, device) -> torch.Tensor:
+    """The yardstick's window, made once (outside the timed calls)."""
+    if hann:
+        return torch.hann_window(n, periodic=True, device=device)
+    return torch.ones(n, device=device)
+
+
+def _library_waterfall(waves, p, num_frames: int, box: bool = False):
+    """The yardstick (timed only here, used nowhere in the port): the same
+    grid(s) from torch.stft (cuFFT).  A periodic Hann window of nperseg
+    centred in nfft, so the audio gets (nfft - nperseg) / 2 zeros at each
+    end and frame t starts at sample t*hop; |X|^2 * scale -> dB.  With
+    ``box``, a rectangular window over audio padded by a further (tau - 1)
+    hop zeros at each end gives the boxcar rows.  Only the nb*hop samples
+    the blocks cover are read.  Returns (dB, boxcar or None), time-major
+    views."""
+    from ft8_demodulator_tpu_torch.ops.waterfall import _db_scale
+
+    nb = num_frames + p.time_osr - 1
+    audio = waves[:, : nb * p.hop]
+    pad = (p.nfft - p.nperseg) // 2
+    win = _stft_window(p.nperseg, True, waves.device)
+    spec = torch.stft(torch.nn.functional.pad(audio, (pad, pad)), p.nfft,
+                      p.hop, p.nperseg, win, center=False,
+                      return_complex=True)[:, : p.num_freq_bins]
+    db = 10.0 * torch.log10(1e-12 + spec.abs().square() * _db_scale(p))
+    if not box:
+        return db.transpose(1, 2), None
+    edge = pad + (p.time_osr - 1) * p.hop
+    rect = _stft_window(p.nperseg, False, waves.device)
+    boxes = torch.stft(torch.nn.functional.pad(audio, (edge, edge)), p.nfft,
+                       p.hop, p.nperseg, rect, center=False,
+                       return_complex=True)[:, : p.num_freq_bins]
+    return db.transpose(1, 2), boxes.abs().square().transpose(1, 2)
+
+
+def _check_library(waves, p, num_frames: int, box: bool) -> str:
+    """The yardstick against the plain float32 waterfall (float64-summed
+    block spectra, ops/waterfall.py) on the same inputs: dB within ATOL_DB
+    where the plain grid is above -100 dB, the boxcar within BOX_RTOL.
+    (The kernel's bf16 operands move dB by ~1e-2, so the bf16 plain version
+    is no reference for a float32 FFT.)  Raises if they differ; returns a
+    report."""
+    from ft8_demodulator_tpu_torch.ops import waterfall as wf
+
+    spec = wf._block_spectrum(waves, p, num_frames)
+    want = wf._block_waterfall_tf(spec, p, num_frames)
+    db, boxes = _library_waterfall(waves, p, num_frames, box)
+    keep = want > -100.0
+    err = float((db - want)[keep].abs().max())
+    text = f"library dB vs float32 plain {err:.3e}"
+    if not err <= ATOL_DB:
+        raise RuntimeError(f"torch.stft yardstick at {p.fs} Hz: {text}")
+    if box:
+        want_box = wf._block_boxcar_tf(spec, p, num_frames)
+        rel = float(((boxes - want_box).abs()
+                     / (want_box.abs() + want_box.mean())).max())
+        text += f", boxcar {rel:.3e}"
+        if not rel <= BOX_RTOL:
+            raise RuntimeError(f"torch.stft yardstick at {p.fs} Hz: {text}")
+    return text
+
+
+def _exact_db(waves, p, num_frames: int) -> torch.Tensor:
+    """The dB grid of the kernels' function in float64 from the same
+    bf16-rounded operands: the reference both float32 versions round
+    from."""
+    from ft8_demodulator_tpu_torch.ops import waterfall as wf
+    from ft8_demodulator_tpu_torch.ops import waterfall_cuda as wc
+
+    cos_m, sin_m, wcos, wsin, _ = wc.fused_constants(p, waves.device)
+    blocks = wf._blocks(waves, p, num_frames).to(torch.bfloat16).double()
+    spec = torch.complex(blocks @ cos_m.double(), blocks @ sin_m.double())
+    power = wf._block_power(spec, p, num_frames,
+                            (wcos.double(), wsin.double()))
+    return (10.0 * torch.log10(1e-12 + power * wf._db_scale(p))).float()
+
+
+def _check_db(label: str, got, want, exact) -> str:
+    """Kernel dB grid against the plain one: |diff| <= ATOL_DB where the
+    plain grid is above NULL_DB, <= NULL_ATOL_DB below it.  Raises if not;
+    returns a report with both versions against the float64 reference."""
+    diff = (got - want).abs()
+    deep = want <= NULL_DB
+    above = float(diff[~deep].max())
+    below = float(diff[deep].max()) if bool(deep.any()) else 0.0
+    text = (f"{label} {above:.3e} ({int(deep.sum())} cells <= {NULL_DB:g} dB:"
+            f" {below:.3e}; vs float64 kernel "
+            f"{float((got - exact).abs().max()):.3e}, plain "
+            f"{float((want - exact).abs().max()):.3e})")
+    if not (above <= ATOL_DB and below <= NULL_ATOL_DB):
+        raise RuntimeError(f"kernel vs plain, dB: {text}, bounds {ATOL_DB}"
+                           f" / {NULL_ATOL_DB}")
+    return text
 
 
 def _decode_sets(res, slots):
@@ -231,41 +426,54 @@ def _busy_ms(events: list[dict]) -> float:
     return busy / 1e3
 
 
-def _device_ms(fn, reps: int, name: str | None = None) -> tuple[float, int]:
+def _device_ms(fn, reps: int, name: str | None = None,
+               kernels: int = 1) -> tuple[float, int]:
     """(device ms per call of ``fn``, device events per call): the union of
     the device intervals of a torch.profiler trace over ``reps`` warm
     calls, divided by ``reps``.  ``name``: only the kernels whose name
-    holds it (a hand kernel; its wrapper launches exactly one per call).
+    holds it (a hand kernel; its wrapper launches exactly ``kernels`` of
+    them per call).
 
     A window counts only when it holds every device event of its calls:
-    exactly ``reps`` for a hand kernel, else ``reps`` times the count of a
-    one-call trace.  A window short of that is taken again (and noted in
-    ``_RETAKEN``); the third one raises."""
+    exactly ``reps * kernels`` for a hand kernel, else at least ``reps``
+    times the count of a one-call trace (a plain call's allocator may add a
+    memset or copy now and then; such events count in the union).  A
+    window short of that is taken again (and noted in ``_RETAKEN``); the
+    third one raises."""
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        per_call = 1 if name else len(_device_events(_trace_events(fn, 1)))
+        per_call = kernels if name else len(
+            _device_events(_trace_events(fn, 1)))
         events = _device_events(_trace_events(fn, reps), name)
-        if per_call > 0 and len(events) == reps * per_call:
+        if per_call > 0 and (len(events) == reps * per_call if name
+                             else len(events) >= reps * per_call):
             return _busy_ms(events) / reps, per_call
         _RETAKEN.append(f"{name or 'plain'} {len(events)}/{reps * per_call}")
     raise RuntimeError(f"three incomplete profiler windows: {_RETAKEN[-3:]}")
 
 
 def _kernel_vs_plain_ms(kernel, plain, name: str, reps: int = 20,
-                        plain_reps: int | None = None
-                        ) -> tuple[float, float, int]:
-    """(kernel ms, plain ms, the plain version's device events per call)
-    of device time, warm, min of 2 complete windows each, in the order
-    plain, kernel, kernel, plain."""
-    times = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
+                        plain_reps: int | None = None, kernels: int = 1,
+                        library=None) -> tuple[float, float, int, float]:
+    """(kernel ms, plain ms, the plain version's device events per call,
+    library ms or None) of device time, warm, min of 2 complete windows
+    each, in the order plain, kernel, library, library, kernel, plain
+    (without ``library``: plain, kernel, kernel, plain).  ``kernels``: the
+    hand kernels one call of ``kernel`` launches."""
+    times = {"plain": [], "kernel": [], "library": []}
+    order = ("plain", "kernel", "library", "library", "kernel", "plain")
+    for which in order:
         if which == "kernel":
-            times[which].append(_device_ms(kernel, reps, name)[0])
+            times[which].append(_device_ms(kernel, reps, name, kernels)[0])
+        elif which == "library":
+            if library is not None:
+                times[which].append(_device_ms(library, reps)[0])
         else:
             ms, per_call = _device_ms(plain, plain_reps or reps)
             times[which].append(ms)
-    return min(times["kernel"]), min(times["plain"]), per_call
+    return (min(times["kernel"]), min(times["plain"]), per_call,
+            min(times["library"]) if times["library"] else None)
 
 
 def _tied_bases(rows: int, seed: int, device):
@@ -292,7 +500,7 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
 
     mf = wc.block_waterfall_mf_tf_fused_batch
     mf_plain = wc.block_waterfall_mf_tf_fused_batch_plain
-    db_errs, box_errs = {}, {}
+    db_errs, db_text, box_errs, lib_text = {}, {}, {}, ""
     for fs in (12000.0, 2000.0):
         p = waterfall_params(fs, *DEEP_OSR)
         ns = int(fs * SLOT_S)
@@ -313,14 +521,15 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
             raise RuntimeError(f"dual-output kernel at {fs} Hz: malformed "
                                "or not finite")
         db_errs[fs] = float((db - want_db).abs().max())
+        db_text[fs] = _check_db(f"{fs / 1000:g} kHz", db, want_db,
+                                _exact_db(w8, p, nf))
         # |diff| / (|want| + mean(want)): <= BOX_RTOL is the bound
         box_errs[fs] = float(((box - want_box).abs()
                               / (want_box.abs() + want_box.mean())).max())
-        if not db_errs[fs] <= ATOL_DB or not box_errs[fs] <= BOX_RTOL:
+        if not box_errs[fs] <= BOX_RTOL:
             raise RuntimeError(
-                f"dual-output kernel vs plain at {fs} Hz: dB {db_errs[fs]} "
-                f"(bound {ATOL_DB}), boxcar {box_errs[fs]} (bound "
-                f"{BOX_RTOL})")
+                f"dual-output kernel vs plain at {fs} Hz: boxcar "
+                f"{box_errs[fs]} (bound {BOX_RTOL})")
         if fs == 12000.0:
             single = wc.block_waterfall_tf_fused_batch(w8, p, nf)
             torch.cuda.synchronize()
@@ -328,15 +537,17 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
             if not db_vs_single <= ATOL_DB:
                 raise RuntimeError(f"dual-output dB vs dB-only kernel: "
                                    f"{db_vs_single} > {ATOL_DB}")
+            lib_text = _check_library(w8, p, nf, box=True)
     _phase(7, "dual-output kernel vs plain at osr 4x4, batch "
               f"{DEEP_CHUNK}: dB max |diff| "
-              + ", ".join(f"{fs / 1000:g} kHz {e:.3e}"
-                          for fs, e in db_errs.items())
-              + f" (bound {ATOL_DB}); boxcar max |diff| / (|cell| + mean) "
+              + ", ".join(db_text.values())
+              + f" (bounds {ATOL_DB} / {NULL_ATOL_DB}); boxcar max |diff| / "
+                f"(|cell| + mean) "
               + ", ".join(f"{fs / 1000:g} kHz {e:.3e}"
                           for fs, e in box_errs.items())
               + f" (bound {BOX_RTOL}); dB vs the dB-only kernel at 12 kHz "
-                f"{db_vs_single:.3e}")
+                f"{db_vs_single:.3e}; the torch.stft yardstick at 12 kHz: "
+              + lib_text)
 
     for rows, seed in ((4099, 1), (37, 2)):
         bases = _tied_bases(rows, seed, dev)
@@ -415,16 +626,24 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
 
     w8 = waves[:DEEP_CHUNK].contiguous()
     consts = wc.fused_constants(p, dev)
-    mf_ms, mf_plain_ms, mf_plain_ev = _kernel_vs_plain_ms(
+    mf_ms, mf_plain_ms, mf_plain_ev, mf_lib_ms = _kernel_vs_plain_ms(
         lambda: mf(w8, p, nf, consts), lambda: mf_plain(w8, p, nf, consts),
-        "waterfall_kernel")
+        "waterfall", kernels=2,
+        library=lambda: _library_waterfall(w8, p, nf, box=True))
     kx = p.num_freq_bins + 2 * p.freq_osr
     dft_flop = 4 * (nf + p.time_osr - 1) * p.hop * kx * DEEP_CHUNK
+    mf_bound = _waterfall_bound(p, DEEP_CHUNK, waves.shape[1], box=True)
+    mf_ctas, mf_waves = _waterfall_grid(p, DEEP_CHUNK, box=True)
     bases = _tied_bases(OSD_TIMED_ROWS, 3, dev)
-    osd_ms, osd_plain_ms, osd_plain_ev = _kernel_vs_plain_ms(
+    osd_ms, osd_plain_ms, osd_plain_ev, _ = _kernel_vs_plain_ms(
         lambda: oc.reduce_basis_batch(bases),
         lambda: oc.reduce_basis_batch_plain(bases), "osd_eliminate_kernel",
         plain_reps=5)
+    # a basis in, the reduced basis and its pivot columns out; one XOR of
+    # six words per row and pivot (91 x 90 x 6 per candidate)
+    osd_bound = _bound(OSD_TIMED_ROWS * 91 * 90 * 6,
+                       4 * (2 * bases.numel() + OSD_TIMED_ROWS * 91),
+                       PEAK_F32)
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -437,11 +656,15 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     rates = sorted(BATCH / r for r in runs)
     _phase(10, f"[{smi}] dual-output kernel batch {DEEP_CHUNK} at "
-               f"{FS / 1000:g} kHz osr 4x4: kernel {mf_ms:.4f} ms "
-               f"({dft_flop / (mf_ms * 1e-3) / 1e12:.1f} TFLOP/s of DFT), "
+               f"{FS / 1000:g} kHz osr 4x4 (pre-pass + kernel, {mf_ctas} "
+               f"thread blocks, {mf_waves:.2f} waves): kernel {mf_ms:.4f} ms "
+               f"({dft_flop / (mf_ms * 1e-3) / 1e12:.1f} TFLOP/s of DFT, "
+               f"bound {mf_bound[0]:.4f} ms by {mf_bound[1]}), "
                f"plain {mf_plain_ms:.4f} ms ({mf_plain_ev} device events "
-               f"per call); OSD kernel {OSD_TIMED_ROWS} "
-               f"rows: kernel {osd_ms * 1e3:.1f} us, plain "
+               f"per call), torch.stft yardstick {mf_lib_ms:.4f} ms; OSD "
+               f"kernel {OSD_TIMED_ROWS} "
+               f"rows: kernel {osd_ms * 1e3:.1f} us (bound "
+               f"{osd_bound[0] * 1e3:.2f} us by {osd_bound[1]}), plain "
                f"{osd_plain_ms * 1e3:.1f} us ({osd_plain_ev} device events "
                f"per call) (device time, min of 2 complete windows); DEEP "
                f"decode_slots batch {BATCH}: slots/s over {DEEP_REPS} runs "
@@ -452,10 +675,13 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
          "source": KERNEL_SOURCE, "replaces": MF_REPLACES,
          "launches": mf_launches,
          "max_abs_err": max(db_errs.values()), "ms": mf_ms,
-         "plain_ms": mf_plain_ms},
+         "plain_ms": mf_plain_ms, "bound_ms": mf_bound[0],
+         "bound_by": mf_bound[1], "library_ms": mf_lib_ms},
         {"name": "osd_eliminate", "route": "cuda", "source": OSD_SOURCE,
          "replaces": OSD_REPLACES, "launches": osd_launches,
-         "max_abs_err": 0.0, "ms": osd_ms, "plain_ms": osd_plain_ms},
+         "max_abs_err": 0.0, "ms": osd_ms, "plain_ms": osd_plain_ms,
+         "bound_ms": osd_bound[0], "bound_by": osd_bound[1],
+         "library_ms": None, "library_note": NO_LIBRARY["osd_eliminate"]},
     ]
 
 
@@ -725,14 +951,18 @@ def _time_phase(dev, smi: str, chunks, captures, waves) -> dict:
     from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
 
     kt = {}
-    for (mag_tf, g), label in zip(chunks, ("STANDARD", "DEEP")):
-        kt[f"K5 {label}"] = _kernel_vs_plain_ms(
-            lambda: sc.sync_scores_tf_kernel(mag_tf, g),
-            lambda: so.sync_scores_tf(mag_tf, g), "sync_kernel", plain_reps=5)
-    for (mag, g), label in zip(captures, ("STANDARD", "DEEP")):
-        kt[f"K6 {label}"] = _kernel_vs_plain_ms(
-            lambda: sc.sync_scores_kernel(mag, g),
-            lambda: so.sync_scores(mag, g), "sync_kernel", plain_reps=5)
+    for (grid, g), key, kernel, plain in (
+            [(c, f"K5 {label}", sc.sync_scores_tf_kernel, so.sync_scores_tf)
+             for c, label in zip(chunks, ("STANDARD", "DEEP"))]
+            + [(c, f"K6 {label}", sc.sync_scores_kernel, so.sync_scores)
+               for c, label in zip(captures, ("STANDARD", "DEEP"))]):
+        ms, plain_ms, ev, _ = _kernel_vs_plain_ms(
+            lambda: kernel(grid, g), lambda: plain(grid, g), "sync_kernel",
+            plain_reps=5)
+        # the grid in, the scores out; the comparisons on the CUDA cores
+        cells = kernel(grid, g).numel()
+        kt[key] = (ms, plain_ms, ev, _bound(
+            cells * SYNC_OPS_PER_CELL, 4 * (grid.numel() + cells), PEAK_F32))
 
     wave, _, _ = _crowded_capture()
     api = {}
@@ -758,9 +988,10 @@ def _time_phase(dev, smi: str, chunks, captures, waves) -> dict:
             bp_chunk=BP_CHUNK, **kw))
 
     _phase(13, f"[{smi}] sync kernels, device time (min of 2 windows): "
-               + ", ".join(f"{key} kernel {a:.4f} ms vs plain {b:.4f} ms "
-                           f"({ev} device events per plain call)"
-                           for key, (a, b, ev) in kt.items())
+               + ", ".join(f"{key} kernel {a:.4f} ms (bound {bd[0]:.4f} ms "
+                           f"by {bd[1]}) vs plain {b:.4f} ms ({ev} device "
+                           f"events per plain call)"
+                           for key, (a, b, ev, bd) in kt.items())
                + " (K5 per decode_slots chunk of 16 / 8 slots, K6 per "
                "capture); profiler windows taken again: "
                + (", ".join(_RETAKEN) or "none")
@@ -800,12 +1031,21 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kl = kernel_library()
-    _phase(2, f"built {kl.path.name} in {time.perf_counter() - t0:.1f} s; "
-              + " | ".join(_ptxas_report(kl.log)))
+    build_s = time.perf_counter() - t0
+    sass = _sass_counts(kl.path)
+    if sorted(sass) != ["waterfall_kernel<false>", "waterfall_kernel<true>"] \
+            or not all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                       for c in sass.values()):
+        raise RuntimeError(f"the waterfall kernels' SASS lacks wgmma or TMA "
+                           f"loads: {sass}")
+    _phase(2, f"built {kl.path.name} in {build_s:.1f} s; SASS (cuobjdump): "
+              + ", ".join(f"{k} HGMMA {c['HGMMA']} UTMALDG {c['UTMALDG']}"
+                          for k, c in sass.items())
+              + "; ptxas: " + " | ".join(_ptxas_report(kl.log)))
 
     n = int(FS * SLOT_S)
-    errs = {}
-    for fs, b in ((12000.0, 16), (20000.0, 4)):
+    errs, texts = {}, []
+    for fs, b in ((12000.0, 16), (20000.0, 4), (11025.0, 4)):
         p = waterfall_params(fs, 2, 2)
         ns = int(fs * SLOT_S)
         nf = p.num_frames(ns)
@@ -821,13 +1061,11 @@ def main() -> int:
             raise RuntimeError(f"kernel output {tuple(got.shape)} at {fs} Hz"
                                " is malformed or not finite")
         errs[fs] = float((got - want).abs().max())
-        if not errs[fs] <= ATOL_DB:
-            raise RuntimeError(f"kernel vs plain at {fs} Hz: max |diff| "
-                               f"{errs[fs]} dB > {ATOL_DB}")
-    _phase(3, "kernel vs plain, max |diff| dB: "
-              + ", ".join(f"{fs / 1000:g} kHz osr 2x2 {e:.3e}"
-                          for fs, e in errs.items())
-              + f" (bound {ATOL_DB})")
+        texts.append(_check_db(f"{fs / 1000:g} kHz osr 2x2 batch {b}", got,
+                               want, _exact_db(waves, p, nf)))
+    _phase(3, "kernel vs plain, max |diff| dB above / below "
+              f"{NULL_DB:g} dB: " + ", ".join(texts)
+              + f" (bounds {ATOL_DB} / {NULL_ATOL_DB})")
 
     p = waterfall_params(FS, 2, 2)
     nf = p.num_frames(n)
@@ -875,10 +1113,14 @@ def main() -> int:
     b16 = waves[:CHUNK].contiguous()
     consts = wc.fused_constants(p, dev)
     reps = 20
-    kernel_ms, plain_ms, plain_ev = _kernel_vs_plain_ms(
+    lib_text = _check_library(b16, p, nf, box=False)
+    kernel_ms, plain_ms, plain_ev, lib_ms = _kernel_vs_plain_ms(
         lambda: wc.block_waterfall_tf_fused_batch(b16, p, nf, consts),
         lambda: wc.block_waterfall_tf_fused_batch_plain(b16, p, nf, consts),
-        "waterfall_kernel", reps)
+        "waterfall", reps, kernels=2,
+        library=lambda: _library_waterfall(b16, p, nf))
+    bound = _waterfall_bound(p, CHUNK, n, box=False)
+    ctas, waves_k1 = _waterfall_grid(p, CHUNK, box=False)
     # K2's geometry (20 kHz osr 2x2, where the TPU streams weight strips),
     # driven through decode_slots and then timed
     p20 = waterfall_params(20000.0, 2, 2)
@@ -896,10 +1138,14 @@ def main() -> int:
         raise RuntimeError(f"decode_slots at 20 kHz: waterfall kernel "
                            f"launches {k2_launches} (want 1), yield "
                            f"{decoded20}/4")
-    k2_ms, k2_plain_ms, k2_plain_ev = _kernel_vs_plain_ms(
+    lib20_text = _check_library(w20, p20, nf20, box=False)
+    k2_ms, k2_plain_ms, k2_plain_ev, k2_lib_ms = _kernel_vs_plain_ms(
         lambda: wc.block_waterfall_tf_fused_batch(w20, p20, nf20),
         lambda: wc.block_waterfall_tf_fused_batch_plain(w20, p20, nf20),
-        "waterfall_kernel", reps)
+        "waterfall", reps, kernels=2,
+        library=lambda: _library_waterfall(w20, p20, nf20))
+    k2_bound = _waterfall_bound(p20, 4, w20.shape[1], box=False)
+    k2_ctas, k2_waves = _waterfall_grid(p20, 4, box=False)
     # the DFT's multiply-adds (cos and sin), halo recompute not counted
     kx = p.num_freq_bins + 2 * p.freq_osr
     dft_flop = 4 * (nf + p.time_osr - 1) * p.hop * kx * CHUNK
@@ -915,13 +1161,19 @@ def main() -> int:
     torch.cuda.synchronize()
     e2e_s = (time.perf_counter() - t0) / reps_e2e
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-    _phase(6, f"[{smi}] waterfall batch {CHUNK} at {FS / 1000:g} kHz: "
-              f"kernel {kernel_ms:.4f} ms ({tflops:.1f} TFLOP/s of DFT), "
+    _phase(6, f"[{smi}] waterfall batch {CHUNK} at {FS / 1000:g} kHz "
+              f"(pre-pass + kernel, {ctas} thread blocks, {waves_k1:.2f} "
+              f"waves): kernel {kernel_ms:.4f} ms ({tflops:.1f} TFLOP/s of "
+              f"DFT, bound {bound[0]:.4f} ms by {bound[1]}), "
               f"plain {plain_ms:.4f} ms ({plain_ev} device events per "
-              f"call); decode_slots on 4 slots at 20 kHz: yield "
+              f"call), torch.stft yardstick {lib_ms:.4f} ms ({lib_text}); "
+              f"decode_slots on 4 slots at 20 kHz: yield "
               f"{decoded20}/4, waterfall kernel launches {k2_launches}; "
-              f"there batch 4 kernel {k2_ms:.4f} ms, plain "
-              f"{k2_plain_ms:.4f} ms ({k2_plain_ev} device events per call) "
+              f"there batch 4 ({k2_ctas} thread blocks, {k2_waves:.2f} "
+              f"waves) kernel {k2_ms:.4f} ms (bound {k2_bound[0]:.4f} ms by "
+              f"{k2_bound[1]}), plain "
+              f"{k2_plain_ms:.4f} ms ({k2_plain_ev} device events per call),"
+              f" torch.stft yardstick {k2_lib_ms:.4f} ms ({lib20_text}) "
               f"(device time over {reps} warm launches, min of 2 complete "
               f"windows); decode_slots "
               f"batch {BATCH}: {BATCH / e2e_s:.1f} slots/s "
@@ -940,20 +1192,25 @@ def main() -> int:
         "name": "waterfall_tf", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,
         "max_abs_err": errs[FS], "ms": kernel_ms,
-        "plain_ms": plain_ms}, {
+        "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+        "library_ms": lib_ms}, {
         "name": "waterfall_tf_strips_geometry", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": K2_REPLACES,
         "launches": k2_launches, "max_abs_err": errs[20000.0],
-        "ms": k2_ms,
-        "plain_ms": k2_plain_ms}] + deep_kernels + [{
+        "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1], "library_ms": k2_lib_ms}] + deep_kernels + [{
         "name": "sync_scores_tf", "route": "cuda", "source": SYNC_SOURCE,
         "replaces": K5_REPLACES, "launches": k5_std_launches
         + k5_deep_launches, "max_abs_err": k5_err,
-        "ms": kt["K5 DEEP"][0], "plain_ms": kt["K5 DEEP"][1]}, {
+        "ms": kt["K5 DEEP"][0], "plain_ms": kt["K5 DEEP"][1],
+        "bound_ms": kt["K5 DEEP"][3][0], "bound_by": kt["K5 DEEP"][3][1],
+        "library_ms": None, "library_note": NO_LIBRARY["sync_scores"]}, {
         "name": "sync_scores", "route": "cuda", "source": SYNC_SOURCE,
         "replaces": K6_REPLACES, "launches": k6_launches,
         "max_abs_err": k6_err, "ms": kt["K6 DEEP"][0],
-        "plain_ms": kt["K6 DEEP"][1]}]}))
+        "plain_ms": kt["K6 DEEP"][1], "bound_ms": kt["K6 DEEP"][3][0],
+        "bound_by": kt["K6 DEEP"][3][1], "library_ms": None,
+        "library_note": NO_LIBRARY["sync_scores"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -22,9 +22,11 @@ crops -> the frequency-major stencil kernel -> top-K -> Hann LLRs (or
 matched-filter LLRs from the block spectra) -> BP (+ OSD) -> SNR estimate
 -> host rows, with subtraction passes.
 
-The per-geometry constants (DFT matrices, combine phases, BP routing, parity-check and CRC matrices, Gray map, OSD basis and row
-syndromes) are the buffers of one ``SlotDecoder`` module, cached per
-(geometry, device); ``.to(device)`` moves them.
+The per-geometry constants (DFT matrices and the waterfall kernels'
+packed weights, combine phases, BP routing, parity-check and CRC matrices,
+Gray map, OSD basis and row syndromes) are the buffers of one
+``SlotDecoder`` module, cached per (geometry, device); ``.to(device)``
+moves them.
 ``SlotDecoder.from_arrays`` loads them from numpy arrays, for instance the
 ones the JAX package builds.
 
@@ -58,7 +60,8 @@ from ..ops.waterfall import (WaterfallParams, _block_combine_phases,
                              _block_waterfall_tf, _require_block,
                              waterfall_params, waterfall_real)
 from ..ops.waterfall_cuda import (block_waterfall_mf_tf_fused_batch,
-                                  block_waterfall_tf_fused_batch)
+                                  block_waterfall_tf_fused_batch,
+                                  pack_weights)
 from ..protocol import constants as C
 from ..protocol.encode import encode_tones
 from ..utils.device import entry_device
@@ -144,6 +147,8 @@ class SlotDecoder(nn.Module):
         self.register_buffer("dft_sin", t("dft_sin", torch.bfloat16))
         self.register_buffer("combine_cos", t("combine_cos", torch.float32))
         self.register_buffer("combine_sin", t("combine_sin", torch.float32))
+        self.register_buffer("dft_packed",
+                             pack_weights(self.dft_cos, self.dft_sin, p))
         bp = make_bp_tables(arrays["var_of_mi"], arrays["nj_of_mi"],
                             arrays["mi_of_nj"], arrays["mi_mask"],
                             arrays["parity_check"], "cpu")
@@ -166,7 +171,7 @@ class SlotDecoder(nn.Module):
 
     def waterfall_consts(self):
         return (self.dft_cos, self.dft_sin, self.combine_cos,
-                self.combine_sin)
+                self.combine_sin, self.dft_packed)
 
     def bp_tables(self) -> BPTables:
         return BPTables(*(getattr(self, f) for f in BPTables._fields))

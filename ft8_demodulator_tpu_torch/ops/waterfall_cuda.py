@@ -4,31 +4,41 @@ Counterpart of ``ft8_demodulator_tpu/ops/waterfall_pallas.py``.  One CUDA
 source, ``csrc/waterfall_tf.cu``, replaces its three TPU kernels:
 
 * :func:`block_waterfall_tf_fused_batch` (the dB grid) replaces ``_kernel``
-  (:123) and its VMEM-overflow variant ``_kernel_strips`` (:191): the CUDA
-  kernel streams the weight columns each thread block needs through shared
-  memory, so one kernel serves every block geometry;
+  (:123) and its VMEM-overflow variant ``_kernel_strips`` (:191): each
+  thread block streams the weight columns of its own tile, so one kernel
+  serves every block geometry;
 * :func:`block_waterfall_mf_tf_fused_batch` (the dB grid and the boxcar
   matched-filter power grid from one combine) replaces ``_kernel_mf``
   (:444), the front of the DEEP decode.
 
-What bounds them on the card: the DFT products.  At 12 kHz a slot costs
-~1.38 GFLOP at osr 2x2 and ~2.77 GFLOP at osr 4x4 against 0.72 MB of audio
-in and 1.4 MB (2x2) or 11.5 MB (4x4, both grids) out, so the kernels are
-compute-bound.  The design keeps the block spectra in shared memory (they
-never reach device memory) and runs the products as a register-tiled GEMM
-on the CUDA cores; the source's header note has the tiling.  Tensor cores
-are later work.
+What bounds them on an H100: at 12 kHz osr 2x2, batch 16, the DFT (22.1
+GFLOP, 22.3 us on the bf16 tensor cores; the audio and the dB grid move
+41.8 MB, 12.5 us); at osr 4x4, batch 8, the two f32 output grids (105 MB
+in all, 31.4 us; the DFT 22.4 us).  The design: the DFT runs on the bf16
+tensor cores (``wgmma`` m64n128k16, two warpgroups per 64-row x
+128-column tile), fed by TMA through a 4-stage ring in shared memory;
+every 32 samples the tensor cores' partial sums are added into f32 sums
+that round to nearest, and the block spectra never reach device memory;
+the source's header note has the tiling and the epilogue.  The kernel
+reads two operands laid out for the TMA:
 
-Numerics: both DFT operands are rounded to bf16 (the audio in the kernel,
-the matrices stored as bf16 buffers) and the products accumulate in f32,
-the rounding of the TPU kernels.  The ``_plain`` functions are the plain
-PyTorch versions of the same functions: the same bf16-cast operands, an
-f32 matmul, then the ``_block_power`` / dB and ``_block_boxcar_tf``
-epilogues.
+* the chunk's audio as a bf16 block matrix (B, lead + nb + lead,
+  hop_pad), written by a pre-pass kernel of the same launch
+  (:func:`pack_blocks` is its plain version);
+* the DFT weights packed once per geometry by :func:`pack_weights`: per
+  tile of ``TILE_COLS`` extended columns and per half of it, the cos
+  columns and then the sin columns, each over hop_pad samples
+  (``fused_constants`` caches them).
+
+Numerics: both DFT operands are rounded to bf16 (round to nearest) and
+the products accumulate in f32, the rounding of the TPU kernels.  The
+``_plain`` functions are the plain PyTorch versions of the same functions:
+the same bf16-cast operands, an f32 matmul, then the ``_block_power`` / dB
+and ``_block_boxcar_tf`` epilogues.
 
 Each wrapper takes its plain version for a CPU tensor; for a CUDA tensor it
-launches its kernel or raises.  Its ``launches`` attribute counts kernel
-launches.
+launches its kernel or raises.  Its ``launches`` attribute counts launches
+(each one runs the pre-pass and the kernel).
 """
 
 from __future__ import annotations
@@ -46,23 +56,82 @@ from .waterfall import (WaterfallParams, _block_boxcar_tf,
 __all__ = ["block_waterfall_tf_fused_batch",
            "block_waterfall_tf_fused_batch_plain",
            "block_waterfall_mf_tf_fused_batch",
-           "block_waterfall_mf_tf_fused_batch_plain", "fused_constants"]
+           "block_waterfall_mf_tf_fused_batch_plain", "fused_constants",
+           "hop_pad", "pack_blocks", "pack_weights", "TILE_COLS",
+           "TILE_ROWS", "MAX_TAU"]
 
-# grid dimension z of the launch is the batch
-_MAX_BATCH = 65535
+# the kernel's tile (checked against the library at launch): block rows per
+# tile, extended columns per tile (2 TILE_COLS rows of packed weights), the
+# largest time_osr; each of the tile's two warpgroups multiplies
+# TILE_COLS / 2 cos and as many sin columns
+TILE_ROWS = 64
+TILE_COLS = 128
+MAX_TAU = 8
+_WARPGROUPS = 2
+# grid dimension y of the launch: one row tile of one slot per thread block
+_MAX_GRID_Y = 65535
+
+
+def hop_pad(hop: int) -> int:
+    """hop rounded up to 8 samples: a row of the bf16 operands is then a
+    multiple of 16 bytes, as every TMA stride must be."""
+    return -(-hop // 8) * 8
+
+
+def _col_tiles(p: WaterfallParams) -> int:
+    return -(-p.num_freq_bins // (TILE_COLS - 2 * p.freq_osr))
+
+
+def pack_weights(cos_m: torch.Tensor, sin_m: torch.Tensor,
+                 p: WaterfallParams) -> torch.Tensor:
+    """(hop, kx) cos and sin DFT matrices -> the kernel's packed weights,
+    (col_tiles * 2 TILE_COLS, hop_pad), their dtype.
+
+    Tile j covers extended columns j*tn .. j*tn + TILE_COLS - 1 (tn =
+    TILE_COLS - 2 freq_osr output bins, the rest its Hann halo), as rows:
+    for each of its two halves (one per warpgroup), the half's cos columns,
+    then the same sin columns.  Columns past kx and samples past hop are
+    zero.
+    """
+    hop, kx = cos_m.shape
+    tn = TILE_COLS - 2 * p.freq_osr
+    cols = (torch.arange(_col_tiles(p), device=cos_m.device)[:, None] * tn
+            + torch.arange(TILE_COLS, device=cos_m.device)[None, :])
+    cols = cols.reshape(-1, _WARPGROUPS, TILE_COLS // _WARPGROUPS)
+    inside = (cols < kx)[..., None]
+    take = cols.clamp(max=kx - 1)
+    parts = [torch.where(inside, m.T[take], 0) for m in (cos_m, sin_m)]
+    # (tiles, halves, cos | sin, TILE_COLS / 2, hop) -> rows
+    packed = torch.stack(parts, 2).reshape(-1, hop)
+    return torch.nn.functional.pad(packed, (0, hop_pad(hop) - hop)) \
+        .contiguous()
+
+
+def pack_blocks(waves: torch.Tensor, p: WaterfallParams, num_frames: int,
+                lead: int) -> torch.Tensor:
+    """Plain version of the kernel's pre-pass: (B, n) f32 audio -> the
+    bf16 block matrix (B, lead + nb + lead, hop_pad), row lead + r = block
+    r (samples r*hop ... r*hop + hop - 1) rounded to nearest, zero rows
+    above and below and zero samples past hop.  lead is 0 for the dB-only
+    kernel and time_osr - 1 for the dual-output one."""
+    blocks = _blocks(waves, p, num_frames).to(torch.bfloat16)
+    return torch.nn.functional.pad(
+        blocks, (0, hop_pad(p.hop) - p.hop, lead, lead)).contiguous()
 
 
 @functools.lru_cache(maxsize=8)
 def fused_constants(p: WaterfallParams,
                     device: torch.device) -> tuple[torch.Tensor, ...]:
-    """(cos, sin) bf16 (hop, kx) and (wc, ws) f32 (time_osr, kx) tensors for
-    one geometry on ``device``, cached."""
+    """(cos, sin) bf16 (hop, kx), (wc, ws) f32 (time_osr, kx) and the
+    packed weights (:func:`pack_weights`) for one geometry on ``device``,
+    cached."""
     cos_m, sin_m = _block_dft_matrices(p.hop, p.nfft, p.num_freq_bins,
                                        p.freq_osr)
     wc, ws = _block_combine_phases(p)
     bf16 = lambda m: torch.as_tensor(m, device=device).to(torch.bfloat16)
     f32 = lambda m: torch.as_tensor(m, device=device)
-    return bf16(cos_m), bf16(sin_m), f32(wc), f32(ws)
+    cos_b, sin_b = bf16(cos_m), bf16(sin_m)
+    return cos_b, sin_b, f32(wc), f32(ws), pack_weights(cos_b, sin_b, p)
 
 
 def block_waterfall_tf_fused_batch_plain(waves: torch.Tensor,
@@ -72,7 +141,7 @@ def block_waterfall_tf_fused_batch_plain(waves: torch.Tensor,
 
     bf16-rounded operands, float32 products and epilogue.
     """
-    cos_m, sin_m, wc, ws = consts or fused_constants(p, waves.device)
+    cos_m, sin_m, wc, ws = (consts or fused_constants(p, waves.device))[:4]
     spec = _bf16_spectra(waves, p, num_frames, cos_m, sin_m)
     return _block_waterfall_tf(spec, p, num_frames, phases=(wc, ws))
 
@@ -85,7 +154,7 @@ def block_waterfall_mf_tf_fused_batch_plain(waves: torch.Tensor,
     """Plain PyTorch version of the dual-output kernel: (B, n) -> (dB
     (B, num_frames, nbins), boxcar power (B, num_frames + 2*(tau-1),
     nbins)), both from the same bf16-operand spectra."""
-    cos_m, sin_m, wc, ws = consts or fused_constants(p, waves.device)
+    cos_m, sin_m, wc, ws = (consts or fused_constants(p, waves.device))[:4]
     spec = _bf16_spectra(waves, p, num_frames, cos_m, sin_m)
     return (_block_waterfall_tf(spec, p, num_frames, phases=(wc, ws)),
             _block_boxcar_tf(spec, p, num_frames, phases=(wc, ws)))
@@ -106,32 +175,49 @@ def _library():
     for name, pointers in (("ft8_waterfall_tf", 6),
                            ("ft8_waterfall_mf_tf", 7)):
         fn = getattr(kl.lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    for name in ("ft8_waterfall_tf_tile_rows", "ft8_waterfall_tf_tile_cols"):
+    for name in ("ft8_waterfall_tf_tile_rows", "ft8_waterfall_tf_tile_cols",
+                 "ft8_waterfall_tf_max_tau"):
         getattr(kl.lib, name).argtypes = []
         getattr(kl.lib, name).restype = ctypes.c_int
+    tile = (kl.lib.ft8_waterfall_tf_tile_rows(),
+            kl.lib.ft8_waterfall_tf_tile_cols(),
+            kl.lib.ft8_waterfall_tf_max_tau())
+    if tile != (TILE_ROWS, TILE_COLS, MAX_TAU):
+        raise RuntimeError(f"the kernel's tile {tile} is not the wrapper's "
+                           f"{(TILE_ROWS, TILE_COLS, MAX_TAU)}")
     kl.lib.ft8_cuda_error_string.argtypes = [ctypes.c_int]
     kl.lib.ft8_cuda_error_string.restype = ctypes.c_char_p
     return kl.lib
 
 
-def _check_inputs(waves, p, num_frames, consts):
+def _check_inputs(waves, p, num_frames, consts, lead):
     if waves.dim() != 2 or waves.dtype != torch.float32:
         raise ValueError(f"waves must be (B, n) float32, got "
                          f"{tuple(waves.shape)} {waves.dtype}")
     if not _block_geometry_ok(p):
         raise ValueError(f"not a block geometry: {p}")
+    if p.time_osr > MAX_TAU or 2 * p.freq_osr >= TILE_COLS:
+        raise ValueError(f"osr {p.time_osr}x{p.freq_osr} exceeds the "
+                         "kernel's tile")
     nb = num_frames + p.time_osr - 1
     if waves.shape[1] < nb * p.hop:
         raise ValueError(f"{num_frames} frames need {nb * p.hop} samples, "
                          f"got {waves.shape[1]}")
-    if waves.shape[0] > _MAX_BATCH:
-        raise ValueError(f"batch {waves.shape[0]} > {_MAX_BATCH}")
+    tm = TILE_ROWS - (p.time_osr - 1)
+    row_tiles = -(-(num_frames + 2 * lead) // tm)
+    if waves.shape[0] * row_tiles > _MAX_GRID_Y:
+        raise ValueError(f"batch {waves.shape[0]} needs more than "
+                         f"{_MAX_GRID_Y} thread-block rows")
     kx = p.num_freq_bins + 2 * p.freq_osr
     want = ((p.hop, kx, torch.bfloat16), (p.hop, kx, torch.bfloat16),
-            (p.time_osr, kx, torch.float32), (p.time_osr, kx, torch.float32))
+            (p.time_osr, kx, torch.float32), (p.time_osr, kx, torch.float32),
+            (_col_tiles(p) * 2 * TILE_COLS, hop_pad(p.hop), torch.bfloat16))
+    if len(consts) != len(want):
+        raise ValueError(f"{len(consts)} constants: want (cos, sin, wc, ws, "
+                         "packed weights) as fused_constants returns them")
     for t, (rows, cols, dtype) in zip(consts, want):
         if (tuple(t.shape) != (rows, cols) or t.dtype != dtype
                 or t.device != waves.device or not t.is_contiguous()):
@@ -146,13 +232,14 @@ def block_waterfall_tf_fused_batch(waves: torch.Tensor, p: WaterfallParams,
     """Real audio (B, n) f32 -> time-major dB waterfalls (B, num_frames,
     nbins) f32.
 
-    ``consts``: (cos, sin, wc, ws) as :func:`fused_constants` returns them,
-    on the device of ``waves``; None takes the cached ones.  A CPU tensor
-    goes through :func:`block_waterfall_tf_fused_batch_plain`; a CUDA
-    tensor through the CUDA kernel (a build or launch failure raises).
+    ``consts``: (cos, sin, wc, ws, packed weights) as
+    :func:`fused_constants` returns them, on the device of ``waves``; None
+    takes the cached ones.  A CPU tensor goes through
+    :func:`block_waterfall_tf_fused_batch_plain`; a CUDA tensor through the
+    CUDA kernel (a build or launch failure raises).
     """
     consts = consts or fused_constants(p, waves.device)
-    _check_inputs(waves, p, num_frames, consts)
+    _check_inputs(waves, p, num_frames, consts, 0)
     if waves.device.type == "cpu":
         return block_waterfall_tf_fused_batch_plain(waves, p, num_frames,
                                                     consts)
@@ -160,7 +247,7 @@ def block_waterfall_tf_fused_batch(waves: torch.Tensor, p: WaterfallParams,
         raise ValueError(f"no kernel for device {waves.device}")
     out = torch.empty((waves.shape[0], num_frames, p.num_freq_bins),
                       dtype=torch.float32, device=waves.device)
-    _launch("ft8_waterfall_tf", waves, p, num_frames, consts, (out,))
+    _launch("ft8_waterfall_tf", waves, p, num_frames, consts, 0, (out,))
     block_waterfall_tf_fused_batch.launches += 1
     return out
 
@@ -181,7 +268,8 @@ def block_waterfall_mf_tf_fused_batch(waves: torch.Tensor,
     the CUDA kernel (a build or launch failure raises).
     """
     consts = consts or fused_constants(p, waves.device)
-    _check_inputs(waves, p, num_frames, consts)
+    lead = p.time_osr - 1
+    _check_inputs(waves, p, num_frames, consts, lead)
     if waves.device.type == "cpu":
         return block_waterfall_mf_tf_fused_batch_plain(waves, p, num_frames,
                                                        consts)
@@ -190,29 +278,33 @@ def block_waterfall_mf_tf_fused_batch(waves: torch.Tensor,
     b, nbins = waves.shape[0], p.num_freq_bins
     db = torch.empty((b, num_frames, nbins), dtype=torch.float32,
                      device=waves.device)
-    box = torch.empty((b, num_frames + 2 * (p.time_osr - 1), nbins),
-                      dtype=torch.float32, device=waves.device)
-    _launch("ft8_waterfall_mf_tf", waves, p, num_frames, consts, (db, box))
+    box = torch.empty((b, num_frames + 2 * lead, nbins), dtype=torch.float32,
+                      device=waves.device)
+    _launch("ft8_waterfall_mf_tf", waves, p, num_frames, consts, lead,
+            (db, box))
     block_waterfall_mf_tf_fused_batch.launches += 1
     return db, box
 
 
 def _launch(name: str, waves, p: WaterfallParams, num_frames: int, consts,
-            outs: tuple[torch.Tensor, ...]) -> None:
-    """Launch kernel ``name`` of the library on the current stream."""
+            lead: int, outs: tuple[torch.Tensor, ...]) -> None:
+    """Launch the pre-pass and kernel ``name`` of the library on the
+    current stream."""
     lib = _library()
-    tau, phi = p.time_osr, p.freq_osr
-    if tau > lib.ft8_waterfall_tf_tile_rows() \
-            or 2 * phi >= lib.ft8_waterfall_tf_tile_cols():
-        raise ValueError(f"osr {tau}x{phi} exceeds the kernel's tile")
     waves = waves.contiguous()
+    _, _, wc, ws, packed = consts
+    hp = hop_pad(p.hop)
+    nb = num_frames + p.time_osr - 1
+    blocks = torch.empty((waves.shape[0], nb + 2 * lead, hp),
+                         dtype=torch.bfloat16, device=waves.device)
     with torch.cuda.device(waves.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, name)(
-            waves.data_ptr(), *(c.data_ptr() for c in consts),
-            *(o.data_ptr() for o in outs), waves.shape[0], waves.shape[1],
-            p.hop, p.num_freq_bins + 2 * phi, p.num_freq_bins, num_frames,
-            tau, phi, _db_scale(p), stream)
+            waves.data_ptr(), packed.data_ptr(), wc.data_ptr(),
+            ws.data_ptr(), blocks.data_ptr(), *(o.data_ptr() for o in outs),
+            waves.shape[0], waves.shape[1], p.hop, hp,
+            p.num_freq_bins + 2 * p.freq_osr, p.num_freq_bins, num_frames,
+            p.time_osr, p.freq_osr, _db_scale(p), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            + lib.ft8_cuda_error_string(err).decode())

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions: the fused
 waterfall (dB only and dual output), the OSD elimination and the sync
 stencil (time-major and frequency-major); the host decode API on the card
-against the CPU.
+against the CPU; chip_smoke.py's library yardstick (torch.stft) against
+the float32 plain waterfall.
 
 Needs a CUDA card: every test takes the ``cuda`` fixture, which skips when
 there is none.  The file imports neither JAX nor the JAX package, and uses
@@ -49,7 +50,8 @@ def _noisy(seed, b, n):
                                       (20000.0, (2, 2), 2),
                                       (12000.0, (4, 4), 2),
                                       (2000.0, (2, 2), 3),
-                                      (2000.0, (4, 4), 3)])
+                                      (2000.0, (4, 4), 3),
+                                      (11025.0, (2, 2), 2)])
 def test_kernel_matches_plain(cuda, fs, osr, b):
     p = waterfall_params(fs, *osr)
     n = int(fs * 15)
@@ -63,7 +65,7 @@ def test_kernel_matches_plain(cuda, fs, osr, b):
     torch.testing.assert_close(got, want, rtol=0, atol=ATOL_DB)
 
 
-@pytest.mark.parametrize("fs,b", [(12000.0, 2), (2000.0, 3)])
+@pytest.mark.parametrize("fs,b", [(12000.0, 2), (2000.0, 3), (2000.0, 1)])
 def test_mf_kernel_matches_plain(cuda, fs, b):
     p = waterfall_params(fs, 4, 4)
     n = int(fs * 15)
@@ -213,13 +215,17 @@ def test_kernel_rejects_bad_constants(cuda):
     p = waterfall_params(2000.0, 2, 2)
     nf = p.num_frames(30000)
     waves = _noisy(5, 1, 30000).to(cuda)
-    cos_m, sin_m, wc, ws = twc.fused_constants(p, cuda)
+    cos_m, sin_m, wc, ws, packed = twc.fused_constants(p, cuda)
     for fn in (twc.block_waterfall_tf_fused_batch,
                twc.block_waterfall_mf_tf_fused_batch):
         with pytest.raises(ValueError, match="constant"):
-            fn(waves, p, nf, (cos_m.float(), sin_m, wc, ws))
+            fn(waves, p, nf, (cos_m.float(), sin_m, wc, ws, packed))
         with pytest.raises(ValueError, match="constant"):
-            fn(waves, p, nf, (cos_m, sin_m, wc.cpu(), ws))
+            fn(waves, p, nf, (cos_m, sin_m, wc.cpu(), ws, packed))
+        with pytest.raises(ValueError, match="constant"):
+            fn(waves, p, nf, (cos_m, sin_m, wc, ws, packed[:, :-8]))
+        with pytest.raises(ValueError, match="constants"):
+            fn(waves, p, nf, (cos_m, sin_m, wc, ws))
     with pytest.raises(ValueError, match="int32"):
         tosc.reduce_basis_batch(torch.zeros((2, 91, 6), dtype=torch.int64,
                                             device=cuda))
@@ -327,3 +333,37 @@ def test_decode_ft8_message_card_matches_cpu(cuda, kw):
         assert abs(a.score - b.score) <= 1e-4
         assert abs(a.snr_db - b.snr_db) <= 0.1
     assert {bytes(p) for p in payloads} <= {r.message.payload for r in card}
+
+
+def _chip_smoke():
+    """chip_smoke.py, where the library yardstick lives (the port never
+    calls it)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("fs,osr,box", [(12000.0, (2, 2), False),
+                                        (20000.0, (2, 2), False),
+                                        (12000.0, (4, 4), True),
+                                        (2000.0, (4, 4), True)])
+def test_library_yardstick_matches_plain(cuda, fs, osr, box):
+    """torch.stft + dB (and a rectangular stft for the boxcar rows)
+    computes the kernels' function: within 5e-3 dB of the float32 plain
+    waterfall where it is above -100 dB, the boxcar within BOX_RTOL."""
+    cs = _chip_smoke()
+    p = waterfall_params(fs, *osr)
+    n = int(fs * 15)
+    nf = p.num_frames(n)
+    waves = _noisy(17, 2, n).to(cuda)
+    assert "library dB" in cs._check_library(waves, p, nf, box)
+    db, boxes = cs._library_waterfall(waves, p, nf, box)
+    assert db.shape == (2, nf, p.num_freq_bins)
+    if box:
+        assert boxes.shape == (2, nf + 2 * (p.time_osr - 1),
+                               p.num_freq_bins)
