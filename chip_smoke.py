@@ -7,8 +7,10 @@ Phases, one line each (any failure raises, and the script exits non-zero):
 
 1. the card: name, count, and nvidia-smi's name and power limit;
 2. build the CUDA kernels from ft8_demodulator_tpu_torch/csrc (nvcc,
-   sm_90a); count the HGMMA (wgmma) and UTMALDG (TMA load) instructions
-   of both fused waterfall instances in cuobjdump -sass (0 raises); print
+   sm_90a); count in cuobjdump -sass the HGMMA (wgmma) and UTMALDG (TMA
+   load) instructions of both fused waterfall instances and the LDGSTS
+   (cp.async) and LDS (shared-memory load) instructions of every sync
+   stencil instance (0 raises, as does a sync_kernel spill); print
    ptxas's registers, shared memory and spills;
 3. the fused waterfall kernel against its plain PyTorch version on noisy
    slots: 12 kHz osr 2x2 (batch 16), 20 kHz osr 2x2 (batch 4) and 11,025
@@ -51,10 +53,9 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    versions and bounds (device time, as in phase 6); DEEP decode_slots
    slots/s at batch 256 over 5 runs; peak device memory;
 11. the sync stencil kernels against their plain versions, bit for bit
-   (identical -inf masks; the fallback bound 1e-4 with identical
-   candidates is reported, not required bit-exactness, if they differ):
-   time-major on dB grids at 12 kHz osr 2x2 (batch 16) and 4x4 (batch 8)
-   and 2 kHz 2x2 (batch 3); frequency-major at 12 kHz 2x2 and 4x4 and on
+   (torch.equal, identical -inf masks; anything else raises): time-major
+   on dB grids at 12 kHz osr 2x2 (batch 16) and 4x4 (batch 8) and 2 kHz
+   2x2 (batch 3); frequency-major at 12 kHz 2x2 and 4x4 and on
    a cropped (strided) view; ptxas's registers, shared memory and spills;
 12. the host API decode_ft8_message on one crowded 15-s 12 kHz capture
    (15 signals at -12..+5 dB, 300-2800 Hz, >= 60 Hz apart, plus one 13 dB
@@ -76,9 +77,10 @@ path, device ms, plain ms, bound ms and what bounds it, and the library
 yardstick's ms or null with a note), the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}.  Bounds: the larger of the operations
 over the card's published peak for their type (989 TFLOP/s bf16 tensor
-cores, 67 TFLOP/s outside them) and the bytes over 3.35 TB/s, each input
-read once and each output written once.  Without a CUDA card it exits 1 and
-prints no result.  Imports nothing of JAX.
+cores, 67 TFLOP/s outside them, which counts an FMA as two: the sync
+stencil's separately rounded adds at 33.5 T/s) and the bytes over 3.35
+TB/s, each input read once and each output written once.  Without a CUDA
+card it exits 1 and prints no result.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -134,7 +136,6 @@ SYNC_SOURCE = "ft8_demodulator_tpu_torch/csrc/sync_stencil.cu"
 K5_REPLACES = "ft8_demodulator_tpu/ops/sync_pallas_tf.py:162"
 K6_REPLACES = "ft8_demodulator_tpu/ops/sync_pallas.py:154"
 K2_REPLACES = "ft8_demodulator_tpu/ops/waterfall_pallas.py:191"
-SYNC_FALLBACK_ATOL = 1e-4
 # the host API on a crowded capture
 CROWD_SEED = 11
 CROWD_SIGNALS = 15
@@ -147,9 +148,9 @@ API_REPS = 5
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
-# a score cell of the sync stencil: at most 84 comparisons, a subtract and
-# an add each
-SYNC_OPS_PER_CELL = 2 * 84
+# PEAK_F32 counts an FMA as two operations: separately rounded adds (the
+# bit-exact sync stencil) run at half that rate
+PEAK_F32_INSTR = PEAK_F32 / 2
 NO_LIBRARY = {
     "osd_eliminate": "no PyTorch call does GF(2) elimination",
     "sync_scores": "the masks drop a term whose neighbour block lies outside"
@@ -197,27 +198,61 @@ def _synth_slots(device, fs: float = FS, batch: int = BATCH,
     return sig, payloads
 
 
+def _kernel_name(fn: str) -> str:
+    """A hand kernel's name from its mangled entry: waterfall_kernel<true>,
+    sync_kernel<false,4,4> (layout, then the osr it is built for; 0: any),
+    osd_eliminate_kernel; other names as they are."""
+    m = re.search(r"(waterfall_pack_kernel|osd_eliminate_kernel|"
+                  r"waterfall_kernel|sync_kernel)(?:ILb([01])E((?:Li\d+E)*))?",
+                  fn)
+    if not m:
+        return fn
+    name, flag, ints = m.groups()
+    if flag is None:
+        return name
+    args = ["true" if flag == "1" else "false"] + re.findall(r"Li(\d+)E", ints)
+    return f"{name}<{','.join(args)}>"
+
+
 def _ptxas_report(log: str) -> list[str]:
     """ptxas's registers, shared memory and spills, per kernel name."""
     out = []
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            name = entry.group(1)
-            for short in ("waterfall_kernel", "waterfall_pack_kernel",
-                          "osd_eliminate_kernel", "sync_kernel"):
-                if short in name:
-                    name = short + {"ILb1E": "<true>", "ILb0E": "<false>"}.get(
-                        name[name.index(short) + len(short):][:5], "")
-            out.append(name + ":")
+            out.append(_kernel_name(entry.group(1)) + ":")
         elif "registers" in line or "spill" in line or "smem" in line:
             out.append(line.replace("ptxas info    :", "").strip())
     return out
 
 
+def _sync_ptxas(log: str) -> list[str]:
+    """ptxas's report of every sync_kernel instance; raises if one
+    spills."""
+    report, keep = [], False
+    for line in _ptxas_report(log):
+        if line.endswith(":"):
+            keep = line.startswith("sync_kernel")
+        if keep:
+            report.append(line)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+            if spill and spill.group(1, 2) != ("0", "0"):
+                raise RuntimeError(f"sync_kernel spills: {report}")
+    return report
+
+
+# the instructions that show each hand kernel's design: wgmma and TMA loads
+# in the waterfall kernels, cp.async and shared-memory loads in the sync
+# stencil
+SASS_OPS = {"waterfall_kernel": ("HGMMA", "UTMALDG"),
+            "sync_kernel": ("LDGSTS", "LDS")}
+
+
 def _sass_counts(lib_path) -> dict[str, dict[str, int]]:
-    """HGMMA (wgmma) and UTMALDG (TMA load) instructions of each
-    waterfall_kernel instance in the built library, from cuobjdump -sass."""
+    """The SASS_OPS instructions of each instance of the waterfall and sync
+    kernels in the built library (the sync stencil has one per layout and
+    osr specialisation), from cuobjdump -sass."""
     cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     tool = os.path.join(cuda_home, "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -227,15 +262,15 @@ def _sass_counts(lib_path) -> dict[str, dict[str, int]]:
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
-            fn = line.split("Function : ", 1)[1].strip()
-            name = None
-            if "waterfall_kernelILb" in fn:
-                name = "waterfall_kernel<" + (
-                    "true>" if "waterfall_kernelILb1E" in fn else "false>")
-                counts[name] = {"HGMMA": 0, "UTMALDG": 0}
+            name = _kernel_name(line.split("Function : ", 1)[1].strip())
+            ops = SASS_OPS.get(name.split("<")[0])
+            if ops is None:
+                name = None
+            else:
+                counts[name] = dict.fromkeys(ops, 0)
         elif name is not None:
-            for op in ("HGMMA", "UTMALDG"):
-                counts[name][op] += op in line
+            for op in counts[name]:
+                counts[name][op] += bool(re.search(rf"\b{op}\b", line))
     return counts
 
 
@@ -247,6 +282,18 @@ def _bound(flop: float = 0.0, nbytes: float = 0.0,
     t_ops, t_bytes = flop / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _sync_adds(g, cells: int, grid_values: int) -> int:
+    """The FP32 adds the plane design of the sync stencil needs for these
+    inputs: one per valid term of every score cell (the search grid's cell,
+    prev and next masks), and 3 subtractions per grid value for the H, D
+    and P planes."""
+    from ft8_demodulator_tpu_torch.ops import sync as so
+
+    terms = sum(int(m.sum()) for m in so.cell_mask_tensors(
+        g, torch.device("cpu")))                  # over the num_times rows
+    return cells // g.num_times * terms + 3 * grid_values
 
 
 def _waterfall_bound(p, batch: int, n: int, box: bool) -> tuple[float, str]:
@@ -384,6 +431,11 @@ def _decode_sets(res, slots):
 
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# windows _device_ms takes before it gives up.  The profiler has lost all
+# of a 22-us kernel's 20 events twice in a row (the OSD timing, right after
+# a plain version of 2,405 device events a call), and one of a sync
+# kernel's 20 in six windows in a row (NVIDIA H100 80GB HBM3)
+PROFILER_WINDOWS = 6
 # profiler windows taken again because they lacked device events:
 # "what events-seen/events-expected"
 _RETAKEN: list[str] = []
@@ -428,29 +480,43 @@ def _busy_ms(events: list[dict]) -> float:
 
 def _device_ms(fn, reps: int, name: str | None = None,
                kernels: int = 1) -> tuple[float, int]:
-    """(device ms per call of ``fn``, device events per call): the union of
-    the device intervals of a torch.profiler trace over ``reps`` warm
-    calls, divided by ``reps``.  ``name``: only the kernels whose name
-    holds it (a hand kernel; its wrapper launches exactly ``kernels`` of
-    them per call).
+    """(device ms per call of ``fn``, device events per call) from a
+    torch.profiler trace over ``reps`` warm calls.
 
-    A window counts only when it holds every device event of its calls:
-    exactly ``reps * kernels`` for a hand kernel, else at least ``reps``
-    times the count of a one-call trace (a plain call's allocator may add a
-    memset or copy now and then; such events count in the union).  A
-    window short of that is taken again (and noted in ``_RETAKEN``); the
-    third one raises."""
+    A plain version (``name`` None): the union of the device intervals
+    divided by ``reps``; the window counts only when it holds at least
+    ``reps`` times the events of a one-call trace (a plain call's allocator
+    may add a memset or copy now and then; such events count in the union).
+    A hand kernel (``name``: the kernels whose name holds it; its wrapper
+    launches ``kernels`` distinct kernels a call, one after another on one
+    stream): per kernel name the mean duration of its events, summed over
+    the wrapper's kernels, which is the union over reps for a complete
+    window; the window counts when it holds all ``kernels`` names and at
+    least reps - 2 events of each (the profiler drops a record now and
+    then).  A window short of that is taken again (and noted in
+    ``_RETAKEN``), up to PROFILER_WINDOWS windows; then it raises."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(PROFILER_WINDOWS):
         per_call = kernels if name else len(
             _device_events(_trace_events(fn, 1)))
         events = _device_events(_trace_events(fn, reps), name)
-        if per_call > 0 and (len(events) == reps * per_call if name
-                             else len(events) >= reps * per_call):
+        if name:
+            durs: dict[str, list[float]] = {}
+            for e in events:
+                durs.setdefault(e["name"], []).append(float(e["dur"]))
+            if len(durs) == kernels \
+                    and min(map(len, durs.values())) >= reps - 2:
+                if len(events) < reps * kernels:
+                    _RETAKEN.append(f"{name} {len(events)}/{reps * kernels}"
+                                    " (kept)")
+                return sum(sum(d) / len(d) for d in durs.values()) / 1e3, \
+                    per_call
+        elif per_call > 0 and len(events) >= reps * per_call:
             return _busy_ms(events) / reps, per_call
         _RETAKEN.append(f"{name or 'plain'} {len(events)}/{reps * per_call}")
-    raise RuntimeError(f"three incomplete profiler windows: {_RETAKEN[-3:]}")
+    raise RuntimeError(f"{PROFILER_WINDOWS} incomplete profiler windows: "
+                       f"{_RETAKEN[-PROFILER_WINDOWS:]}")
 
 
 def _kernel_vs_plain_ms(kernel, plain, name: str, reps: int = 20,
@@ -686,18 +752,17 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
 
 
 def _sync_phase(dev, log: str):
-    """Phase 11: both sync kernels against their plain versions.  Returns
-    ({label: max |diff|}, every case bit-exact, the time-major (STANDARD,
-    DEEP) chunk grids and the frequency-major (STANDARD, DEEP) captures)."""
+    """Phase 11: both sync kernels against their plain versions, bit for
+    bit.  Returns ({label: max |diff|}, the time-major (STANDARD, DEEP)
+    chunk grids and the frequency-major (STANDARD, DEEP) captures)."""
     from ft8_demodulator_tpu_torch.ops import sync as so
     from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
     from ft8_demodulator_tpu_torch.ops import waterfall_cuda as wc
     from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
 
-    diffs, exact = {}, True
+    diffs = {}
 
-    def check(label, got, want, g, time_major):
-        nonlocal exact
+    def check(label, got, want):
         torch.cuda.synchronize()
         if got.shape != want.shape or bool(torch.isnan(got).any()):
             raise RuntimeError(f"{label}: malformed scores {tuple(got.shape)}")
@@ -706,16 +771,9 @@ def _sync_phase(dev, log: str):
         fin = torch.isfinite(want)
         diffs[label] = float((got - want)[fin].abs().max()) \
             if bool(fin.any()) else 0.0
-        if diffs[label] > SYNC_FALLBACK_ATOL:
-            raise RuntimeError(f"{label}: max |diff| {diffs[label]} > "
-                               f"{SYNC_FALLBACK_ATOL}")
         if not torch.equal(got, want):
-            exact = False
-            find = so.find_candidates_tf if time_major else so.find_candidates
-            for k, ms in ((20, 10.0), (40, 1.0)):
-                if not all(torch.equal(a, b) for a, b in zip(
-                        find(got, g, k, ms), find(want, g, k, ms))):
-                    raise RuntimeError(f"{label}: candidates differ")
+            raise RuntimeError(f"{label}: not bit for bit, max |diff| "
+                               f"{diffs[label]}")
 
     chunks, captures = [], []
     for fs, osr, b in ((12000.0, 2, CHUNK), (12000.0, 4, DEEP_CHUNK),
@@ -730,33 +788,24 @@ def _sync_phase(dev, log: str):
         g = so.search_grid(p.num_freq_bins, nf, osr, osr)
         check(f"K5 {fs / 1000:g} kHz {osr}x{osr} batch {b}",
               sc.sync_scores_tf_kernel(mag_tf, g),
-              so.sync_scores_tf(mag_tf, g), g, True)
+              so.sync_scores_tf(mag_tf, g))
         if fs != FS:
             continue
         mag = mag_tf[0].transpose(0, 1).contiguous()        # one capture
         check(f"K6 {fs / 1000:g} kHz {osr}x{osr}",
-              sc.sync_scores_kernel(mag, g), so.sync_scores(mag, g), g,
-              False)
+              sc.sync_scores_kernel(mag, g), so.sync_scores(mag, g))
         chunks.append((mag_tf, g))
         captures.append((mag, g))
         if osr == 2:
             crop = mag[200:1400, 6:170]
             gc = so.search_grid(*crop.shape, osr, osr)
             check("K6 cropped view", sc.sync_scores_kernel(crop, gc),
-                  so.sync_scores(crop.contiguous(), gc), gc, False)
-    report, keep = [], False
-    for line in _ptxas_report(log):
-        if line.endswith(":"):
-            keep = line.startswith("sync_kernel")
-        if keep:
-            report.append(line)
-    _phase(11, "sync kernels vs plain, max |diff| "
+                  so.sync_scores(crop.contiguous(), gc))
+    _phase(11, "sync kernels vs plain, bit for bit (torch.equal, -inf masks "
+               "equal), max |diff| "
                + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
-               + f"; -inf masks equal; bit for bit: "
-               f"{'yes' if exact else 'no (within the fallback bound, '}"
-               f"{'' if exact else 'candidates identical)'}; ptxas: "
-               + " ".join(report))
-    return diffs, exact, chunks, captures
+               + "; ptxas: " + " ".join(_sync_ptxas(log)))
+    return diffs, chunks, captures
 
 
 def _crowded_capture():
@@ -959,10 +1008,11 @@ def _time_phase(dev, smi: str, chunks, captures, waves) -> dict:
         ms, plain_ms, ev, _ = _kernel_vs_plain_ms(
             lambda: kernel(grid, g), lambda: plain(grid, g), "sync_kernel",
             plain_reps=5)
-        # the grid in, the scores out; the comparisons on the CUDA cores
+        # the grid in, the scores out; the adds as single FP32 instructions
         cells = kernel(grid, g).numel()
         kt[key] = (ms, plain_ms, ev, _bound(
-            cells * SYNC_OPS_PER_CELL, 4 * (grid.numel() + cells), PEAK_F32))
+            _sync_adds(g, cells, grid.numel()), 4 * (grid.numel() + cells),
+            PEAK_F32_INSTR))
 
     wave, _, _ = _crowded_capture()
     api = {}
@@ -1033,13 +1083,16 @@ def main() -> int:
     kl = kernel_library()
     build_s = time.perf_counter() - t0
     sass = _sass_counts(kl.path)
-    if sorted(sass) != ["waterfall_kernel<false>", "waterfall_kernel<true>"] \
-            or not all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
-                       for c in sass.values()):
+    layouts = {n.split(",")[0].rstrip(">") for n in sass}
+    if layouts != {f"{k}<{b}" for k in SASS_OPS for b in ("true", "false")} \
+            or not all(n > 0 for c in sass.values() for n in c.values()):
         raise RuntimeError(f"the waterfall kernels' SASS lacks wgmma or TMA "
-                           f"loads: {sass}")
+                           f"loads, or the sync kernels' cp.async or shared-"
+                           f"memory loads: {sass}")
+    _sync_ptxas(kl.log)
     _phase(2, f"built {kl.path.name} in {build_s:.1f} s; SASS (cuobjdump): "
-              + ", ".join(f"{k} HGMMA {c['HGMMA']} UTMALDG {c['UTMALDG']}"
+              + ", ".join(f"{k} " + " ".join(f"{op} {n}"
+                                             for op, n in c.items())
                           for k, c in sass.items())
               + "; ptxas: " + " | ".join(_ptxas_report(kl.log)))
 
@@ -1182,7 +1235,7 @@ def main() -> int:
 
     _, _, k5_deep_launches, deep_kernels = _deep_phases(dev, smi, waves,
                                                         payloads)
-    sync_diffs, _, chunks, captures = _sync_phase(dev, kl.log)
+    sync_diffs, chunks, captures = _sync_phase(dev, kl.log)
     k6_launches, _ = _api_phase(dev)
     kt = _time_phase(dev, smi, chunks, captures, waves)
     k5_err = max(v for k, v in sync_diffs.items() if k.startswith("K5"))

@@ -13,13 +13,17 @@ source, ``csrc/sync_stencil.cu``, holds both as instances of one template:
   (``decode_waterfall``, ``decode_waterfall_mf``) scores through it.
 
 The outputs are not padded (the TPU kernels pad to 128 lanes for VMEM).
-What bounds the kernel on the card: ~100 reads per score cell, served
-from L1/L2 (a batch of grids fits in the 50 MB L2); the source's header
-note has the design.  The kernel computes the validity masks from the
-search grid, reads the grid through its strides (a cropped view needs no
-copy) and adds the terms in the order of the plain versions, with every
-add rounded on its own, so its scores equal
+The kernel stages each block's tile of the grid in shared memory (cp.async)
+and sums difference planes: D (the frequency pair), built there, and P
+(the previous / next symbol), formed in registers from the staged grid,
+one add per term; the source's header note has the design.  It computes
+the validity masks from the search grid, reads the grid through its
+strides (a cropped view needs no copy) and adds the terms in the order of
+the plain versions, with every add rounded on its own, so its scores equal
 :func:`ops.sync.sync_scores_tf` / :func:`ops.sync.sync_scores` bit for bit.
+:func:`sync_scores_tf_planes` is the kernel's plane arithmetic in plain
+PyTorch, for the tests (it holds the identities against JAX on the CPU);
+no decode path calls it.
 
 Each wrapper takes its plain version for a CPU tensor; for a CUDA tensor
 it launches the kernel or raises.  Its ``launches`` attribute counts
@@ -32,11 +36,13 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from ..protocol import constants as C
-from .sync import SearchGrid, sync_scores, sync_scores_tf
+from .sync import SearchGrid, cell_mask_tensors, sync_scores, sync_scores_tf
 
-__all__ = ["sync_scores_tf_kernel", "sync_scores_kernel"]
+__all__ = ["sync_scores_tf_kernel", "sync_scores_kernel",
+           "sync_scores_tf_planes"]
 
 # grid dimension z of the launch is the batch
 _MAX_BATCH = 65535
@@ -133,6 +139,60 @@ def sync_scores_kernel(mag: torch.Tensor, g: SearchGrid) -> torch.Tensor:
     out = _launch(mag, g, time_major=False)
     sync_scores_kernel.launches += 1
     return out
+
+
+def sync_scores_tf_planes(mag_tf: torch.Tensor,
+                          g: SearchGrid) -> torch.Tensor:
+    """The kernel's plane arithmetic in plain PyTorch: time-major (..., T,
+    F) -> scores (..., num_times, num_freqs), bit for bit as
+    :func:`ops.sync.sync_scores_tf`.
+
+    On the zero-padded grid G: H(r, x) = G[r, x] - G[r, x + phi],
+    D(r, x) = H(r, x) - H(r, x - phi), P(r, x) = G[r, x] - G[r - tau, x].
+    Per cell, in the plain order: + D at the Costas cell (+ H at tone 0),
+    + P(fr) for the previous symbol, - P(fr + tau) for the next one, each
+    where its mask holds; then the reciprocal multiply.  One padded grid
+    (no pre-roll split), as the kernel reads it (which keeps D in shared
+    memory and forms P in registers from the same staged values).  Used
+    only by the tests.
+    """
+    tau, phi = g.time_osr, g.freq_osr
+    left = max(0, -g.t_start)
+    right = max(0, g.t_start + g.num_times + (C.NUM_SYMBOLS - 1) * tau
+                - mag_tf.shape[-2])
+    grid = F.pad(mag_tf, (0, 0, left, right))[..., : g.num_freqs + 7 * phi]
+    h = grid[..., :-phi] - grid[..., phi:]             # H at x
+    d = h[..., phi:] - h[..., :-phi]                   # D at x + phi
+    p = grid[..., tau:, :] - grid[..., :-tau, :]       # P at r + tau
+    cell_m, prev_m, next_m = (m[:, :, None] for m in
+                              cell_mask_tensors(g, mag_tf.device))
+
+    def at(plane, row, col):
+        return plane[..., row: row + g.num_times, col: col + g.num_freqs]
+
+    total = mag_tf.new_zeros((*mag_tf.shape[:-2], g.num_times, g.num_freqs))
+    count = mag_tf.new_zeros((g.num_times, 1))
+    for m in range(C.NUM_COSTAS_SEQS):
+        for k in range(C.COSTAS_LEN):
+            i = m * C.COSTAS_LEN + k
+            r = left + g.t_start + (m * C.SYNC_SEQ_STRIDE + k) * tau
+            tone = int(C.COSTAS_PATTERN[k])
+            if tone == 0:
+                freq, n_freq = at(h, r, 0), 1
+            else:
+                freq, n_freq = at(d, r, (tone - 1) * phi), 2
+            total = torch.where(cell_m[i], total + freq, total)
+            count += cell_m[i].float() * n_freq
+            if k > 0:
+                total = torch.where(prev_m[i],
+                                    total + at(p, r - tau, tone * phi), total)
+                count += prev_m[i].float()
+            if k < C.COSTAS_LEN - 1:
+                total = torch.where(next_m[i],
+                                    total - at(p, r, tone * phi), total)
+                count += next_m[i].float()
+    inv = 1.0 / torch.clamp(count, min=1.0)
+    return torch.where(count > 0, total * inv, -torch.inf)
 
 
 sync_scores_tf_kernel.launches = 0

@@ -11,28 +11,9 @@ Conventions:
 
 from __future__ import annotations
 
-import importlib.util
-from pathlib import Path
-
 import numpy as np
 
-
-def _load_ldpc_data():
-    """The LDPC tables of the JAX package, read by file path.
-
-    ``_ldpc_data.py`` imports nothing, so loading it alone keeps one source
-    for the tables without running any ``__init__`` of the JAX package
-    (which imports jax).
-    """
-    path = (Path(__file__).resolve().parents[2] / "ft8_demodulator_tpu"
-            / "protocol" / "_ldpc_data.py")
-    spec = importlib.util.spec_from_file_location("_ft8_ldpc_data", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.LDPC_CHECK_ADJACENCY, mod.LDPC_GENERATOR_HEX
-
-
-LDPC_CHECK_ADJACENCY, LDPC_GENERATOR_HEX = _load_ldpc_data()
+from ._ldpc_data import LDPC_CHECK_ADJACENCY, LDPC_GENERATOR_HEX
 
 # ---------------------------------------------------------------------------
 # Scalar protocol constants ("The FT4 and FT8 Communication Protocols")

@@ -271,6 +271,32 @@ def test_sync_kernels_match_plain_bit_for_bit(cuda, fs, osr, b):
                                                  before[1] + 1)
 
 
+@pytest.mark.parametrize("frames,bins,osr,b", [
+    (186, 1920, (2, 2), 16),    # STANDARD chunk of 16: 88 x 1,906 cells
+    (372, 3840, (4, 4), 1),     # DEEP, batch 1: 176 x 3,812
+    (82, 72, (1, 1), 3),        # 33 x 65: one past a 32 x 64 tile each way
+    (291, 85, (3, 3), 2),       # 144 x 64: 4.5 time tiles, one freq tile
+    (None, None, (2, 2), 5),    # the 2-kHz geometry
+])
+def test_sync_kernels_at_tile_edges(cuda, frames, bins, osr, b):
+    """Both instances at tile edges, on noise and on integer grids with
+    ties and exact zeros: equal to the plain stencils bit for bit."""
+    if frames is None:
+        p = waterfall_params(2000.0, *osr)
+        frames, bins = p.num_frames(30000), p.num_freq_bins
+    g = tsync.search_grid(bins, frames, *osr)
+    for integer in (False, True):
+        mag_tf = _db_grid(frames + bins, (b, frames, bins), cuda, integer)
+        if integer:                   # half the zeros -0: signed-zero terms
+            even = torch.arange(bins, device=cuda) % 2 == 0
+            mag_tf[(mag_tf == 0) & even] = -0.0
+        _assert_sync_equal(tsc.sync_scores_tf_kernel(mag_tf, g),
+                           tsync.sync_scores_tf(mag_tf, g))
+        mag = mag_tf.transpose(-1, -2).contiguous()
+        _assert_sync_equal(tsc.sync_scores_kernel(mag, g),
+                           tsync.sync_scores(mag, g))
+
+
 def test_sync_kernels_edges(cuda):
     """The pre-roll split geometry, a 2-D grid, integer grids with ties, a
     frequency + time crop read in place (strided view), a transposed view,

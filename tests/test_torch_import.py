@@ -2,6 +2,7 @@
 
 import os
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -32,13 +33,39 @@ def test_torch_import_without_jax():
     assert proc.stdout.strip() == "ok"
 
 
+def test_torch_port_imports_from_a_copy_of_its_package_alone(tmp_path):
+    """The port's package copied alone (no ft8_demodulator_tpu/ beside it)
+    imports with jax blocked: it loads no file of the JAX package."""
+    shutil.copytree(PORT, tmp_path / PORT.name,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import ft8_demodulator_tpu_torch.protocol.constants as C\n"
+        "import ft8_demodulator_tpu_torch.ops.sync_cuda\n"
+        "assert C.LDPC_GENERATOR.shape == (83, 91)\n"
+        "assert not any(m == 'ft8_demodulator_tpu' or m.startswith("
+        "'ft8_demodulator_tpu.') for m in sys.modules)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert not (tmp_path / "ft8_demodulator_tpu").exists()
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_torch_port_names_no_jax_package_import():
-    """No module of the port imports jax or the JAX package; the LDPC
-    tables are read by file path (protocol/constants.py)."""
+    """No module of the port imports jax or the JAX package; it keeps its
+    own copies of the numpy-only modules it needs (protocol/_ldpc_data.py)
+    and reads no file of the JAX package by path."""
     pattern = re.compile(
         r"^\s*(from|import)\s+(jax\b|ft8_demodulator_tpu(?!_torch)\b)",
         re.MULTILINE)
+    by_path = re.compile(r"""["']ft8_demodulator_tpu["']|spec_from_file""")
     offenders = [str(path.relative_to(REPO))
                  for path in PORT.rglob("*.py")
-                 if pattern.search(path.read_text())]
+                 if pattern.search(path.read_text())
+                 or by_path.search(path.read_text())]
     assert offenders == []

@@ -35,6 +35,19 @@ def test_constants_equal_jax_constants():
             assert got == want, name
 
 
+def test_ldpc_data_copy_equals_jax_file():
+    """The port's own LDPC tables are the JAX package's, exactly."""
+    from ft8_demodulator_tpu.protocol import _ldpc_data as jdata
+    from ft8_demodulator_tpu_torch.protocol import _ldpc_data as tdata
+
+    assert tdata.__file__ != jdata.__file__
+    for name in ("LDPC_CHECK_ADJACENCY", "LDPC_GENERATOR_HEX"):
+        got, want = getattr(tdata, name), getattr(jdata, name)
+        assert type(got) is type(want) and got == want, name
+    assert TC.LDPC_CHECK_ADJACENCY is tdata.LDPC_CHECK_ADJACENCY
+    assert TC.LDPC_GENERATOR_HEX is tdata.LDPC_GENERATOR_HEX
+
+
 def _payloads(rng, b):
     p = rng.integers(0, 256, size=(b, 10), dtype=np.uint8)
     p[:, 9] &= 0xF8
