@@ -56,7 +56,9 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    (torch.equal, identical -inf masks; anything else raises): time-major
    on dB grids at 12 kHz osr 2x2 (batch 16) and 4x4 (batch 8) and 2 kHz
    2x2 (batch 3); frequency-major at 12 kHz 2x2 and 4x4 and on
-   a cropped (strided) view; ptxas's registers, shared memory and spills;
+   a cropped (strided) view; both ways at 12 kHz time_osr 3, freq_osr 1
+   (batch 2: the generic instance); ptxas's registers, shared memory and
+   spills;
 12. the host API decode_ft8_message on one crowded 15-s 12 kHz capture
    (15 signals at -12..+5 dB, 300-2800 Hz, >= 60 Hz apart, plus one 13 dB
    under the strongest, 30 Hz above it and a symbol later): STANDARD, DEEP
@@ -435,7 +437,7 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # of a 22-us kernel's 20 events twice in a row (the OSD timing, right after
 # a plain version of 2,405 device events a call), and one of a sync
 # kernel's 20 in six windows in a row (NVIDIA H100 80GB HBM3)
-PROFILER_WINDOWS = 6
+PROFILER_WINDOWS = 10
 # profiler windows taken again because they lacked device events:
 # "what events-seen/events-expected"
 _RETAKEN: list[str] = []
@@ -480,39 +482,26 @@ def _busy_ms(events: list[dict]) -> float:
 
 def _device_ms(fn, reps: int, name: str | None = None,
                kernels: int = 1) -> tuple[float, int]:
-    """(device ms per call of ``fn``, device events per call) from a
-    torch.profiler trace over ``reps`` warm calls.
+    """(device ms per call of ``fn``, device events per call): the union of
+    the device intervals of a torch.profiler trace over ``reps`` warm
+    calls, divided by ``reps``.  ``name``: only the kernels whose name
+    holds it (a hand kernel; its wrapper launches exactly ``kernels`` of
+    them per call).
 
-    A plain version (``name`` None): the union of the device intervals
-    divided by ``reps``; the window counts only when it holds at least
-    ``reps`` times the events of a one-call trace (a plain call's allocator
-    may add a memset or copy now and then; such events count in the union).
-    A hand kernel (``name``: the kernels whose name holds it; its wrapper
-    launches ``kernels`` distinct kernels a call, one after another on one
-    stream): per kernel name the mean duration of its events, summed over
-    the wrapper's kernels, which is the union over reps for a complete
-    window; the window counts when it holds all ``kernels`` names and at
-    least reps - 2 events of each (the profiler drops a record now and
-    then).  A window short of that is taken again (and noted in
-    ``_RETAKEN``), up to PROFILER_WINDOWS windows; then it raises."""
+    A window counts only when it holds every device event of its calls:
+    exactly ``reps * kernels`` for a hand kernel, else at least ``reps``
+    times the count of a one-call trace (a plain call's allocator may add a
+    memset or copy now and then; such events count in the union).  A
+    window short of that is taken again (and noted in ``_RETAKEN``), up to
+    PROFILER_WINDOWS windows; then it raises."""
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILER_WINDOWS):
         per_call = kernels if name else len(
             _device_events(_trace_events(fn, 1)))
         events = _device_events(_trace_events(fn, reps), name)
-        if name:
-            durs: dict[str, list[float]] = {}
-            for e in events:
-                durs.setdefault(e["name"], []).append(float(e["dur"]))
-            if len(durs) == kernels \
-                    and min(map(len, durs.values())) >= reps - 2:
-                if len(events) < reps * kernels:
-                    _RETAKEN.append(f"{name} {len(events)}/{reps * kernels}"
-                                    " (kept)")
-                return sum(sum(d) / len(d) for d in durs.values()) / 1e3, \
-                    per_call
-        elif per_call > 0 and len(events) >= reps * per_call:
+        if per_call > 0 and (len(events) == reps * per_call if name
+                             else len(events) >= reps * per_call):
             return _busy_ms(events) / reps, per_call
         _RETAKEN.append(f"{name or 'plain'} {len(events)}/{reps * per_call}")
     raise RuntimeError(f"{PROFILER_WINDOWS} incomplete profiler windows: "
@@ -776,29 +765,34 @@ def _sync_phase(dev, log: str):
                                f"{diffs[label]}")
 
     chunks, captures = [], []
-    for fs, osr, b in ((12000.0, 2, CHUNK), (12000.0, 4, DEEP_CHUNK),
-                       (2000.0, 2, 3)):
-        p = waterfall_params(fs, osr, osr)
+    # (time_osr, freq_osr); 3x1 runs the generic instance (checked, not
+    # timed)
+    for fs, (tau, phi), b in ((12000.0, (2, 2), CHUNK),
+                              (12000.0, (4, 4), DEEP_CHUNK),
+                              (2000.0, (2, 2), 3), (12000.0, (3, 1), 2)):
+        p = waterfall_params(fs, phi, tau)
         ns = int(fs * SLOT_S)
         nf = p.num_frames(ns)
-        rng = np.random.default_rng(int(fs) + osr)
+        rng = np.random.default_rng(int(fs) + tau)
         w = torch.as_tensor(rng.standard_normal((b, ns)).astype(np.float32),
                             device=dev)
         mag_tf = wc.block_waterfall_tf_fused_batch(w, p, nf)
-        g = so.search_grid(p.num_freq_bins, nf, osr, osr)
-        check(f"K5 {fs / 1000:g} kHz {osr}x{osr} batch {b}",
+        g = so.search_grid(p.num_freq_bins, nf, tau, phi)
+        check(f"K5 {fs / 1000:g} kHz {tau}x{phi} batch {b}",
               sc.sync_scores_tf_kernel(mag_tf, g),
               so.sync_scores_tf(mag_tf, g))
         if fs != FS:
             continue
         mag = mag_tf[0].transpose(0, 1).contiguous()        # one capture
-        check(f"K6 {fs / 1000:g} kHz {osr}x{osr}",
+        check(f"K6 {fs / 1000:g} kHz {tau}x{phi}",
               sc.sync_scores_kernel(mag, g), so.sync_scores(mag, g))
+        if tau != phi:
+            continue
         chunks.append((mag_tf, g))
         captures.append((mag, g))
-        if osr == 2:
+        if tau == 2:
             crop = mag[200:1400, 6:170]
-            gc = so.search_grid(*crop.shape, osr, osr)
+            gc = so.search_grid(*crop.shape, tau, phi)
             check("K6 cropped view", sc.sync_scores_kernel(crop, gc),
                   so.sync_scores(crop.contiguous(), gc))
     _phase(11, "sync kernels vs plain, bit for bit (torch.equal, -inf masks "

@@ -42,11 +42,12 @@
 // bit.  A term whose mask is 0 is not added (the plain version adds +-0,
 // which leaves a sum that is never -0 unchanged).
 //
-// Tiles.  A block owns kTimes start times x kLanesF frequencies of one
-// slot: lanes along frequency, and each thread scores kCells start times
-// kGroups apart.  For each Costas sequence in turn it stages the grid
-// region the tile's taps touch, kTimes + 6 tau frames x kLanesF + 7 phi
-// bins, into shared memory by cp.async in the grid's own layout, 16 or 8
+// Tiles.  A block owns kCells tau start times x kThreads / tau frequencies
+// of one slot: lanes along frequency, and each thread scores kCells = 11
+// start times tau frames (one symbol) apart.  For each Costas sequence in
+// turn it stages the grid region the tile's taps touch, 17 tau frames x
+// kThreads / tau + 7 phi bins, into shared memory by cp.async in the
+// grid's own layout, 16 or 8
 // bytes a copy along the grid's contiguous axis where the strides and the
 // region are aligned (else 4; any strides, so a cropped view is read in
 // place; a frame outside the grid or a bin no valid cell reads is zero).
@@ -59,24 +60,24 @@
 // there on the two instances run the same code: the arithmetic per cell
 // is identical.
 //
-// The sum.  In the 2x2 and 4x4 instances the osr is a template parameter,
-// so every offset is an immediate, and kGroups = tau: a thread's cells are
-// one symbol apart.  Per symbol it reads the kCells + 1 (or + 2) staged
+// The sum.  Per symbol a thread reads the kCells + 1 (or + 2) staged
 // values v[q] at its bin f + c phi, frames j0 + tau (k - 1 + q), and forms
 // P = v[q + 1] - v[q] once for the previous term of cell q and the next
 // term of cell q - 1: the P plane lives in registers.  Per symbol and
 // cell that is one read of D, ~1.1 reads of the grid and ~4 adds.  A
 // sequence whose taps are valid for all of a thread's cells (all but the
 // pre-roll and the tail) takes a branch-free path; the count per start
-// time is a table the block fills once.  Any other osr takes 32 x 64 tiles
-// of 8 cells a thread and reads both P terms.
+// time is a table the block fills once.  The osr 2x2 and 4x4 instances
+// (the decoders' presets) take the osr as a template parameter, so every
+// offset is an immediate; the generic instance reads it at run time and
+// idles the kThreads % tau threads past its tile.
 //
 // Choosing the tile.  A 15-s slot has num_times = 44 tau at any sample rate
-// (12 kHz: 176 x 3,812 cells at osr 4x4, 88 x 1,906 at 2x2), so kTimes =
-// 11 tau tiles it exactly: 11 cells a thread.  Time-major (a decode_slots
-// chunk), 256 threads: 44 x 64 cells at 4x4, 22 x 128 at 2x2; shared
-// memory is three arrays (two ring stages and D) of (kTimes + 6 tau) x
-// (kLanesF + 7 phi) words, 75.3 KB at 4x4 and 58.8 KB at 2x2, so three
+// (12 kHz: 176 x 3,812 cells at osr 4x4, 88 x 1,906 at 2x2), so tiles of
+// 11 tau start times cover it exactly: 11 cells a thread.  Time-major (a
+// decode_slots chunk), 256 threads: 44 x 64 cells at 4x4, 22 x 128 at
+// 2x2; shared memory is three arrays (two ring stages and D) of 17 tau x
+// (256 / tau + 7 phi) words, 75.3 KB at 4x4 and 58.8 KB at 2x2, so three
 // blocks (24 warps) an SM overlap one another's copy waits, builds and
 // sums.  Staged values per cell and sequence: 2.2 at 4x4 (68 x 92 for 44 x
 // 64), 1.7 at 2x2.  A DEEP chunk of 8 is 60 x 4 x 8 = 1,920 blocks, 4.8
@@ -88,14 +89,15 @@
 // clock an SM), the L2 feeding 2.2x the grid per sequence, and for one
 // capture the latency of three staged phases on one or two blocks an SM.
 //
-// A staged region of more than 227 KB (osr above ~14) is refused with
-// cudaErrorInvalidValue.
+// A tile of more than kThreads start times (time_osr above 23) or a block
+// of more than 227 KB of shared memory (osr n x n above 11 time-major, 9
+// frequency-major; the waterfall kernels stop at time_osr 8) is refused
+// with cudaErrorInvalidValue.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
-#include <mutex>
 #include <type_traits>
 
 namespace {
@@ -105,7 +107,6 @@ constexpr int COSTAS_LEN = 7;
 constexpr int SEQ_STRIDE = 36;     // symbols between sequence starts
 constexpr int COSTAS_TONES = 0x2560413;   // tone of symbol k: nibble k
 constexpr int MAX_SMEM = 227 * 1024;
-constexpr int MAX_DEVICES = 64;
 
 struct Geometry {
   int64_t sb, st, sf;     // element strides of the grid: batch, time, freq
@@ -120,15 +121,16 @@ struct Tile {
   // of 256 threads, so it takes 128 (half the frequencies, twice the
   // blocks)
   static constexpr int kThreads = !kTimeMajor && kTau == 2 ? 128 : 256;
-  // cells of a thread one symbol apart: cell q's next term is cell q + 1's
-  // previous term
-  static constexpr bool kReuse = kTau == 2 || kTau == 4;
-  static constexpr int kGroups = kReuse ? kTau : 4;    // time groups
-  static constexpr int kCells = kReuse ? 11 : 8;       // cells a thread
-  static constexpr int kTimes = kGroups * kCells;      // start times
-  static constexpr int kLanesF = kThreads / kGroups;   // frequencies
+  // cells of a thread, one symbol apart: cell q's next term is cell
+  // q + 1's previous term
+  static constexpr int kCells = 11;
+  // the start times the count table holds
+  static constexpr int kMaxTimes = kTau > 0 ? kCells * kTau : kThreads;
   // blocks an SM (shared memory allows it at osr 2x2 and 4x4)
-  static constexpr int kMinBlocks = kReuse && kTimeMajor ? 3 : 2;
+  static constexpr int kMinBlocks = kTau > 0 && kTimeMajor ? 3 : 2;
+  // start times and frequencies of a tile
+  __host__ __device__ static int times(int tau) { return kCells * tau; }
+  __host__ __device__ static int lanes(int tau) { return kThreads / tau; }
 };
 
 // Shared memory of a block: two staged regions in the grid's layout
@@ -150,8 +152,8 @@ __host__ __device__ __forceinline__ int round_up(int x, int to) {
 template <bool kTimeMajor, int kTau>
 __host__ __device__ __forceinline__ Layout layout_of(int tau, int phi) {
   Layout s;
-  s.rows = Tile<kTimeMajor, kTau>::kTimes + 6 * tau;
-  s.cols = Tile<kTimeMajor, kTau>::kLanesF + 7 * phi;
+  s.rows = Tile<kTimeMajor, kTau>::times(tau) + 6 * tau;
+  s.cols = Tile<kTimeMajor, kTau>::lanes(tau) + 7 * phi;
   s.rp = round_up(kTimeMajor ? s.cols : s.rows, 4);
   s.raw_words = round_up(s.rp * (kTimeMajor ? s.rows : s.cols), 32);
   s.pw = kTimeMajor ? s.rp : (s.cols | 1);
@@ -291,32 +293,31 @@ sync_kernel(const float* __restrict__ grid, float* __restrict__ out,
             Geometry g, int vec) {
   using T = Tile<kTimeMajor, kTau>;
   constexpr int kThreads = T::kThreads;
-  constexpr int kGroups = T::kGroups;
-  constexpr int kLanesF = T::kLanesF;
   constexpr int kCells = T::kCells;
-  constexpr int kTimes = T::kTimes;
   // D by 16 or 8 bytes where phi and the (time-major) pitch allow
   constexpr int kBuildWords = !kTimeMajor || kPhi == 0 ? 1
                               : kPhi % 4 == 0 ? 4 : kPhi % 2 == 0 ? 2 : 1;
   const int tau = kTau > 0 ? kTau : g.tau;
   const int phi = kPhi > 0 ? kPhi : g.phi;
+  const int times = T::times(tau);                // start times of a tile
+  const int lanes = T::lanes(tau);                // frequencies of a tile
   const Layout s = layout_of<kTimeMajor, kTau>(tau, phi);
 
   extern __shared__ __align__(16) float smem[];
   float* const dpl = smem + 2 * s.raw_words;
   float* const gpl = dpl + s.plane_words;          // frequency-major
-  __shared__ int s_count[kTimes];
+  __shared__ int s_count[T::kMaxTimes];
 
   const int t_tile = kTimeMajor ? blockIdx.y : blockIdx.x;
   const int f_tile = kTimeMajor ? blockIdx.x : blockIdx.y;
-  const int t0 = g.t_start + t_tile * kTimes;      // first start frame
-  const int f0 = f_tile * kLanesF;
+  const int t0 = g.t_start + t_tile * times;       // first start frame
+  const int f0 = f_tile * lanes;
   const float* const src = grid + static_cast<int64_t>(blockIdx.z) * g.sb;
   // bins a valid cell reads: f + c phi <= num_freqs - 1 + 7 phi
   const int bin_end = g.num_freqs + 7 * phi;
 
   // the comparisons counted per start time of the tile
-  if (threadIdx.x < kTimes) {
+  if (threadIdx.x < times) {
     const int base = floor_div(t0 + static_cast<int>(threadIdx.x), tau);
     int n = 0;
     for (int m = 0; m < NUM_SEQS; ++m) {
@@ -343,16 +344,13 @@ sync_kernel(const float* __restrict__ grid, float* __restrict__ out,
     cp_async_commit();
   };
 
-  // this thread's cells: frequency i, start times j0 + kGroups q
-  const int i = threadIdx.x % kLanesF;
-  const int j0 = threadIdx.x / kLanesF;
+  // this thread's cells: frequency i, start times j0 + tau q (a thread
+  // past the tile, j0 == tau, only stages)
+  const int i = threadIdx.x % lanes;
+  const int j0 = threadIdx.x / lanes;
+  const bool active = kTau > 0 || j0 < tau;
   const int cell0 = j0 * s.pw + i;                // frame j0, bin i
-  int base[kCells];                                // floor(t / tau)
-#pragma unroll
-  for (int q = 0; q < kCells; ++q) {
-    base[q] = T::kReuse ? floor_div(t0 + j0, tau) + q
-                        : floor_div(t0 + j0 + kGroups * q, tau);
-  }
+  const int base0 = floor_div(t0 + j0, tau);       // floor(t / tau), cell 0
   float total[kCells];
 #pragma unroll
   for (int q = 0; q < kCells; ++q) total[q] = 0.0f;
@@ -362,7 +360,7 @@ sync_kernel(const float* __restrict__ grid, float* __restrict__ out,
   // term is masked
   auto sum = [&](auto checked, int m, const float* gr) {
     constexpr bool kChecked = decltype(checked)::value;
-#pragma unroll (T::kReuse ? COSTAS_LEN : 1)
+#pragma unroll
     for (int k = 0; k < COSTAS_LEN; ++k) {
       const int c = costas_tone(k);
       const int off = k * tau * s.pw + c * phi;    // frame j0 + k tau, bin
@@ -370,39 +368,28 @@ sync_kernel(const float* __restrict__ grid, float* __restrict__ out,
       // values there and one symbol before: cell q's previous term and
       // cell q - 1's next term
       float pv[kCells + 1];
-      if (T::kReuse) {
-        float v = k > 0 ? gr[cell0 + off - tau * s.pw] : 0.0f;
+      float v = k > 0 ? gr[cell0 + off - tau * s.pw] : 0.0f;
 #pragma unroll
-        for (int q = 0; q <= kCells; ++q) {
-          if (q == kCells && k == COSTAS_LEN - 1) break;
-          const float w = gr[cell0 + off + tau * q * s.pw];
-          if (k > 0 || q > 0) pv[q] = __fsub_rn(w, v);
-          v = w;
-        }
+      for (int q = 0; q <= kCells; ++q) {
+        if (q == kCells && k == COSTAS_LEN - 1) break;
+        const float w = gr[cell0 + off + tau * q * s.pw];
+        if (k > 0 || q > 0) pv[q] = __fsub_rn(w, v);
+        v = w;
       }
 #pragma unroll
       for (int q = 0; q < kCells; ++q) {
-        const int e = cell0 + off + kGroups * q * s.pw;
+        const int e = cell0 + off + tau * q * s.pw;
         const float freq = c != 0 ? dpl[e]
                                   : __fsub_rn(gr[e], gr[e + phi]);  // H
-        float prev = 0.0f, next = 0.0f;
-        if (T::kReuse) {
-          if (k > 0) prev = pv[q];
-          if (k < COSTAS_LEN - 1) next = pv[q + 1];
-        } else {
-          const float cur = gr[e];
-          if (k > 0) prev = __fsub_rn(cur, gr[e - tau * s.pw]);
-          if (k < COSTAS_LEN - 1) next = __fsub_rn(gr[e + tau * s.pw], cur);
-        }
-        const int ba = base[q] + m * SEQ_STRIDE + k;
+        const int ba = base0 + q + m * SEQ_STRIDE + k;
         const bool valid = !kChecked || (ba >= 0 && ba < g.num_blocks);
         if (valid) total[q] = __fadd_rn(total[q], freq);
         if (k > 0 && valid && (!kChecked || ba > 0)) {
-          total[q] = __fadd_rn(total[q], prev);
+          total[q] = __fadd_rn(total[q], pv[q]);          // + prev
         }
         if (k < COSTAS_LEN - 1 && valid
             && (!kChecked || ba + 1 < g.num_blocks)) {
-          total[q] = __fsub_rn(total[q], next);
+          total[q] = __fsub_rn(total[q], pv[q + 1]);      // + next
         }
       }
     }
@@ -428,26 +415,29 @@ sync_kernel(const float* __restrict__ grid, float* __restrict__ out,
     }
     __syncthreads();
     // every tap of every cell valid: cell, prev (k >= 1) and next (k <= 5)
-    if (base[0] + m * SEQ_STRIDE >= 0
-        && base[kCells - 1] + m * SEQ_STRIDE + COSTAS_LEN - 1
-           < g.num_blocks) {
-      sum(std::false_type(), m, gr);
-    } else {
-      sum(std::true_type(), m, gr);
+    if (active) {
+      if (base0 + m * SEQ_STRIDE >= 0
+          && base0 + kCells - 1 + m * SEQ_STRIDE + COSTAS_LEN - 1
+             < g.num_blocks) {
+        sum(std::false_type(), m, gr);
+      } else {
+        sum(std::true_type(), m, gr);
+      }
     }
     if (m + 2 < NUM_SEQS) {
       __syncthreads();           // every read of region m is done
       stage(m + 2, ring);
     }
   }
+  if (!active) return;
 
   const int64_t cells = static_cast<int64_t>(g.num_times) * g.num_freqs;
   float* const dst = out + static_cast<int64_t>(blockIdx.z) * cells;
   const int f = f0 + i;
 #pragma unroll
   for (int q = 0; q < kCells; ++q) {
-    const int jt = j0 + kGroups * q;
-    const int j = t_tile * kTimes + jt;
+    const int jt = j0 + tau * q;
+    const int j = t_tile * times + jt;
     if (j >= g.num_times || f >= g.num_freqs) continue;
     const int n = s_count[jt];
     const float score = n > 0
@@ -470,8 +460,8 @@ int vector_words(const void* grid, int batch, const Geometry& g) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(grid);
   for (int v = 4; v > 1; v /= 2) {
     const bool start = kTimeMajor
-        ? T::kLanesF % v == 0
-        : g.t_start % v == 0 && T::kTimes % v == 0
+        ? T::lanes(g.tau) % v == 0
+        : g.t_start % v == 0 && T::times(g.tau) % v == 0
           && (SEQ_STRIDE * g.tau) % v == 0;
     if (start && addr % (4 * v) == 0 && line % v == 0
         && (batch == 1 || g.sb % v == 0)) {
@@ -481,41 +471,28 @@ int vector_words(const void* grid, int batch, const Geometry& g) {
   return 1;
 }
 
-// The function's attributes, set when a launch needs more shared memory
-// than any before it on this device (a host call per launch would cost
-// every launch): the dynamic shared memory, and all of L1 as shared
-// memory, so three blocks fit an SM.
 template <bool kTimeMajor, int kTau, int kPhi>
-cudaError_t configure(int bytes) {
-  static std::mutex lock;
-  static int set_bytes[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const std::lock_guard<std::mutex> guard(lock);
-  if (dev < MAX_DEVICES && set_bytes[dev] >= bytes) return cudaSuccess;
-  err = cudaFuncSetAttribute(sync_kernel<kTimeMajor, kTau, kPhi>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
+int launch(const void* grid, void* out, int batch, const Geometry& g,
+           void* stream) {
+  using T = Tile<kTimeMajor, kTau>;
+  const int times = T::times(g.tau), lanes = T::lanes(g.tau);
+  const int bytes = smem_bytes<kTimeMajor, kTau>(g.tau, g.phi);
+  if (times > T::kMaxTimes || bytes > MAX_SMEM) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the dynamic shared memory, and all of L1 as shared memory, so that
+  // three blocks fit an SM
+  cudaError_t err = cudaFuncSetAttribute(
+      sync_kernel<kTimeMajor, kTau, kPhi>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(sync_kernel<kTimeMajor, kTau, kPhi>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   }
-  if (err == cudaSuccess && dev < MAX_DEVICES) set_bytes[dev] = bytes;
-  return err;
-}
-
-template <bool kTimeMajor, int kTau, int kPhi>
-int launch(const void* grid, void* out, int batch, const Geometry& g,
-           void* stream) {
-  const int bytes = smem_bytes<kTimeMajor, kTau>(g.tau, g.phi);
-  if (bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = configure<kTimeMajor, kTau, kPhi>(bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  using T = Tile<kTimeMajor, kTau>;
-  const int t_tiles = (g.num_times + T::kTimes - 1) / T::kTimes;
-  const int f_tiles = (g.num_freqs + T::kLanesF - 1) / T::kLanesF;
+  const int t_tiles = (g.num_times + times - 1) / times;
+  const int f_tiles = (g.num_freqs + lanes - 1) / lanes;
   const dim3 blocks(kTimeMajor ? f_tiles : t_tiles,
                     kTimeMajor ? t_tiles : f_tiles, batch);
   sync_kernel<kTimeMajor, kTau, kPhi><<<blocks, T::kThreads, bytes,
@@ -544,8 +521,8 @@ int launch_osr(const void* grid, void* out, int batch, const Geometry& g,
 extern "C" {
 
 // Launches the stencil on `stream`; returns cudaGetLastError() (or
-// cudaErrorInvalidValue for an osr below 1 or whose staged region exceeds
-// 227 KB).
+// cudaErrorInvalidValue for an osr below 1 or one the tile refuses: see
+// the header).
 //   grid: f32 dB waterfalls read at grid[b * sb + frame * st + bin * sf]
 //   (any strides; batch <= 65535 in gridDim.z), with num_frames frames and
 //   at least num_freqs + 7 phi bins;

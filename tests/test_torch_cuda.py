@@ -274,8 +274,10 @@ def test_sync_kernels_match_plain_bit_for_bit(cuda, fs, osr, b):
 @pytest.mark.parametrize("frames,bins,osr,b", [
     (186, 1920, (2, 2), 16),    # STANDARD chunk of 16: 88 x 1,906 cells
     (372, 3840, (4, 4), 1),     # DEEP, batch 1: 176 x 3,812
-    (82, 72, (1, 1), 3),        # 33 x 65: one past a 32 x 64 tile each way
-    (291, 85, (3, 3), 2),       # 144 x 64: 4.5 time tiles, one freq tile
+    (83, 264, (1, 1), 3),       # 34 x 257: one past 11 x 256 tiles each way
+    (291, 85, (3, 3), 2),       # 144 x 64: 4.4 tiles of 33 x 85, a thread idle
+    (200, 90, (3, 1), 2),       # 51 x 83: time_osr 3, freq_osr 1
+    (120, 300, (1, 4), 2),      # 71 x 272: two frequency tiles of 256
     (None, None, (2, 2), 5),    # the 2-kHz geometry
 ])
 def test_sync_kernels_at_tile_edges(cuda, frames, bins, osr, b):
