@@ -29,8 +29,10 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    pre-pass included), its plain version and the library yardstick
    (torch.stft + dB, first held to the float32 plain waterfall) at 12 kHz
    batch 16 and 20 kHz batch 4 (device time from torch.profiler kernel
-   intervals, warm; a window counts only when it holds every device event
-   of its calls), beside each kernel's bound; end-to-end decode_slots
+   intervals, warm; a plain window counts only when it holds every device
+   event of its calls, a hand kernel's the calls whose every launch has
+   its device record, when at most 2 of 20 lack one), beside each
+   kernel's bound; end-to-end decode_slots
    slots/s at batch 256, peak device memory;
 7. the dual-output (dB + boxcar) waterfall kernel against its plain
    version on noisy slots at osr 4x4: 12 kHz (batch 8) and 2 kHz (batch
@@ -38,27 +40,35 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    cell + 1e-4 x the grid's mean power; its dB grid against the dB-only
    kernel's at 12 kHz <= 5e-3; the yardstick (a Hann and a rectangular
    torch.stft) against the float32 plain grids;
-8. the OSD elimination kernel against its plain version, bit for bit, on
-   bases permuted by random LLRs with forced zero ties: 4099 and 37 rows
-   (not multiples of the kernel's 4 candidates per block);
+8. the OSD kernel (reliability order -> permuted, packed and reduced
+   bases, one launch) against its plain version (the permute-pack, then
+   the elimination), bit for bit, on the orders of random LLRs with forced
+   zero ties: 4099 and 37 rows (not multiples of the kernel's 4
+   candidates per block);
 9. the DEEP path at full size: decode_slots on the same 256 slots at osr
    4x4 (K 40, min_score 1, 20 BP iterations, OSD, mf_first, chunk 8,
    bp_chunk 256); every planted payload must decode, the dual-output and
-   sync kernels must launch 256 / 8 times each and the OSD kernel at least
-   once;
-   OSD-accepted rows (against the same decode without OSD) must be > 0;
-   the first 4 slots decoded on the CPU must give the same sets;
+   sync kernels must launch 256 / 8 times each and the OSD kernel exactly
+   once (one BP group), over exactly the rows BP left (the valid
+   candidates that the same decode without OSD does not decode);
+   OSD-accepted rows must be > 0 and no BP decode lost; the OSD kernel
+   equals its plain version bit for bit on that call's rows (their orders
+   taken from a second, uncounted call); the first 4 slots decoded on the
+   CPU must give the same sets;
 10. times: the dual-output kernel (batch 8, 12 kHz; and its yardstick) and
-   the OSD kernel (1024 rows, the OSD pass size) against their plain
-   versions and bounds (device time, as in phase 6); DEEP decode_slots
-   slots/s at batch 256 over 5 runs; peak device memory;
+   the OSD kernel at the DEEP call's rows (its one launch per batch) and
+   at 1024 rows, against their plain versions and bounds (device time, as
+   in phase 6); DEEP decode_slots slots/s at batch 256 over 5 runs; peak
+   device memory;
 11. the sync stencil kernels against their plain versions, bit for bit
    (torch.equal, identical -inf masks; anything else raises): time-major
    on dB grids at 12 kHz osr 2x2 (batch 16) and 4x4 (batch 8) and 2 kHz
    2x2 (batch 3); frequency-major at 12 kHz 2x2 and 4x4 and on
    a cropped (strided) view; both ways at 12 kHz time_osr 3, freq_osr 1
-   (batch 2: the generic instance); ptxas's registers, shared memory and
-   spills;
+   (batch 2) and osr 10x10 (batch 2, plain waterfall; the generic
+   instance on a shrunk tile); an osr that fits no tile raises the
+   wrapper's ValueError, as does the waterfall kernel at time_osr 10;
+   ptxas's registers, shared memory and spills;
 12. the host API decode_ft8_message on one crowded 15-s 12 kHz capture
    (15 signals at -12..+5 dB, 300-2800 Hz, >= 60 Hz apart, plus one 13 dB
    under the strongest, 30 Hz above it and a symbol later): STANDARD, DEEP
@@ -67,12 +77,15 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    rows the CPU gives (payloads, times, frequencies; score within 1e-4,
    SNR within 0.1), launches the frequency-major sync kernel (and the OSD
    kernel under DEEP); the buried signal decodes only in the second pass;
+   then osr 10x10 (bins_per_tone = steps_per_symbol = 10) on a band crop
+   around the strongest signal: it decodes, with the CPU's rows;
 13. times (device time as in phase 6): both sync kernels against their
    plain versions and bounds at the decodes' sizes; decode_ft8_message ms per
    capture, STANDARD and DEEP; the stage split of decode_ft8_message and
    of decode_slots at batch 256 (STANDARD and DEEP), host and device ms
-   per ft8.<stage> record_function range of the decoders, from profiler
-   traces of the real calls; peak device memory.
+   per ft8.<stage> record_function range of the decoders (host ms
+   exclusive of the ranges nested inside: OSD's ft8.osd inside ft8.decode),
+   from profiler traces of the real calls; peak device memory.
 
 Then one JSON line with the kernels (each with its launches on the main
 path, device ms, plain ms, bound ms and what bounds it, and the library
@@ -145,6 +158,9 @@ BURIED_DB = 13.0              # under the strongest signal
 API_SCORE_ATOL = 1e-4
 API_SNR_ATOL = 0.1
 API_REPS = 5
+# the host API at an osr the waterfall kernels do not take, on a band crop
+HIGH_OSR = 10
+HIGH_OSR_BAND_HZ = 300.0
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
 # bf16 tensor cores, float32 outside them, device memory
 PEAK_BF16 = 989e12
@@ -436,21 +452,34 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # windows _device_ms takes before it gives up.  The profiler has lost all
 # of a 22-us kernel's 20 events twice in a row (the OSD timing, right after
 # a plain version of 2,405 device events a call), and one of a sync
-# kernel's 20 in six windows in a row (NVIDIA H100 80GB HBM3)
+# kernel's 20 in six and in ten windows in a row, late in a chip_smoke
+# process (never in a fresh one; NVIDIA H100 80GB HBM3)
 PROFILER_WINDOWS = 10
-# profiler windows taken again because they lacked device events:
-# "what events-seen/events-expected"
+# a hand kernel's window counts when at most this many of its calls lack a
+# device record of their launches
+MAX_LOST_CALLS = 2
+# the range around each call of a hand kernel's window
+CALL_RANGE = "chip_smoke.call"
+# profiler windows taken again because they lacked device events ("what
+# events-seen/events-expected", or complete calls/calls), and hand-kernel
+# windows counted with a call lost ("what complete/calls")
 _RETAKEN: list[str] = []
+_SHORT: list[str] = []
 
 
-def _trace_events(fn, reps: int) -> list[dict]:
+def _trace_events(fn, reps: int, mark: bool = False) -> list[dict]:
     """The chrome-trace events of a torch.profiler trace of ``reps`` calls
-    of ``fn``, up to a synchronize."""
+    of ``fn``, up to a synchronize; ``mark`` runs each call in a
+    CALL_RANGE range."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(reps):
-            fn()
+            if mark:
+                with torch.profiler.record_function(CALL_RANGE):
+                    fn()
+            else:
+                fn()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
@@ -480,30 +509,68 @@ def _busy_ms(events: list[dict]) -> float:
     return busy / 1e3
 
 
+def _complete_calls(events: list[dict], name: str,
+                    kernels: int) -> tuple[list[dict], int]:
+    """(the ``name`` kernels of the complete calls, how many calls are
+    complete) in a trace of CALL_RANGE calls.  A call is complete when it
+    made exactly ``kernels`` launches (the runtime's launch records inside
+    its range) and each has its device record (by correlation id), a
+    ``name`` kernel."""
+    device = {(e.get("args") or {}).get("correlation"): e
+              for e in _device_events(events)}
+    launches = [(float(e["ts"]), (e.get("args") or {}).get("correlation"))
+                for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "Launch" in e.get("name", "")]
+    kept, complete = [], 0
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") != "user_annotation" \
+                or e.get("name") != CALL_RANGE:
+            continue
+        lo = float(e["ts"])
+        hi = lo + float(e.get("dur", 0.0))
+        mine = {c for t, c in launches if lo <= t <= hi}
+        got = [device[c] for c in mine if c in device
+               and name in device[c].get("name", "")]
+        if len(mine) == kernels and len(got) == kernels:
+            kept += got
+            complete += 1
+    return kept, complete
+
+
 def _device_ms(fn, reps: int, name: str | None = None,
                kernels: int = 1) -> tuple[float, int]:
     """(device ms per call of ``fn``, device events per call): the union of
     the device intervals of a torch.profiler trace over ``reps`` warm
-    calls, divided by ``reps``.  ``name``: only the kernels whose name
+    calls, divided by the calls.  ``name``: only the kernels whose name
     holds it (a hand kernel; its wrapper launches exactly ``kernels`` of
     them per call).
 
-    A window counts only when it holds every device event of its calls:
-    exactly ``reps * kernels`` for a hand kernel, else at least ``reps``
-    times the count of a one-call trace (a plain call's allocator may add a
-    memset or copy now and then; such events count in the union).  A
-    window short of that is taken again (and noted in ``_RETAKEN``), up to
-    PROFILER_WINDOWS windows; then it raises."""
+    A plain version's window counts only when it holds at least ``reps``
+    times the device events of a one-call trace (a plain call's allocator
+    may add a memset or copy now and then; such events count in the
+    union).  A hand kernel's window counts the calls whose every launch has
+    its device record (matched by correlation id) and the union of their
+    kernels' intervals, when at most MAX_LOST_CALLS calls lack one (noted
+    in ``_SHORT``).  A window short of that is taken again (and noted in
+    ``_RETAKEN``), up to PROFILER_WINDOWS windows; then it raises."""
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILER_WINDOWS):
-        per_call = kernels if name else len(
-            _device_events(_trace_events(fn, 1)))
-        events = _device_events(_trace_events(fn, reps), name)
-        if per_call > 0 and (len(events) == reps * per_call if name
-                             else len(events) >= reps * per_call):
+        if name:
+            kept, complete = _complete_calls(_trace_events(fn, reps, True),
+                                             name, kernels)
+            if complete >= reps - MAX_LOST_CALLS:
+                if complete < reps:
+                    _SHORT.append(f"{name} {complete}/{reps}")
+                return _busy_ms(kept) / complete, kernels
+            _RETAKEN.append(f"{name} {complete}/{reps} calls")
+            continue
+        per_call = len(_device_events(_trace_events(fn, 1)))
+        events = _device_events(_trace_events(fn, reps))
+        if per_call > 0 and len(events) >= reps * per_call:
             return _busy_ms(events) / reps, per_call
-        _RETAKEN.append(f"{name or 'plain'} {len(events)}/{reps * per_call}")
+        _RETAKEN.append(f"plain {len(events)}/{reps * per_call}")
     raise RuntimeError(f"{PROFILER_WINDOWS} incomplete profiler windows: "
                        f"{_RETAKEN[-PROFILER_WINDOWS:]}")
 
@@ -512,7 +579,7 @@ def _kernel_vs_plain_ms(kernel, plain, name: str, reps: int = 20,
                         plain_reps: int | None = None, kernels: int = 1,
                         library=None) -> tuple[float, float, int, float]:
     """(kernel ms, plain ms, the plain version's device events per call,
-    library ms or None) of device time, warm, min of 2 complete windows
+    library ms or None) of device time, warm, min of 2 counted windows
     each, in the order plain, kernel, library, library, kernel, plain
     (without ``library``: plain, kernel, kernel, plain).  ``kernels``: the
     hand kernels one call of ``kernel`` launches."""
@@ -531,23 +598,66 @@ def _kernel_vs_plain_ms(kernel, plain, name: str, reps: int = 20,
             min(times["library"]) if times["library"] else None)
 
 
-def _tied_bases(rows: int, seed: int, device):
-    """Packed reliability-permuted OSD bases from random LLRs, a fifth of
-    them zero (tied)."""
-    from ft8_demodulator_tpu_torch.ops import osd
-
+def _tied_orders(rows: int, seed: int, device):
+    """Reliability orders (the OSD kernel's input) of random LLRs, a fifth
+    of them zero (tied)."""
     rng = np.random.default_rng(seed)
     llr = rng.standard_normal((rows, 174)).astype(np.float32)
     llr[rng.random(llr.shape) < 0.2] = 0.0
     llr = torch.as_tensor(llr, device=device)
-    order = torch.sort(-llr.abs(), dim=-1, stable=True).indices
-    return osd._permute_pack(order, osd.osd_tables(device))
+    return torch.sort(-llr.abs(), dim=-1, stable=True).indices
+
+
+def _check_osd(order, tables, label: str) -> None:
+    """The OSD kernel against its plain version on ``order``, bit for
+    bit; raises if any row differs."""
+    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
+
+    red, pcol = oc.reduce_basis_from_order(order, tables)
+    torch.cuda.synchronize()
+    want_red, want_pcol = oc.reduce_basis_from_order_plain(order, tables)
+    if not (torch.equal(red, want_red) and torch.equal(pcol, want_pcol)):
+        bad = int(((red != want_red).any(-1).any(-1)
+                   | (pcol != want_pcol).any(-1)).sum())
+        raise RuntimeError(f"OSD kernel vs plain on {label}: {bad} of "
+                           f"{order.shape[0]} rows differ")
+
+
+def _osd_bound(rows: int) -> tuple[float, str]:
+    """The OSD kernel's bound: the int64 orders and the table in, the
+    reduced bases and pivot columns out; one XOR of six words per row and
+    pivot (91 x 90 x 6 per candidate) at the f32 rate."""
+    from ft8_demodulator_tpu_torch.ops.osd_cuda import TABLE_WORDS
+
+    return _bound(rows * 91 * 90 * 6,
+                  8 * rows * 174 + 4 * TABLE_WORDS + 4 * rows * 91 * (6 + 1),
+                  PEAK_F32)
+
+
+def _capture_osd_orders(fn) -> list:
+    """Run ``fn`` (a decode) with ops/osd.py's kernel entry wrapped to keep
+    each call's (order, tables); the entry is restored after."""
+    from ft8_demodulator_tpu_torch.ops import osd
+
+    seen, entry = [], osd.reduce_basis_from_order
+
+    def keep(order, tables):
+        seen.append((order, tables))
+        return entry(order, tables)
+
+    osd.reduce_basis_from_order = keep
+    try:
+        fn()
+    finally:
+        osd.reduce_basis_from_order = entry
+    return seen
 
 
 def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     """Phases 7-10: the DEEP decode's kernels and path.  Returns the
     kernels' JSON records."""
     from ft8_demodulator_tpu_torch.demod.decode import decode_slots
+    from ft8_demodulator_tpu_torch.ops import osd
     from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
     from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
     from ft8_demodulator_tpu_torch.ops import waterfall_cuda as wc
@@ -604,18 +714,12 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
                 f"{db_vs_single:.3e}; the torch.stft yardstick at 12 kHz: "
               + lib_text)
 
+    tables = osd.osd_tables(dev)
     for rows, seed in ((4099, 1), (37, 2)):
-        bases = _tied_bases(rows, seed, dev)
-        red, pcol = oc.reduce_basis_batch(bases)
-        torch.cuda.synchronize()
-        want_red, want_pcol = oc.reduce_basis_batch_plain(bases)
-        if not (torch.equal(red, want_red) and torch.equal(pcol, want_pcol)):
-            bad = int((red != want_red).any(-1).any(-1).sum()
-                      + (pcol != want_pcol).any(-1).sum())
-            raise RuntimeError(f"OSD kernel vs plain on {rows} bases: "
-                               f"{bad} differ")
-    _phase(8, "OSD elimination kernel == plain bit for bit on 4099 and 37 "
-              "bases (random LLRs, 20 % zero ties)")
+        _check_osd(_tied_orders(rows, seed, dev), tables, f"{rows} orders")
+    _phase(8, "OSD kernel (order -> reduced bases, one launch) == plain "
+              "(permute-pack + elimination) bit for bit on 4099 and 37 rows "
+              "(random LLRs, 20 % zero ties)")
 
     p = waterfall_params(FS, *DEEP_OSR)
     nf = p.num_frames(waves.shape[1])
@@ -623,25 +727,24 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
               max_iterations=BP_ITERATIONS, mf_first=True, chunk=DEEP_CHUNK,
               bp_chunk=BP_CHUNK)
     torch.cuda.synchronize()
+    k4 = oc.reduce_basis_from_order
     mf.launches = 0
     sc.sync_scores_tf_kernel.launches = 0
-    oc.reduce_basis_batch.launches = 0
-    oc.reduce_basis_batch.rows = 0
+    k4.launches = 0
+    k4.rows = 0
     t0 = time.perf_counter()
     res = decode_slots(waves, p, nf, use_osd=True, **kw)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     mf_launches = mf.launches
     k5_launches = sc.sync_scores_tf_kernel.launches
-    osd_launches = oc.reduce_basis_batch.launches
-    osd_rows = oc.reduce_basis_batch.rows
+    osd_launches = k4.launches
+    osd_rows = k4.rows
     if mf_launches != BATCH // DEEP_CHUNK \
             or k5_launches != BATCH // DEEP_CHUNK:
         raise RuntimeError(f"dual-output / sync kernels launched "
                            f"{mf_launches} / {k5_launches} times, want "
                            f"{BATCH // DEEP_CHUNK}")
-    if osd_launches < 1:
-        raise RuntimeError("the OSD kernel was not launched")
     if res.success.shape != (BATCH, DEEP_CANDIDATES) \
             or res.payload.shape != (BATCH, DEEP_CANDIDATES, 10) \
             or not bool(torch.isfinite(res.score[res.candidate_valid]).all()):
@@ -659,14 +762,28 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     osd_accepted = int((res.success & ~bp_only.success).sum())
     if osd_accepted < 1:
         raise RuntimeError("OSD accepted no row on the 0-dB slots")
+    # the rows BP leaves: valid candidates without a BP + CRC decode
+    needed = int((bp_only.candidate_valid & ~bp_only.success).sum())
+    if osd_launches != 1 or osd_rows != needed:
+        raise RuntimeError(f"OSD kernel: {osd_launches} launches over "
+                           f"{osd_rows} rows, want 1 over the {needed} rows "
+                           "BP left")
+    seen = _capture_osd_orders(
+        lambda: decode_slots(waves, p, nf, use_osd=True, **kw))
+    if len(seen) != 1 or seen[0][0].shape[0] != needed:
+        raise RuntimeError(f"the uncounted DEEP call gave the OSD kernel "
+                           f"{[o.shape[0] for o, _ in seen]} rows")
+    deep_order = seen[0][0]
+    _check_osd(deep_order, tables, f"the DEEP call's {needed} rows")
     _phase(9, f"DEEP decode_slots {BATCH} slots at {FS / 1000:g} kHz osr "
               f"{DEEP_OSR[0]}x{DEEP_OSR[1]}: yield {decoded}/{BATCH}, "
               f"dual-output kernel launches {mf_launches}, sync kernel "
               f"launches {k5_launches}, OSD kernel "
-              f"launches {osd_launches} reducing {osd_rows} rows, "
-              f"{int(res.success.sum())} successful rows of which "
+              f"launches {osd_launches} reducing {osd_rows} rows (the rows "
+              f"BP left), {int(res.success.sum())} successful rows of which "
               f"{osd_accepted} OSD-accepted, {unplanted} unplanted decodes, "
-              f"first call {first_s:.2f} s")
+              f"first call {first_s:.2f} s; OSD kernel == plain bit for bit "
+              f"on that call's {needed} rows")
 
     host = decode_slots(waves[:DEEP_CPU_SLOTS].cpu(), p, nf, use_osd=True,
                         **dict(kw, chunk=DEEP_CPU_SLOTS))
@@ -689,16 +806,17 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     dft_flop = 4 * (nf + p.time_osr - 1) * p.hop * kx * DEEP_CHUNK
     mf_bound = _waterfall_bound(p, DEEP_CHUNK, waves.shape[1], box=True)
     mf_ctas, mf_waves = _waterfall_grid(p, DEEP_CHUNK, box=True)
-    bases = _tied_bases(OSD_TIMED_ROWS, 3, dev)
-    osd_ms, osd_plain_ms, osd_plain_ev, _ = _kernel_vs_plain_ms(
-        lambda: oc.reduce_basis_batch(bases),
-        lambda: oc.reduce_basis_batch_plain(bases), "osd_eliminate_kernel",
-        plain_reps=5)
-    # a basis in, the reduced basis and its pivot columns out; one XOR of
-    # six words per row and pivot (91 x 90 x 6 per candidate)
-    osd_bound = _bound(OSD_TIMED_ROWS * 91 * 90 * 6,
-                       4 * (2 * bases.numel() + OSD_TIMED_ROWS * 91),
-                       PEAK_F32)
+    # the OSD kernel at the DEEP call's rows (its one launch a batch) and
+    # at 1024 rows
+    osd_t = {}
+    for label, order in (("DEEP", deep_order),
+                         ("1024", _tied_orders(OSD_TIMED_ROWS, 3, dev))):
+        ms, plain_ms, plain_ev, _ = _kernel_vs_plain_ms(
+            lambda: k4(order, tables),
+            lambda: oc.reduce_basis_from_order_plain(order, tables),
+            "osd_eliminate_kernel", plain_reps=5)
+        osd_t[label] = (order.shape[0], ms, plain_ms, plain_ev,
+                        _osd_bound(order.shape[0]))
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -717,11 +835,16 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
                f"bound {mf_bound[0]:.4f} ms by {mf_bound[1]}), "
                f"plain {mf_plain_ms:.4f} ms ({mf_plain_ev} device events "
                f"per call), torch.stft yardstick {mf_lib_ms:.4f} ms; OSD "
-               f"kernel {OSD_TIMED_ROWS} "
-               f"rows: kernel {osd_ms * 1e3:.1f} us (bound "
-               f"{osd_bound[0] * 1e3:.2f} us by {osd_bound[1]}), plain "
-               f"{osd_plain_ms * 1e3:.1f} us ({osd_plain_ev} device events "
-               f"per call) (device time, min of 2 complete windows); DEEP "
+               f"kernel (order in, reduced bases out): "
+               + "; ".join(
+                   f"{rows} rows{' (the DEEP batch)' if key == 'DEEP' else ''}"
+                   f" kernel {ms * 1e3:.1f} us (bound {bd[0] * 1e3:.2f} us by"
+                   f" {bd[1]}), plain {pms * 1e3:.1f} us ({ev} device events"
+                   f" per call)"
+                   for key, (rows, ms, pms, ev, bd) in osd_t.items())
+               + f"; per DEEP batch {osd_launches} launch, "
+               f"{osd_launches * osd_t['DEEP'][1] * 1e3:.1f} us "
+               f"(device time, min of 2 counted windows); DEEP "
                f"decode_slots batch {BATCH}: slots/s over {DEEP_REPS} runs "
                f"min {rates[0]:.1f}, median {rates[len(rates) // 2]:.1f}, "
                f"max {rates[-1]:.1f}; peak memory {peak_mib:.1f} MiB")
@@ -734,9 +857,10 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
          "bound_by": mf_bound[1], "library_ms": mf_lib_ms},
         {"name": "osd_eliminate", "route": "cuda", "source": OSD_SOURCE,
          "replaces": OSD_REPLACES, "launches": osd_launches,
-         "max_abs_err": 0.0, "ms": osd_ms, "plain_ms": osd_plain_ms,
-         "bound_ms": osd_bound[0], "bound_by": osd_bound[1],
-         "library_ms": None, "library_note": NO_LIBRARY["osd_eliminate"]},
+         "max_abs_err": 0.0, "ms": osd_t["DEEP"][1],
+         "plain_ms": osd_t["DEEP"][2], "bound_ms": osd_t["DEEP"][4][0],
+         "bound_by": osd_t["DEEP"][4][1], "library_ms": None,
+         "library_note": NO_LIBRARY["osd_eliminate"]},
     ]
 
 
@@ -765,18 +889,23 @@ def _sync_phase(dev, log: str):
                                f"{diffs[label]}")
 
     chunks, captures = [], []
-    # (time_osr, freq_osr); 3x1 runs the generic instance (checked, not
-    # timed)
+    # (time_osr, freq_osr); 3x1 and 10x10 run the generic instance
+    # (checked, not timed; 10x10 on a shrunk tile, from the plain
+    # waterfall: the waterfall kernels stop at time_osr 8)
     for fs, (tau, phi), b in ((12000.0, (2, 2), CHUNK),
                               (12000.0, (4, 4), DEEP_CHUNK),
-                              (2000.0, (2, 2), 3), (12000.0, (3, 1), 2)):
+                              (2000.0, (2, 2), 3), (12000.0, (3, 1), 2),
+                              (12000.0, (10, 10), 2)):
         p = waterfall_params(fs, phi, tau)
         ns = int(fs * SLOT_S)
         nf = p.num_frames(ns)
         rng = np.random.default_rng(int(fs) + tau)
         w = torch.as_tensor(rng.standard_normal((b, ns)).astype(np.float32),
                             device=dev)
-        mag_tf = wc.block_waterfall_tf_fused_batch(w, p, nf)
+        waterfall = (wc.block_waterfall_tf_fused_batch_plain
+                     if tau > wc.MAX_TAU else
+                     wc.block_waterfall_tf_fused_batch)
+        mag_tf = waterfall(w, p, nf)
         g = so.search_grid(p.num_freq_bins, nf, tau, phi)
         check(f"K5 {fs / 1000:g} kHz {tau}x{phi} batch {b}",
               sc.sync_scores_tf_kernel(mag_tf, g),
@@ -786,7 +915,7 @@ def _sync_phase(dev, log: str):
         mag = mag_tf[0].transpose(0, 1).contiguous()        # one capture
         check(f"K6 {fs / 1000:g} kHz {tau}x{phi}",
               sc.sync_scores_kernel(mag, g), so.sync_scores(mag, g))
-        if tau != phi:
+        if tau != phi or tau > wc.MAX_TAU:
             continue
         chunks.append((mag_tf, g))
         captures.append((mag, g))
@@ -795,9 +924,35 @@ def _sync_phase(dev, log: str):
             gc = so.search_grid(*crop.shape, tau, phi)
             check("K6 cropped view", sc.sync_scores_kernel(crop, gc),
                   so.sync_scores(crop.contiguous(), gc))
+    tiles = {f"{'K5' if tm else 'K6'} 10x10": sc.sync_tile(tm, 10, 10)
+             for tm in (True, False)}
+    # the limits left: the sync kernel's largest tile and the waterfall
+    # kernels' MAX_TAU raise a ValueError before any launch
+    refused = []
+    for label, call in (
+            ("K6 18x18", lambda: sc.sync_scores_kernel(
+                torch.zeros((200, 1500), device=dev),
+                so.search_grid(200, 1500, 18, 18))),
+            ("K5 20x20", lambda: sc.sync_scores_tf_kernel(
+                torch.zeros((1700, 200), device=dev),
+                so.search_grid(200, 1700, 20, 20))),
+            ("waterfall time_osr 10",
+             lambda: wc.block_waterfall_tf_fused_batch(
+                 torch.zeros((1, int(FS * SLOT_S)), device=dev),
+                 waterfall_params(FS, 2, 10), 900))):
+        try:
+            call()
+        except ValueError as err:
+            refused.append(f"{label}: {err}")
+        else:
+            raise RuntimeError(f"{label} did not raise a ValueError")
+    torch.cuda.synchronize()
     _phase(11, "sync kernels vs plain, bit for bit (torch.equal, -inf masks "
                "equal), max |diff| "
                + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+               + "; tiles at 10x10 (start times a thread, lanes, shared "
+               "bytes): " + ", ".join(f"{k} {v}" for k, v in tiles.items())
+               + "; refused: " + " | ".join(refused)
                + "; ptxas: " + " ".join(_sync_ptxas(log)))
     return diffs, chunks, captures
 
@@ -808,7 +963,7 @@ def _crowded_capture():
     Hz, unit noise), 300-2750 Hz, >= 60 Hz apart, starting in 0-1.5 s,
     plus a buried one BURIED_DB under the strongest, 30 Hz above it and
     one symbol later.  Returns (wave (n,) float32 numpy, payloads (16,
-    10), snr_db (16,)); the buried one is last."""
+    10), snr_db (16,), f0 Hz (16,)); the buried one is last."""
     from ft8_demodulator_tpu_torch.ops.gfsk import _baseband_complex
     from ft8_demodulator_tpu_torch.protocol import constants as C
     from ft8_demodulator_tpu_torch.protocol.encode import encode_tones
@@ -834,7 +989,7 @@ def _crowded_capture():
         sig = _baseband_complex(tones[i], sps, FS, float(f0[i])).real.numpy()
         amp = np.sqrt(2.0 * 10.0 ** (snr[i] / 10.0) * 2500.0 / (FS / 2.0))
         wave[starts[i]: starts[i] + len(sig)] += amp * sig
-    return wave.astype(np.float32), payloads, snr
+    return wave.astype(np.float32), payloads, snr, f0
 
 
 DEEP_API = dict(bins_per_tone=4, steps_per_symbol=4, max_candidates=40,
@@ -848,6 +1003,21 @@ API_RUNS = {
 }
 
 
+def _check_api_rows(name: str, card, host) -> None:
+    """The card's rows against the CPU's: the same payloads, times and
+    frequencies, scores within API_SCORE_ATOL, SNRs within API_SNR_ATOL."""
+    if [(r.message.payload, r.time_sec, r.freq_hz) for r in card] != \
+            [(r.message.payload, r.time_sec, r.freq_hz) for r in host]:
+        raise RuntimeError(f"{name}: card rows "
+                           f"{[r.message.payload for r in card]} != CPU rows "
+                           f"{[r.message.payload for r in host]}")
+    for a, b in zip(card, host):
+        if abs(a.score - b.score) > API_SCORE_ATOL \
+                or abs(a.snr_db - b.snr_db) > API_SNR_ATOL:
+            raise RuntimeError(f"{name}: card score / SNR {a.score} / "
+                               f"{a.snr_db}, CPU {b.score} / {b.snr_db}")
+
+
 def _api_phase(dev) -> tuple[int, dict]:
     """Phase 12: decode_ft8_message on the crowded capture, card vs CPU.
     Returns (frequency-major sync kernel launches, card rows per run)."""
@@ -855,34 +1025,27 @@ def _api_phase(dev) -> tuple[int, dict]:
     from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
     from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
 
-    wave, payloads, snr = _crowded_capture()
+    wave, payloads, snr, f0 = _crowded_capture()
     planted = {bytes(pl): float(s) for pl, s in zip(payloads, snr)}
     buried = bytes(payloads[-1])
     k6_total, out, lines = 0, {}, []
     for name, (kw, min_snr) in API_RUNS.items():
         torch.cuda.synchronize()
         sc.sync_scores_kernel.launches = 0
-        oc.reduce_basis_batch.launches = 0
+        oc.reduce_basis_from_order.launches = 0
         t0 = time.perf_counter()
         card = decode_ft8_message(wave, FS, device=dev, **kw)
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
-        k6, k4 = sc.sync_scores_kernel.launches, oc.reduce_basis_batch.launches
+        k6 = sc.sync_scores_kernel.launches
+        k4 = oc.reduce_basis_from_order.launches
         k6_total += k6
         host = decode_ft8_message(wave, FS, device="cpu", **kw)
         got = [r.message.payload for r in card]
         if k6 < 1 or (name == "DEEP" and k4 < 1):
             raise RuntimeError(f"{name}: sync kernel {k6}, OSD kernel {k4} "
                                "launches")
-        if [(r.message.payload, r.time_sec, r.freq_hz) for r in card] != \
-                [(r.message.payload, r.time_sec, r.freq_hz) for r in host]:
-            raise RuntimeError(f"{name}: card rows {got} != CPU rows "
-                               f"{[r.message.payload for r in host]}")
-        for a, b in zip(card, host):
-            if abs(a.score - b.score) > API_SCORE_ATOL \
-                    or abs(a.snr_db - b.snr_db) > API_SNR_ATOL:
-                raise RuntimeError(f"{name}: card score / SNR {a.score} / "
-                                   f"{a.snr_db}, CPU {b.score} / {b.snr_db}")
+        _check_api_rows(name, card, host)
         unplanted = [pl for pl in got if pl not in planted]
         missed = sorted(s for pl, s in planted.items()
                         if s >= min_snr and pl not in got)
@@ -899,6 +1062,34 @@ def _api_phase(dev) -> tuple[int, dict]:
                      f"{min(planted[pl] for pl in got):.1f} dB), sync kernel "
                      f"launches {k6}, OSD kernel launches {k4}, first call "
                      f"{card_s * 1e3:.0f} ms")
+    # osr 10x10 (the generic sync instance on a shrunk tile; the plain
+    # waterfall, as at every osr of this API) on a band around the
+    # strongest signal, so that the CPU side stays short
+    strong = int(np.argmax(snr[:CROWD_SIGNALS]))
+    band = dict(bins_per_tone=HIGH_OSR, steps_per_symbol=HIGH_OSR,
+                freq_min=float(f0[strong]) - HIGH_OSR_BAND_HZ / 2,
+                freq_max=float(f0[strong]) + HIGH_OSR_BAND_HZ / 2)
+    torch.cuda.synchronize()
+    sc.sync_scores_kernel.launches = 0
+    t0 = time.perf_counter()
+    card = decode_ft8_message(wave, FS, device=dev, **band)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    k6 = sc.sync_scores_kernel.launches
+    k6_total += k6
+    t0 = time.perf_counter()
+    host = decode_ft8_message(wave, FS, device="cpu", **band)
+    host_s = time.perf_counter() - t0
+    if k6 != 1 or bytes(payloads[strong]) not in {
+            r.message.payload for r in card}:
+        raise RuntimeError(f"osr {HIGH_OSR}x{HIGH_OSR}: sync kernel "
+                           f"launches {k6}, rows {card}")
+    _check_api_rows(f"osr {HIGH_OSR}x{HIGH_OSR}", card, host)
+    lines.append(f"osr {HIGH_OSR}x{HIGH_OSR} on {band['freq_min']:.0f}-"
+                 f"{band['freq_max']:.0f} Hz: {len(card)} rows (the "
+                 f"{snr[strong]:.1f} dB signal decoded), sync kernel "
+                 f"launches {k6}, first call {card_s * 1e3:.0f} ms (CPU "
+                 f"{host_s * 1e3:.0f} ms)")
     _phase(12, f"decode_ft8_message on a crowded {FS / 1000:g} kHz capture "
                f"({CROWD_SIGNALS} + 1 buried signals): "
                + "; ".join(lines) + "; card == CPU rows in every run; the "
@@ -909,7 +1100,8 @@ def _api_phase(dev) -> tuple[int, dict]:
 def _stage_split(fn) -> dict[str, tuple[float, float]]:
     """One warm call of ``fn`` (a decode) under torch.profiler, split by
     the decoders' ``ft8.<stage>`` record_function ranges: {stage: (host ms
-    inside its ranges, device busy ms of the work launched inside them)}.
+    inside its ranges but outside the ranges nested in them, device busy
+    ms of the work launched inside them and not inside a nested range)}.
     "other" is device work launched outside every range; "call" the host
     extent of the traced call's ops and all its device busy ms.  A device
     event is placed by the host time of its launch (runtime or driver call,
@@ -950,7 +1142,12 @@ def _stage_split(fn) -> dict[str, tuple[float, float]]:
         by_stage.setdefault(stage, []).append(e)
     host: dict[str, float] = {}
     for lo, hi, stage in ranges:
-        host[stage] = host.get(stage, 0.0) + (hi - lo) / 1e3
+        inner = [(a, b) for a, b, _ in ranges
+                 if lo <= a and b <= hi and (a, b) != (lo, hi)]
+        nested = sum(b - a for a, b in inner
+                     if not any(c <= a and b <= d and (c, d) != (a, b)
+                                for c, d in inner))
+        host[stage] = host.get(stage, 0.0) + (hi - lo - nested) / 1e3
     split = {stage: (host.get(stage, 0.0), _busy_ms(by_stage.get(stage, [])))
              for stage in dict.fromkeys([r[2] for r in ranges] + ["other"]
                                         + list(by_stage))}
@@ -1008,7 +1205,7 @@ def _time_phase(dev, smi: str, chunks, captures, waves) -> dict:
             _sync_adds(g, cells, grid.numel()), 4 * (grid.numel() + cells),
             PEAK_F32_INSTR))
 
-    wave, _, _ = _crowded_capture()
+    wave = _crowded_capture()[0]
     api = {}
     for name in ("STANDARD", "DEEP"):
         kw = API_RUNS[name][0]
@@ -1039,13 +1236,16 @@ def _time_phase(dev, smi: str, chunks, captures, waves) -> dict:
                + " (K5 per decode_slots chunk of 16 / 8 slots, K6 per "
                "capture); profiler windows taken again: "
                + (", ".join(_RETAKEN) or "none")
+               + "; hand-kernel windows counted with a call lost: "
+               + (", ".join(_SHORT) or "none")
                + f"; decode_ft8_message per capture, median of {API_REPS}: "
                + "; ".join(
                    f"{name} {whole:.1f} ms (stages from profiler traces, "
                    f"host/device ms, median of 3: {_split_text(split)})"
                    for name, (whole, split) in api.items())
                + f", DEEP peak memory {api_peak:.1f} MiB; decode_slots "
-               f"batch {BATCH} stages (one profiled call, host/device ms): "
+               f"batch {BATCH} stages (one profiled call, host/device ms; "
+               "decode is BP + CRC, osd the ft8.osd range inside it): "
                + "; ".join(f"{name} {_split_text(st)}"
                            for name, st in slots.items()))
     return kt
@@ -1221,7 +1421,7 @@ def main() -> int:
               f"{k2_bound[1]}), plain "
               f"{k2_plain_ms:.4f} ms ({k2_plain_ev} device events per call),"
               f" torch.stft yardstick {k2_lib_ms:.4f} ms ({lib20_text}) "
-              f"(device time over {reps} warm launches, min of 2 complete "
+              f"(device time over {reps} warm launches, min of 2 counted "
               f"windows); decode_slots "
               f"batch {BATCH}: {BATCH / e2e_s:.1f} slots/s "
               f"({e2e_s * 1e3:.1f} ms per batch, mean of {reps_e2e}); "

@@ -89,10 +89,14 @@
 // clock an SM), the L2 feeding 2.2x the grid per sequence, and for one
 // capture the latency of three staged phases on one or two blocks an SM.
 //
-// A tile of more than kThreads start times (time_osr above 23) or a block
-// of more than 227 KB of shared memory (osr n x n above 11 time-major, 9
-// frequency-major; the waterfall kernels stop at time_osr 8) is refused
-// with cudaErrorInvalidValue.
+// The generic instance shrinks its tile until the block fits in 227 KB of
+// shared memory: fewer frequency lanes first (frequency-major osr 10 x 10
+// takes 14 of 25), then fewer cells a thread (and fewer, too, while a tile
+// would hold more than kThreads start times).  The sums per cell are the
+// same, in the same order, whatever the tile.  At osr n x n a tile fits up
+// to n = 17 frequency-major and n = 19 time-major; an osr that fits no
+// tile (ft8_sync_tile says which; the Python wrapper raises before
+// launching) is refused with cudaErrorInvalidValue.
 
 #include <cuda_runtime.h>
 
@@ -108,10 +112,17 @@ constexpr int SEQ_STRIDE = 36;     // symbols between sequence starts
 constexpr int COSTAS_TONES = 0x2560413;   // tone of symbol k: nibble k
 constexpr int MAX_SMEM = 227 * 1024;
 
+// A tile: each thread scores `cells` start times one symbol apart, at one
+// of `lanes` frequencies.
+struct TileShape {
+  int cells, lanes;
+};
+
 struct Geometry {
   int64_t sb, st, sf;     // element strides of the grid: batch, time, freq
   int num_frames;         // grid frames (reads outside are zero)
   int tau, phi, num_blocks, t_start, num_times, num_freqs;
+  TileShape tile;         // the generic instance's tile (launch sets it)
 };
 
 // The cells of a block; kTau > 0 fixes the osr at compile time (0: any).
@@ -128,9 +139,10 @@ struct Tile {
   static constexpr int kMaxTimes = kTau > 0 ? kCells * kTau : kThreads;
   // blocks an SM (shared memory allows it at osr 2x2 and 4x4)
   static constexpr int kMinBlocks = kTau > 0 && kTimeMajor ? 3 : 2;
-  // start times and frequencies of a tile
-  __host__ __device__ static int times(int tau) { return kCells * tau; }
-  __host__ __device__ static int lanes(int tau) { return kThreads / tau; }
+  // the widest tile: kCells cells a thread, kThreads / tau lanes
+  __host__ __device__ static constexpr TileShape widest(int tau) {
+    return TileShape{kCells, kThreads / tau};
+  }
 };
 
 // Shared memory of a block: two staged regions in the grid's layout
@@ -149,11 +161,12 @@ __host__ __device__ __forceinline__ int round_up(int x, int to) {
   return (x + to - 1) / to * to;
 }
 
-template <bool kTimeMajor, int kTau>
-__host__ __device__ __forceinline__ Layout layout_of(int tau, int phi) {
+template <bool kTimeMajor>
+__host__ __device__ __forceinline__ Layout layout_of(int tau, int phi,
+                                                     TileShape t) {
   Layout s;
-  s.rows = Tile<kTimeMajor, kTau>::times(tau) + 6 * tau;
-  s.cols = Tile<kTimeMajor, kTau>::lanes(tau) + 7 * phi;
+  s.rows = (t.cells + 6) * tau;
+  s.cols = t.lanes + 7 * phi;
   s.rp = round_up(kTimeMajor ? s.cols : s.rows, 4);
   s.raw_words = round_up(s.rp * (kTimeMajor ? s.rows : s.cols), 32);
   s.pw = kTimeMajor ? s.rp : (s.cols | 1);
@@ -161,9 +174,10 @@ __host__ __device__ __forceinline__ Layout layout_of(int tau, int phi) {
   return s;
 }
 
-template <bool kTimeMajor, int kTau>
-__host__ __device__ __forceinline__ int smem_bytes(int tau, int phi) {
-  const Layout s = layout_of<kTimeMajor, kTau>(tau, phi);
+template <bool kTimeMajor>
+__host__ __device__ __forceinline__ int smem_bytes(int tau, int phi,
+                                                   TileShape t) {
+  const Layout s = layout_of<kTimeMajor>(tau, phi, t);
   return 4 * (2 * s.raw_words + (kTimeMajor ? 1 : 2) * s.plane_words);
 }
 
@@ -299,9 +313,12 @@ sync_kernel(const float* __restrict__ grid, float* __restrict__ out,
                               : kPhi % 4 == 0 ? 4 : kPhi % 2 == 0 ? 2 : 1;
   const int tau = kTau > 0 ? kTau : g.tau;
   const int phi = kPhi > 0 ? kPhi : g.phi;
-  const int times = T::times(tau);                // start times of a tile
-  const int lanes = T::lanes(tau);                // frequencies of a tile
-  const Layout s = layout_of<kTimeMajor, kTau>(tau, phi);
+  const TileShape ts = kTau > 0 ? T::widest(kTau > 0 ? kTau : 1)
+                                 : g.tile;
+  const int cells = ts.cells;                     // start times a thread
+  const int lanes = ts.lanes;                     // frequencies of a tile
+  const int times = cells * tau;                  // start times of a tile
+  const Layout s = layout_of<kTimeMajor>(tau, phi, ts);
 
   extern __shared__ __align__(16) float smem[];
   float* const dpl = smem + 2 * s.raw_words;
@@ -344,8 +361,8 @@ sync_kernel(const float* __restrict__ grid, float* __restrict__ out,
     cp_async_commit();
   };
 
-  // this thread's cells: frequency i, start times j0 + tau q (a thread
-  // past the tile, j0 == tau, only stages)
+  // this thread's cells: frequency i, start times j0 + tau q, q < cells (a
+  // thread past the tile, j0 >= tau, only stages)
   const int i = threadIdx.x % lanes;
   const int j0 = threadIdx.x / lanes;
   const bool active = kTau > 0 || j0 < tau;
@@ -371,13 +388,14 @@ sync_kernel(const float* __restrict__ grid, float* __restrict__ out,
       float v = k > 0 ? gr[cell0 + off - tau * s.pw] : 0.0f;
 #pragma unroll
       for (int q = 0; q <= kCells; ++q) {
-        if (q == kCells && k == COSTAS_LEN - 1) break;
+        if (q > cells || (q == cells && k == COSTAS_LEN - 1)) break;
         const float w = gr[cell0 + off + tau * q * s.pw];
         if (k > 0 || q > 0) pv[q] = __fsub_rn(w, v);
         v = w;
       }
 #pragma unroll
       for (int q = 0; q < kCells; ++q) {
+        if (q == cells) break;
         const int e = cell0 + off + tau * q * s.pw;
         const float freq = c != 0 ? dpl[e]
                                   : __fsub_rn(gr[e], gr[e + phi]);  // H
@@ -417,7 +435,7 @@ sync_kernel(const float* __restrict__ grid, float* __restrict__ out,
     // every tap of every cell valid: cell, prev (k >= 1) and next (k <= 5)
     if (active) {
       if (base0 + m * SEQ_STRIDE >= 0
-          && base0 + kCells - 1 + m * SEQ_STRIDE + COSTAS_LEN - 1
+          && base0 + cells - 1 + m * SEQ_STRIDE + COSTAS_LEN - 1
              < g.num_blocks) {
         sum(std::false_type(), m, gr);
       } else {
@@ -431,11 +449,12 @@ sync_kernel(const float* __restrict__ grid, float* __restrict__ out,
   }
   if (!active) return;
 
-  const int64_t cells = static_cast<int64_t>(g.num_times) * g.num_freqs;
-  float* const dst = out + static_cast<int64_t>(blockIdx.z) * cells;
+  const int64_t slot_cells = static_cast<int64_t>(g.num_times) * g.num_freqs;
+  float* const dst = out + static_cast<int64_t>(blockIdx.z) * slot_cells;
   const int f = f0 + i;
 #pragma unroll
   for (int q = 0; q < kCells; ++q) {
+    if (q == cells) break;
     const int jt = j0 + tau * q;
     const int j = t_tile * times + jt;
     if (j >= g.num_times || f >= g.num_freqs) continue;
@@ -452,16 +471,15 @@ sync_kernel(const float* __restrict__ grid, float* __restrict__ out,
 // grid's contiguous axis (bins time-major, frames frequency-major) of
 // stride 1, and the base, the other strides and every region's first
 // element along that axis multiples of the vector.
-template <bool kTimeMajor, int kTau>
+template <bool kTimeMajor>
 int vector_words(const void* grid, int batch, const Geometry& g) {
-  using T = Tile<kTimeMajor, kTau>;
   if ((kTimeMajor ? g.sf : g.st) != 1) return 1;
   const int64_t line = kTimeMajor ? g.st : g.sf;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(grid);
   for (int v = 4; v > 1; v /= 2) {
     const bool start = kTimeMajor
-        ? T::lanes(g.tau) % v == 0
-        : g.t_start % v == 0 && T::times(g.tau) % v == 0
+        ? g.tile.lanes % v == 0
+        : g.t_start % v == 0 && (g.tile.cells * g.tau) % v == 0
           && (SEQ_STRIDE * g.tau) % v == 0;
     if (start && addr % (4 * v) == 0 && line % v == 0
         && (batch == 1 || g.sb % v == 0)) {
@@ -471,15 +489,37 @@ int vector_words(const void* grid, int batch, const Geometry& g) {
   return 1;
 }
 
+// The tile of an osr: the instances' own; for the generic one the widest
+// that fits (fewer lanes first, then fewer cells).  Returns false if none
+// does.
+template <bool kTimeMajor, int kTau>
+bool choose_tile(int tau, int phi, TileShape* tile, int* bytes) {
+  using T = Tile<kTimeMajor, kTau>;
+  if (tau < 1 || phi < 1 || tau > T::kThreads) return false;
+  TileShape t = T::widest(tau);
+  if (kTau == 0) {
+    while (t.cells > 1 && t.cells * tau > T::kMaxTimes) --t.cells;
+    while (t.lanes > 1 && smem_bytes<kTimeMajor>(tau, phi, t) > MAX_SMEM) {
+      --t.lanes;
+    }
+    while (t.cells > 1 && smem_bytes<kTimeMajor>(tau, phi, t) > MAX_SMEM) {
+      --t.cells;
+    }
+  }
+  *tile = t;
+  *bytes = smem_bytes<kTimeMajor>(tau, phi, t);
+  return t.cells * tau <= T::kMaxTimes && *bytes <= MAX_SMEM;
+}
+
 template <bool kTimeMajor, int kTau, int kPhi>
-int launch(const void* grid, void* out, int batch, const Geometry& g,
+int launch(const void* grid, void* out, int batch, Geometry g,
            void* stream) {
   using T = Tile<kTimeMajor, kTau>;
-  const int times = T::times(g.tau), lanes = T::lanes(g.tau);
-  const int bytes = smem_bytes<kTimeMajor, kTau>(g.tau, g.phi);
-  if (times > T::kMaxTimes || bytes > MAX_SMEM) {
+  int bytes = 0;
+  if (!choose_tile<kTimeMajor, kTau>(g.tau, g.phi, &g.tile, &bytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int times = g.tile.cells * g.tau, lanes = g.tile.lanes;
   // the dynamic shared memory, and all of L1 as shared memory, so that
   // three blocks fit an SM
   cudaError_t err = cudaFuncSetAttribute(
@@ -498,7 +538,7 @@ int launch(const void* grid, void* out, int batch, const Geometry& g,
   sync_kernel<kTimeMajor, kTau, kPhi><<<blocks, T::kThreads, bytes,
                                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(grid), static_cast<float*>(out), g,
-      vector_words<kTimeMajor, kTau>(grid, batch, g));
+      vector_words<kTimeMajor>(grid, batch, g));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -520,9 +560,33 @@ int launch_osr(const void* grid, void* out, int batch, const Geometry& g,
 
 extern "C" {
 
+// The tile a launch at osr tau x phi takes: start times a thread, lanes and
+// shared memory of a block.  Returns 0, or cudaErrorInvalidValue for an osr
+// below 1 or one that fits no tile.
+int ft8_sync_tile(int time_major, int tau, int phi, int* cells, int* lanes,
+                  int* smem) {
+  TileShape t{0, 0};
+  int bytes = 0;
+  bool fits;
+  if (tau == 4 && phi == 4) {
+    fits = time_major ? choose_tile<true, 4>(tau, phi, &t, &bytes)
+                      : choose_tile<false, 4>(tau, phi, &t, &bytes);
+  } else if (tau == 2 && phi == 2) {
+    fits = time_major ? choose_tile<true, 2>(tau, phi, &t, &bytes)
+                      : choose_tile<false, 2>(tau, phi, &t, &bytes);
+  } else {
+    fits = time_major ? choose_tile<true, 0>(tau, phi, &t, &bytes)
+                      : choose_tile<false, 0>(tau, phi, &t, &bytes);
+  }
+  *cells = t.cells;
+  *lanes = t.lanes;
+  *smem = bytes;
+  return fits ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 // Launches the stencil on `stream`; returns cudaGetLastError() (or
-// cudaErrorInvalidValue for an osr below 1 or one the tile refuses: see
-// the header).
+// cudaErrorInvalidValue for an osr below 1 or one that fits no tile: see
+// ft8_sync_tile).
 //   grid: f32 dB waterfalls read at grid[b * sb + frame * st + bin * sf]
 //   (any strides; batch <= 65535 in gridDim.z), with num_frames frames and
 //   at least num_freqs + 7 phi bins;
@@ -533,7 +597,7 @@ int ft8_sync_scores(const void* grid, void* out, int time_major, int batch,
                     int tau, int phi, int num_blocks, int t_start,
                     int num_times, int num_freqs, void* stream) {
   const Geometry g{sb, st, sf, num_frames, tau, phi, num_blocks, t_start,
-                   num_times, num_freqs};
+                   num_times, num_freqs, TileShape{0, 0}};
   return time_major ? launch_osr<true>(grid, out, batch, g, stream)
                     : launch_osr<false>(grid, out, batch, g, stream);
 }

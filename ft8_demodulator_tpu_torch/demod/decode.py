@@ -22,19 +22,19 @@ crops -> the frequency-major stencil kernel -> top-K -> Hann LLRs (or
 matched-filter LLRs from the block spectra) -> BP (+ OSD) -> SNR estimate
 -> host rows, with subtraction passes.
 
-The per-geometry constants (DFT matrices and the waterfall kernels'
-packed weights, combine phases, BP routing, parity-check and CRC matrices,
-Gray map, OSD basis and row syndromes) are the buffers of one
+The per-geometry constants (DFT matrices, combine phases, BP routing,
+parity-check and CRC matrices, Gray map, OSD basis and row syndromes, and
+on the card the waterfall kernels' packed weights) are the buffers of one
 ``SlotDecoder`` module, cached per (geometry, device); ``.to(device)``
 moves them.
 ``SlotDecoder.from_arrays`` loads them from numpy arrays, for instance the
 ones the JAX package builds.
 
 Each stage runs inside a ``torch.profiler.record_function`` range named
-``ft8.<stage>`` (waterfall, sync, top_k, llrs, decode, snr, rows,
-subtract), so a profiler trace of a decode splits its host and device time
-by stage; without a profiler a range is one dispatcher call on entry and
-one on exit.
+``ft8.<stage>`` (waterfall, sync, top_k, llrs, decode, osd inside decode,
+snr, rows, subtract), so a profiler trace of a decode splits its host and
+device time by stage; without a profiler a range is one dispatcher call on
+entry and one on exit.
 """
 
 from __future__ import annotations
@@ -147,8 +147,9 @@ class SlotDecoder(nn.Module):
         self.register_buffer("dft_sin", t("dft_sin", torch.bfloat16))
         self.register_buffer("combine_cos", t("combine_cos", torch.float32))
         self.register_buffer("combine_sin", t("combine_sin", torch.float32))
-        self.register_buffer("dft_packed",
-                             pack_weights(self.dft_cos, self.dft_sin, p))
+        # the waterfall kernels' packed weights, built on the card at first
+        # use (waterfall_consts): the CPU's plain version does not read them
+        self.register_buffer("dft_packed", None)
         bp = make_bp_tables(arrays["var_of_mi"], arrays["nj_of_mi"],
                             arrays["mi_of_nj"], arrays["mi_mask"],
                             arrays["parity_check"], "cpu")
@@ -170,8 +171,17 @@ class SlotDecoder(nn.Module):
         return cls(arrays).to(device)
 
     def waterfall_consts(self):
-        return (self.dft_cos, self.dft_sin, self.combine_cos,
-                self.combine_sin, self.dft_packed)
+        """The waterfall wrappers' constants: the four plain ones on the
+        CPU; on the card also the kernels' packed weights (built here once;
+        an osr beyond the kernels' tile raises a ValueError)."""
+        consts = (self.dft_cos, self.dft_sin, self.combine_cos,
+                  self.combine_sin)
+        if self.dft_cos.device.type == "cpu":
+            return consts
+        if self.dft_packed is None:
+            self.dft_packed = pack_weights(self.dft_cos, self.dft_sin,
+                                           self.p)
+        return consts + (self.dft_packed,)
 
     def bp_tables(self) -> BPTables:
         return BPTables(*(getattr(self, f) for f in BPTables._fields))

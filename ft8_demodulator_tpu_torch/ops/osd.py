@@ -3,13 +3,14 @@
 Port of ``ft8_demodulator_tpu/ops/osd.py``.  When belief propagation does
 not yield a CRC-valid codeword, OSD re-derives one from the 91 most
 reliable linearly independent bit positions: sort the bits by |LLR|,
-permute the code's (91, 174) basis into that order, row-reduce it over
-GF(2) (``ops/osd_cuda.py``: the CUDA kernel on the card, its plain version
-on the CPU), and take the codeword that agrees with the hard decision on
-the pivots (order 0).  The search also tries every single pivot-row flip
-(order 1), XOR-pairs of the ``order2`` least reliable pivot rows and
-triples of the ``order3`` least reliable ones, and keeps the accepted
-candidate closest to the received soft values.
+permute the code's (91, 174) basis into that order and row-reduce it over
+GF(2) (``ops/osd_cuda.py``: one CUDA kernel does both on the card, for all
+of a call's rows in one launch; its plain version on the CPU), and take
+the codeword that agrees with the hard decision on the pivots (order 0).
+The search also tries every single pivot-row flip (order 1), XOR-pairs of
+the ``order2`` least reliable pivot rows and triples of the ``order3``
+least reliable ones, and keeps the accepted candidate closest to the
+received soft values.
 
 Acceptance is CRC-14 plus a soft-distance gate: every OSD output is a
 codeword by construction, so there is no syndrome check; the
@@ -18,8 +19,10 @@ reliability-weighted disagreement with the hard decision must stay within
 each basis row ride along through the elimination in packed bits 174..187,
 so a flip's CRC check is one XOR of 14-bit integers.
 
-The JAX package builds the permuted basis with a matmul and selects rows
-with one-hot multiply-reduces (TPU workarounds); here they are gathers.
+The JAX package builds the permuted basis with a matmul outside its
+elimination kernel and selects rows with one-hot multiply-reduces (TPU
+workarounds); here the kernel builds the basis from the sort order, and
+the rows are gathers.
 The gate's float32 sums run in another order than XLA's, so a candidate
 whose distance sits within a few ulp of ``lam`` times its mass can fall on
 the other side; the tests state the margins they see.
@@ -33,9 +36,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..protocol import constants as C
-from .osd_cuda import reduce_basis_batch
+from .osd_cuda import _pack, reduce_basis_from_order
 
 __all__ = ["OSDTables", "make_osd_tables", "osd_tables", "osd_decode_batch",
            "osd_decode_masked", "DEFAULT_LAMBDA", "DEFAULT_ORDER2",
@@ -50,7 +54,8 @@ _SYND_MASK = (1 << C.CRC_BITS) - 1
 DEFAULT_LAMBDA = 0.33
 DEFAULT_ORDER2 = 16
 DEFAULT_ORDER3 = 0
-# rows per pass of the OSD body: bounds the (rows, 91, 192) unpacked basis
+# rows per pass of the OSD search: bounds the (rows, 91, 192) unpacked
+# basis (the elimination takes all of a call's rows at once)
 DEFAULT_CHUNK = 1024
 
 
@@ -81,17 +86,28 @@ class OSDTables(NamedTuple):
 
     basis_t: torch.Tensor      # (174, 91) uint8: column n of the basis
     synd_word: torch.Tensor    # (91,) int32: row syndromes at word-5 bits
+    # (3 * 174 + 91,) int32, the kernel's table: words 3n..3n+2 hold
+    # column n's row bits (row k at bit k % 32 of word 3n + k // 32), then
+    # synd_word
+    basis_cols: torch.Tensor
 
 
 def make_osd_tables(basis, row_syndromes, device) -> OSDTables:
     """OSDTables on ``device`` from the (91, 174) basis bits and the
     (91, 14) row syndromes (numpy)."""
+    bits = np.asarray(basis, np.uint8)
     syn = np.asarray(row_syndromes).astype(np.int64)
     word = (syn << (_SYND_SHIFT + np.arange(C.CRC_BITS))).sum(-1)
+    groups = -(-_K // 32)
+    rows = np.zeros((groups * 32, _N), np.int64)
+    rows[:_K] = bits
+    cols = (rows.reshape(groups, 32, _N)
+            << np.arange(32)[None, :, None]).sum(1)        # (3, 174)
+    table = np.concatenate([cols.T.reshape(-1), word]).astype(np.uint32)
     return OSDTables(
-        basis_t=torch.as_tensor(np.ascontiguousarray(
-            np.asarray(basis, np.uint8).T), device=device),
-        synd_word=torch.as_tensor(word.astype(np.int32), device=device))
+        basis_t=torch.as_tensor(np.ascontiguousarray(bits.T), device=device),
+        synd_word=torch.as_tensor(word.astype(np.int32), device=device),
+        basis_cols=torch.as_tensor(table.view(np.int32), device=device))
 
 
 @functools.lru_cache(maxsize=8)
@@ -100,40 +116,12 @@ def osd_tables(device: torch.device) -> OSDTables:
     return make_osd_tables(_basis(), _ROW_SYNDROMES_NP, device)
 
 
-def _word_weights(device) -> torch.Tensor:
-    """2^i, i < 32, as int32 (2^31 wraps to -2^31: the same 32 bits)."""
-    w = torch.ones(32, dtype=torch.int32, device=device)
-    return w << torch.arange(32, dtype=torch.int32, device=device)
-
-
-def _pack(bits: torch.Tensor) -> torch.Tensor:
-    """(..., <=192) {0,1} -> (..., 6) int32, bit j in word j//32, bit j%32.
-
-    The words are sums of distinct powers of two, so no partial sum leaves
-    the int32 range, whatever the order.
-    """
-    pad = _W * 32 - bits.shape[-1]
-    b = torch.nn.functional.pad(bits.to(torch.int32), (0, pad))
-    b = b.reshape(*bits.shape[:-1], _W, 32)
-    return (b * _word_weights(bits.device)).sum(-1, dtype=torch.int32)
-
-
 def _unpack(words: torch.Tensor) -> torch.Tensor:
     """(..., 6) int32 -> (..., 192) {0,1} float32 (all packed columns:
     174 code bits then 14 ride-along syndrome bits then 4 zeros)."""
     shifts = torch.arange(32, dtype=torch.int32, device=words.device)
     bits = (words[..., :, None] >> shifts) & 1
     return bits.reshape(*words.shape[:-1], _W * 32).to(torch.float32)
-
-
-def _permute_pack(order: torch.Tensor, tables: OSDTables) -> torch.Tensor:
-    """(B, 174) reliability order (natural column at each sorted position)
-    -> (B, 91, 6) column-permuted packed basis with the row syndromes in
-    bits 174..187."""
-    bits = tables.basis_t[order]                       # (B, 174, 91) uint8
-    words = _pack(bits.transpose(1, 2))                # (B, 91, 6)
-    words[..., _W - 1] |= tables.synd_word
-    return words
 
 
 def _triple_indices(q: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -264,20 +252,6 @@ def _osd_tail(llr_sorted: torch.Tensor, order: torch.Tensor, a: torch.Tensor,
     return win_nat.to(torch.int32), ok
 
 
-def _osd_core(flat: torch.Tensor, lam: float, order2: int, order3: int,
-              tables: OSDTables) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, 174) LLRs -> (plain (B, 174) int32, accepted (B,) bool).
-
-    Reliability sort -> permuted pack -> GF(2) elimination -> tail.  The
-    sort is stable: tied |LLR| (zero LLRs are common) keep their natural
-    order, as ``lax.sort`` does.
-    """
-    order = torch.sort(-flat.abs(), dim=-1, stable=True).indices
-    llr_sorted = torch.gather(flat, 1, order)
-    red, pcol = reduce_basis_batch(_permute_pack(order, tables))
-    return _osd_tail(llr_sorted, order, red, pcol, lam, order2, order3)
-
-
 def _check_orders(order2: int, order3: int) -> int:
     """Validate the search orders; returns the effective order3."""
     if order3 > order2:
@@ -289,15 +263,25 @@ def _check_orders(order2: int, order3: int) -> int:
 def _osd_rows(flat: torch.Tensor, lam: float, order2: int, order3: int,
               tables: OSDTables, chunk: int
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(R, 174) LLRs -> (plain (R, 174) int32, ok (R,) bool) in passes of
-    ``chunk`` rows (the body is row-independent)."""
-    parts = [_osd_core(piece, lam, order2, order3, tables)
-             for piece in flat.split(chunk)]
-    if not parts:
+    """(R, 174) LLRs -> (plain (R, 174) int32, ok (R,) bool).
+
+    Reliability sort -> reduced bases (one kernel launch for all R rows)
+    -> the search, in passes of ``chunk`` rows (the body is
+    row-independent).  The sort is stable: tied |LLR| (zero LLRs are
+    common) keep their natural order, as ``lax.sort`` does.
+    """
+    if flat.shape[0] == 0:
         return (torch.zeros(flat.shape, dtype=torch.int32,
                             device=flat.device),
                 torch.zeros(flat.shape[:1], dtype=torch.bool,
                             device=flat.device))
+    order = torch.sort(-flat.abs(), dim=-1, stable=True).indices
+    llr_sorted = torch.gather(flat, 1, order)
+    red, pcol = reduce_basis_from_order(order, tables)
+    parts = [_osd_tail(llr_sorted[i: i + chunk], order[i: i + chunk],
+                       red[i: i + chunk], pcol[i: i + chunk], lam, order2,
+                       order3)
+             for i in range(0, flat.shape[0], chunk)]
     plain, ok = (torch.cat(p) for p in zip(*parts))
     return plain, ok
 
@@ -321,6 +305,7 @@ def osd_decode_batch(llrs: torch.Tensor, lam: float = DEFAULT_LAMBDA,
     return plain.reshape(llrs.shape), ok.reshape(llrs.shape[:-1])
 
 
+@record_function("ft8.osd")
 def osd_decode_masked(llrs: torch.Tensor, need: torch.Tensor,
                       lam: float = DEFAULT_LAMBDA,
                       order2: int = DEFAULT_ORDER2,
@@ -333,8 +318,9 @@ def osd_decode_masked(llrs: torch.Tensor, need: torch.Tensor,
     (..., 174) LLRs + (...,) bool -> (plain (..., 174) int32, ok (...,)
     bool).  Needed rows get exactly :func:`osd_decode_batch`'s result;
     the others return (zeros, False) and cost nothing: the needed rows are
-    compacted by a boolean index, run in passes of ``chunk`` rows, and
-    scattered back.
+    compacted by a boolean index, their bases reduced in one kernel launch,
+    searched in passes of ``chunk`` rows, and scattered back.  Runs in a
+    ``ft8.osd`` ``record_function`` range.
     """
     order3 = _check_orders(order2, order3)
     flat = llrs.reshape(-1, _N)

@@ -25,6 +25,13 @@ the plain versions, with every add rounded on its own, so its scores equal
 PyTorch, for the tests (it holds the identities against JAX on the CPU);
 no decode path calls it.
 
+The osr 2x2 and 4x4 are compile-time instances; any other osr runs the
+same code with the osr read at run time, on the widest tile that fits a
+block's 227 KB of shared memory (fewer frequency lanes first, then fewer
+start times a thread).  An osr that fits no tile (at osr n x n:
+frequency-major from n = 18, time-major from n = 20; :func:`sync_tile`
+says) raises a ValueError before any launch.
+
 Each wrapper takes its plain version for a CPU tensor; for a CUDA tensor
 it launches the kernel or raises.  Its ``launches`` attribute counts
 kernel launches.
@@ -42,11 +49,14 @@ from ..protocol import constants as C
 from .sync import SearchGrid, cell_mask_tensors, sync_scores, sync_scores_tf
 
 __all__ = ["sync_scores_tf_kernel", "sync_scores_kernel",
-           "sync_scores_tf_planes"]
+           "sync_scores_tf_planes", "sync_tile"]
 
 # grid dimension z of the launch is the batch
 _MAX_BATCH = 65535
 _MAX_INT = 2 ** 31 - 1
+# a block's threads and the shared memory it may use (csrc/sync_stencil.cu)
+_THREADS = 256
+_MAX_SMEM = 227 * 1024
 
 
 @functools.lru_cache(maxsize=1)
@@ -58,6 +68,9 @@ def _library():
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
         + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.ft8_sync_scores.restype = ctypes.c_int
+    lib.ft8_sync_tile.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)] * 3
+    lib.ft8_sync_tile.restype = ctypes.c_int
     lib.ft8_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ft8_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -72,9 +85,33 @@ def _check(grid: torch.Tensor, g: SearchGrid, num_bins: int) -> None:
                          f"freq_osr {g.freq_osr}")
 
 
+def sync_tile(time_major: bool, time_osr: int, freq_osr: int
+              ) -> tuple[int, int, int]:
+    """(start times a thread, frequency lanes, shared-memory bytes) of a
+    block of the sync kernel at this osr and layout.  Raises a ValueError
+    that names the limit if no tile fits (builds the kernels)."""
+    out = [ctypes.c_int() for _ in range(3)]
+    err = _library().ft8_sync_tile(int(time_major), time_osr, freq_osr,
+                                   *(ctypes.byref(v) for v in out))
+    cells, lanes, smem = (v.value for v in out)
+    if err == 0:
+        return cells, lanes, smem
+    layout = "time-major" if time_major else "frequency-major"
+    if time_osr < 1 or freq_osr < 1 or time_osr > _THREADS:
+        raise ValueError(f"osr {time_osr}x{freq_osr}: the sync kernel takes "
+                         f"1 <= time_osr <= {_THREADS} (threads a block) "
+                         "and freq_osr >= 1")
+    raise ValueError(f"osr {time_osr}x{freq_osr} {layout}: the sync kernel's"
+                     f" smallest tile ({cells} start time(s) a thread, "
+                     f"{lanes} frequency lane(s)) needs {smem} bytes of "
+                     f"shared memory, above the {_MAX_SMEM} (227 KB) a block"
+                     " may use")
+
+
 def _launch(grid: torch.Tensor, g: SearchGrid, time_major: bool
             ) -> torch.Tensor:
     """Launch the stencil on ``grid`` (..., T, F) or (..., F, T)."""
+    sync_tile(time_major, g.time_osr, g.freq_osr)
     lead = grid.shape[:-2]
     flat = grid.reshape(-1, *grid.shape[-2:])     # a view for cropped grids
     batch = flat.shape[0]

@@ -30,6 +30,12 @@ reads two operands laid out for the TMA:
   columns and then the sin columns, each over hop_pad samples
   (``fused_constants`` caches them).
 
+The kernels take ``time_osr`` up to ``MAX_TAU`` and ``2 freq_osr`` below
+``TILE_COLS`` (a tile's Hann halo); beyond that a CUDA tensor raises a
+ValueError that names the limit.  A CPU tensor takes the plain version at
+any osr, with the four plain constants (:func:`plain_constants`): it
+builds no packed weights.
+
 Numerics: both DFT operands are rounded to bf16 (round to nearest) and
 the products accumulate in f32, the rounding of the TPU kernels.  The
 ``_plain`` functions are the plain PyTorch versions of the same functions:
@@ -57,8 +63,8 @@ __all__ = ["block_waterfall_tf_fused_batch",
            "block_waterfall_tf_fused_batch_plain",
            "block_waterfall_mf_tf_fused_batch",
            "block_waterfall_mf_tf_fused_batch_plain", "fused_constants",
-           "hop_pad", "pack_blocks", "pack_weights", "TILE_COLS",
-           "TILE_ROWS", "MAX_TAU"]
+           "plain_constants", "hop_pad", "pack_blocks", "pack_weights",
+           "TILE_COLS", "TILE_ROWS", "MAX_TAU"]
 
 # the kernel's tile (checked against the library at launch): block rows per
 # tile, extended columns per tile (2 TILE_COLS rows of packed weights), the
@@ -78,6 +84,19 @@ def hop_pad(hop: int) -> int:
     return -(-hop // 8) * 8
 
 
+def _check_tile(p: WaterfallParams) -> None:
+    """Raise a ValueError if the kernels' tile cannot take ``p``."""
+    if p.time_osr > MAX_TAU:
+        raise ValueError(f"time_osr {p.time_osr} > MAX_TAU {MAX_TAU}: the "
+                         "waterfall kernels take at most MAX_TAU steps per "
+                         "symbol (the CPU's plain version takes any)")
+    if 2 * p.freq_osr >= TILE_COLS:
+        raise ValueError(f"2 * freq_osr {2 * p.freq_osr} >= TILE_COLS "
+                         f"{TILE_COLS}: a tile of the waterfall kernels "
+                         "has no room for its Hann halo (the CPU's plain "
+                         "version takes any freq_osr)")
+
+
 def _col_tiles(p: WaterfallParams) -> int:
     return -(-p.num_freq_bins // (TILE_COLS - 2 * p.freq_osr))
 
@@ -93,6 +112,7 @@ def pack_weights(cos_m: torch.Tensor, sin_m: torch.Tensor,
     then the same sin columns.  Columns past kx and samples past hop are
     zero.
     """
+    _check_tile(p)
     hop, kx = cos_m.shape
     tn = TILE_COLS - 2 * p.freq_osr
     cols = (torch.arange(_col_tiles(p), device=cos_m.device)[:, None] * tn
@@ -120,18 +140,26 @@ def pack_blocks(waves: torch.Tensor, p: WaterfallParams, num_frames: int,
 
 
 @functools.lru_cache(maxsize=8)
-def fused_constants(p: WaterfallParams,
+def plain_constants(p: WaterfallParams,
                     device: torch.device) -> tuple[torch.Tensor, ...]:
-    """(cos, sin) bf16 (hop, kx), (wc, ws) f32 (time_osr, kx) and the
-    packed weights (:func:`pack_weights`) for one geometry on ``device``,
-    cached."""
+    """(cos, sin) bf16 (hop, kx) and (wc, ws) f32 (time_osr, kx): what the
+    plain versions read, for one geometry on ``device``, cached."""
     cos_m, sin_m = _block_dft_matrices(p.hop, p.nfft, p.num_freq_bins,
                                        p.freq_osr)
     wc, ws = _block_combine_phases(p)
     bf16 = lambda m: torch.as_tensor(m, device=device).to(torch.bfloat16)
     f32 = lambda m: torch.as_tensor(m, device=device)
-    cos_b, sin_b = bf16(cos_m), bf16(sin_m)
-    return cos_b, sin_b, f32(wc), f32(ws), pack_weights(cos_b, sin_b, p)
+    return bf16(cos_m), bf16(sin_m), f32(wc), f32(ws)
+
+
+@functools.lru_cache(maxsize=8)
+def fused_constants(p: WaterfallParams,
+                    device: torch.device) -> tuple[torch.Tensor, ...]:
+    """:func:`plain_constants` and the kernels' packed weights
+    (:func:`pack_weights`) for one geometry on ``device``, cached.  Raises
+    a ValueError for an osr beyond the kernels' tile."""
+    cos_b, sin_b, wc, ws = plain_constants(p, device)
+    return cos_b, sin_b, wc, ws, pack_weights(cos_b, sin_b, p)
 
 
 def block_waterfall_tf_fused_batch_plain(waves: torch.Tensor,
@@ -141,7 +169,7 @@ def block_waterfall_tf_fused_batch_plain(waves: torch.Tensor,
 
     bf16-rounded operands, float32 products and epilogue.
     """
-    cos_m, sin_m, wc, ws = (consts or fused_constants(p, waves.device))[:4]
+    cos_m, sin_m, wc, ws = (consts or plain_constants(p, waves.device))[:4]
     spec = _bf16_spectra(waves, p, num_frames, cos_m, sin_m)
     return _block_waterfall_tf(spec, p, num_frames, phases=(wc, ws))
 
@@ -154,7 +182,7 @@ def block_waterfall_mf_tf_fused_batch_plain(waves: torch.Tensor,
     """Plain PyTorch version of the dual-output kernel: (B, n) -> (dB
     (B, num_frames, nbins), boxcar power (B, num_frames + 2*(tau-1),
     nbins)), both from the same bf16-operand spectra."""
-    cos_m, sin_m, wc, ws = (consts or fused_constants(p, waves.device))[:4]
+    cos_m, sin_m, wc, ws = (consts or plain_constants(p, waves.device))[:4]
     spec = _bf16_spectra(waves, p, num_frames, cos_m, sin_m)
     return (_block_waterfall_tf(spec, p, num_frames, phases=(wc, ws)),
             _block_boxcar_tf(spec, p, num_frames, phases=(wc, ws)))
@@ -193,37 +221,51 @@ def _library():
     return kl.lib
 
 
-def _check_inputs(waves, p, num_frames, consts, lead):
+def _checked_constants(waves, p, num_frames, consts, lead):
+    """Check the inputs for the route ``waves`` takes; returns its
+    constants (``consts``, or the cached ones): the four plain ones for a
+    CPU tensor, all five for the kernel."""
     if waves.dim() != 2 or waves.dtype != torch.float32:
         raise ValueError(f"waves must be (B, n) float32, got "
                          f"{tuple(waves.shape)} {waves.dtype}")
     if not _block_geometry_ok(p):
         raise ValueError(f"not a block geometry: {p}")
-    if p.time_osr > MAX_TAU or 2 * p.freq_osr >= TILE_COLS:
-        raise ValueError(f"osr {p.time_osr}x{p.freq_osr} exceeds the "
-                         "kernel's tile")
     nb = num_frames + p.time_osr - 1
     if waves.shape[1] < nb * p.hop:
         raise ValueError(f"{num_frames} frames need {nb * p.hop} samples, "
                          f"got {waves.shape[1]}")
-    tm = TILE_ROWS - (p.time_osr - 1)
-    row_tiles = -(-(num_frames + 2 * lead) // tm)
-    if waves.shape[0] * row_tiles > _MAX_GRID_Y:
-        raise ValueError(f"batch {waves.shape[0]} needs more than "
-                         f"{_MAX_GRID_Y} thread-block rows")
     kx = p.num_freq_bins + 2 * p.freq_osr
     want = ((p.hop, kx, torch.bfloat16), (p.hop, kx, torch.bfloat16),
-            (p.time_osr, kx, torch.float32), (p.time_osr, kx, torch.float32),
-            (_col_tiles(p) * 2 * TILE_COLS, hop_pad(p.hop), torch.bfloat16))
-    if len(consts) != len(want):
-        raise ValueError(f"{len(consts)} constants: want (cos, sin, wc, ws, "
-                         "packed weights) as fused_constants returns them")
+            (p.time_osr, kx, torch.float32), (p.time_osr, kx, torch.float32))
+    if waves.device.type == "cpu":
+        consts = consts or plain_constants(p, waves.device)
+        if len(consts) not in (4, 5):
+            raise ValueError(f"{len(consts)} constants: want (cos, sin, wc, "
+                             "ws) as plain_constants returns them")
+        consts = consts[:4]
+    else:
+        _check_tile(p)
+        tm = TILE_ROWS - (p.time_osr - 1)
+        row_tiles = -(-(num_frames + 2 * lead) // tm)
+        if waves.shape[0] * row_tiles > _MAX_GRID_Y:
+            raise ValueError(f"batch {waves.shape[0]} needs more than "
+                             f"{_MAX_GRID_Y} thread-block rows")
+        if consts is not None and len(consts) != 5:
+            raise ValueError(f"{len(consts)} constants: want (cos, sin, wc, "
+                             "ws, packed weights) as fused_constants returns "
+                             "them")
+        if waves.device.type != "cuda":
+            raise ValueError(f"no kernel for device {waves.device}")
+        consts = consts or fused_constants(p, waves.device)
+        want += ((_col_tiles(p) * 2 * TILE_COLS, hop_pad(p.hop),
+                  torch.bfloat16),)
     for t, (rows, cols, dtype) in zip(consts, want):
         if (tuple(t.shape) != (rows, cols) or t.dtype != dtype
                 or t.device != waves.device or not t.is_contiguous()):
             raise ValueError(
                 f"constant {tuple(t.shape)} {t.dtype} on {t.device}: want "
                 f"({rows}, {cols}) {dtype} contiguous on {waves.device}")
+    return consts
 
 
 def block_waterfall_tf_fused_batch(waves: torch.Tensor, p: WaterfallParams,
@@ -233,18 +275,16 @@ def block_waterfall_tf_fused_batch(waves: torch.Tensor, p: WaterfallParams,
     nbins) f32.
 
     ``consts``: (cos, sin, wc, ws, packed weights) as
-    :func:`fused_constants` returns them, on the device of ``waves``; None
-    takes the cached ones.  A CPU tensor goes through
-    :func:`block_waterfall_tf_fused_batch_plain`; a CUDA tensor through the
-    CUDA kernel (a build or launch failure raises).
+    :func:`fused_constants` returns them, on the device of ``waves`` (on
+    the CPU the first four suffice); None takes the cached ones.  A CPU
+    tensor goes through :func:`block_waterfall_tf_fused_batch_plain`, at
+    any osr; a CUDA tensor through the CUDA kernel (an osr beyond its tile,
+    a build or a launch failure raises).
     """
-    consts = consts or fused_constants(p, waves.device)
-    _check_inputs(waves, p, num_frames, consts, 0)
+    consts = _checked_constants(waves, p, num_frames, consts, 0)
     if waves.device.type == "cpu":
         return block_waterfall_tf_fused_batch_plain(waves, p, num_frames,
                                                     consts)
-    if waves.device.type != "cuda":
-        raise ValueError(f"no kernel for device {waves.device}")
     out = torch.empty((waves.shape[0], num_frames, p.num_freq_bins),
                       dtype=torch.float32, device=waves.device)
     _launch("ft8_waterfall_tf", waves, p, num_frames, consts, 0, (out,))
@@ -264,17 +304,15 @@ def block_waterfall_mf_tf_fused_batch(waves: torch.Tensor,
     ``_block_boxcar_tf``); frame t of the dB grid is the Hann stencil of
     the same combine at row t + tau - 1.  ``consts`` as for
     :func:`block_waterfall_tf_fused_batch`.  A CPU tensor goes through
-    :func:`block_waterfall_mf_tf_fused_batch_plain`; a CUDA tensor through
-    the CUDA kernel (a build or launch failure raises).
+    :func:`block_waterfall_mf_tf_fused_batch_plain`, at any osr; a CUDA
+    tensor through the CUDA kernel (an osr beyond its tile, a build or a
+    launch failure raises).
     """
-    consts = consts or fused_constants(p, waves.device)
     lead = p.time_osr - 1
-    _check_inputs(waves, p, num_frames, consts, lead)
+    consts = _checked_constants(waves, p, num_frames, consts, lead)
     if waves.device.type == "cpu":
         return block_waterfall_mf_tf_fused_batch_plain(waves, p, num_frames,
                                                        consts)
-    if waves.device.type != "cuda":
-        raise ValueError(f"no kernel for device {waves.device}")
     b, nbins = waves.shape[0], p.num_freq_bins
     db = torch.empty((b, num_frames, nbins), dtype=torch.float32,
                      device=waves.device)

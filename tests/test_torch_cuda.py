@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions: the fused
-waterfall (dB only and dual output), the OSD elimination and the sync
-stencil (time-major and frequency-major); the host decode API on the card
-against the CPU; chip_smoke.py's library yardstick (torch.stft) against
-the float32 plain waterfall.
+waterfall (dB only and dual output), the OSD kernel (reliability order ->
+reduced bases) and the sync stencil (time-major and frequency-major, the
+generic instance's shrunk tiles included); the limits left on the card
+raise ValueErrors; the host decode API on the card against the CPU;
+chip_smoke.py's library yardstick (torch.stft) against the float32 plain
+waterfall.
 
 Needs a CUDA card: every test takes the ``cuda`` fixture, which skips when
 there is none.  The file imports neither JAX nor the JAX package, and uses
@@ -88,23 +90,51 @@ def test_mf_kernel_matches_plain(cuda, fs, b):
                                                  > 0).all()
 
 
-def _tied_bases(rows, device, seed=0):
-    """Packed permuted bases from random LLRs with forced zero ties."""
+def _tied_orders(rows, device, seed=0):
+    """Reliability orders of random LLRs with forced zero ties."""
     rng = np.random.default_rng(seed)
     llr = rng.standard_normal((rows, 174)).astype(np.float32)
     llr[rng.random(llr.shape) < 0.2] = 0.0
     llr = torch.as_tensor(llr, device=device)
-    order = torch.sort(-llr.abs(), dim=-1, stable=True).indices
-    return tosd._permute_pack(order, tosd.osd_tables(device))
+    return torch.sort(-llr.abs(), dim=-1, stable=True).indices
 
 
-@pytest.mark.parametrize("rows", [1, 3, 4097])
+@pytest.mark.parametrize("rows", [1, 3, 37, 4097, 4099, 7300])
 def test_osd_kernel_matches_plain_bit_for_bit(cuda, rows):
-    bases = _tied_bases(rows, cuda)
-    red, pcol = tosc.reduce_basis_batch(bases)
-    want_red, want_pcol = tosc.reduce_basis_batch_plain(bases)
+    order = _tied_orders(rows, cuda, seed=rows)
+    tables = tosd.osd_tables(cuda)
+    before = tosc.reduce_basis_from_order.launches
+    red, pcol = tosc.reduce_basis_from_order(order, tables)
+    assert tosc.reduce_basis_from_order.launches == before + 1
+    want_red, want_pcol = tosc.reduce_basis_from_order_plain(order, tables)
     torch.cuda.synchronize()
+    assert red.shape == (rows, 91, 6) and pcol.shape == (rows, 91)
     assert torch.equal(red, want_red) and torch.equal(pcol, want_pcol)
+
+
+@pytest.mark.parametrize("rows,chunk", [(13, 5), (2500, 1024), (0, 16)])
+def test_one_osd_launch_per_masked_call(cuda, rows, chunk):
+    """osd_decode_masked reduces all its needed rows in one launch, however
+    many search passes of ``chunk`` rows follow, and gives the CPU's
+    result."""
+    rng = np.random.default_rng(rows)
+    llr = (3.0 * rng.standard_normal((rows + 7, 174))).astype(np.float32)
+    need = np.ones(rows + 7, bool)
+    need[:7] = False
+    before = (tosc.reduce_basis_from_order.launches,
+              tosc.reduce_basis_from_order.rows)
+    plain, ok = tosd.osd_decode_masked(torch.as_tensor(llr, device=cuda),
+                                       torch.as_tensor(need, device=cuda),
+                                       chunk=chunk)
+    torch.cuda.synchronize()
+    assert (tosc.reduce_basis_from_order.launches,
+            tosc.reduce_basis_from_order.rows) == (before[0] + (rows > 0),
+                                                   before[1] + rows)
+    want_plain, want_ok = tosd.osd_decode_masked(torch.as_tensor(llr),
+                                                 torch.as_tensor(need),
+                                                 chunk=chunk)
+    assert torch.equal(plain.cpu(), want_plain)
+    assert torch.equal(ok.cpu(), want_ok)
 
 
 def test_launch_counter(cuda):
@@ -122,15 +152,16 @@ def test_launch_counter(cuda):
     before = twc.block_waterfall_mf_tf_fused_batch.launches
     twc.block_waterfall_mf_tf_fused_batch(waves, p4, p4.num_frames(n))
     twc.block_waterfall_mf_tf_fused_batch_plain(waves, p4, p4.num_frames(n))
-    bases = _tied_bases(5, cuda)
-    before_osd = tosc.reduce_basis_batch.launches
-    rows_osd = tosc.reduce_basis_batch.rows
-    tosc.reduce_basis_batch(bases)
-    tosc.reduce_basis_batch_plain(bases)
+    order = _tied_orders(5, cuda)
+    tables = tosd.osd_tables(cuda)
+    before_osd = tosc.reduce_basis_from_order.launches
+    rows_osd = tosc.reduce_basis_from_order.rows
+    tosc.reduce_basis_from_order(order, tables)
+    tosc.reduce_basis_from_order_plain(order, tables)
     torch.cuda.synchronize()
     assert twc.block_waterfall_mf_tf_fused_batch.launches == before + 1
-    assert tosc.reduce_basis_batch.launches == before_osd + 1
-    assert tosc.reduce_basis_batch.rows == rows_osd + 5
+    assert tosc.reduce_basis_from_order.launches == before_osd + 1
+    assert tosc.reduce_basis_from_order.rows == rows_osd + 5
 
 
 def _planted(seed, fs, n):
@@ -180,10 +211,11 @@ def test_deep_decode_slots_card_matches_cpu(cuda):
     kw = dict(max_candidates=40, min_score=1.0, use_osd=True, mf_first=True,
               chunk=2)
     mf_before = twc.block_waterfall_mf_tf_fused_batch.launches
-    osd_before = tosc.reduce_basis_batch.launches
+    osd_before = tosc.reduce_basis_from_order.launches
     card = tdec.decode_slots(waves.to(cuda), p, nf, **kw)
     assert twc.block_waterfall_mf_tf_fused_batch.launches == mf_before + 2
-    assert tosc.reduce_basis_batch.launches > osd_before
+    # one BP group (bp_chunk clamps to the batch): one OSD launch
+    assert tosc.reduce_basis_from_order.launches == osd_before + 1
     host = tdec.decode_slots(waves, p, nf, **kw)
     for b in range(4):
         card_set = _decode_sets(card, b)
@@ -226,9 +258,47 @@ def test_kernel_rejects_bad_constants(cuda):
             fn(waves, p, nf, (cos_m, sin_m, wc, ws, packed[:, :-8]))
         with pytest.raises(ValueError, match="constants"):
             fn(waves, p, nf, (cos_m, sin_m, wc, ws))
-    with pytest.raises(ValueError, match="int32"):
-        tosc.reduce_basis_batch(torch.zeros((2, 91, 6), dtype=torch.int64,
-                                            device=cuda))
+    tables = tosd.osd_tables(cuda)
+    with pytest.raises(ValueError, match="int64"):
+        tosc.reduce_basis_from_order(
+            torch.zeros((2, 174), dtype=torch.int32, device=cuda), tables)
+    with pytest.raises(ValueError, match="table"):
+        tosc.reduce_basis_from_order(
+            torch.zeros((2, 174), dtype=torch.int64, device=cuda),
+            tosd.osd_tables(torch.device("cpu")))
+
+
+def test_limits_left_on_the_card_raise_value_errors(cuda):
+    """The waterfall kernels stop at MAX_TAU steps per symbol; the sync
+    kernel at the osr whose smallest tile needs more than 227 KB of shared
+    memory (frequency-major 18x18, time-major 20x20): ValueErrors before
+    any launch, not RuntimeErrors."""
+    p = waterfall_params(2000.0, 2, 10)
+    waves = _noisy(4, 1, 30000).to(cuda)
+    for fn in (twc.block_waterfall_tf_fused_batch,
+               twc.block_waterfall_mf_tf_fused_batch):
+        with pytest.raises(ValueError, match="MAX_TAU"):
+            fn(waves, p, p.num_frames(30000))
+    assert tsc.sync_tile(False, 17, 17)[:2] == (1, 1)
+    assert tsc.sync_tile(True, 19, 19)[:2] == (1, 1)
+    assert tsc.sync_tile(False, 10, 10)[:2] == (11, 14)
+    # time-major's last fit (frequency-major refuses it), bit for bit
+    g19 = tsync.search_grid(180, 950, 19, 19)
+    mag19 = _db_grid(19, (1, 950, 180), cuda)
+    _assert_sync_equal(tsc.sync_scores_tf_kernel(mag19, g19),
+                       tsync.sync_scores_tf(mag19, g19))
+    with pytest.raises(ValueError, match="227 KB"):
+        tsc.sync_scores_kernel(mag19.transpose(-1, -2), g19)
+    before = (tsc.sync_scores_tf_kernel.launches,
+              tsc.sync_scores_kernel.launches)
+    with pytest.raises(ValueError, match="227 KB"):
+        tsc.sync_scores_kernel(torch.zeros((200, 1500), device=cuda),
+                               tsync.search_grid(200, 1500, 18, 18))
+    with pytest.raises(ValueError, match="227 KB"):
+        tsc.sync_scores_tf_kernel(torch.zeros((1700, 200), device=cuda),
+                                  tsync.search_grid(200, 1700, 20, 20))
+    assert (tsc.sync_scores_tf_kernel.launches,
+            tsc.sync_scores_kernel.launches) == before
 
 
 def _db_grid(seed, shape, device, integer=False):
@@ -279,6 +349,9 @@ def test_sync_kernels_match_plain_bit_for_bit(cuda, fs, osr, b):
     (200, 90, (3, 1), 2),       # 51 x 83: time_osr 3, freq_osr 1
     (120, 300, (1, 4), 2),      # 71 x 272: two frequency tiles of 256
     (None, None, (2, 2), 5),    # the 2-kHz geometry
+    (1000, 420, (10, 10), 2),   # generic, shrunk tile: 14 lanes (FM)
+    (700, 200, (13, 13), 1),    # 1 lane; 10 / 6 start times a thread
+    (900, 160, (17, 17), 1),    # FM's last fit: 1 lane, 1 start time
 ])
 def test_sync_kernels_at_tile_edges(cuda, frames, bins, osr, b):
     """Both instances at tile edges, on noise and on integer grids with
@@ -341,19 +414,23 @@ def test_decode_slots_runs_the_sync_kernel(cuda):
                                 dict(bins_per_tone=4, steps_per_symbol=4,
                                      max_candidates=40, min_score=1.0,
                                      use_osd=True, use_mf=True),
-                                dict(min_score=5.0, passes=2)])
+                                dict(min_score=5.0, passes=2),
+                                dict(min_score=3.0, max_candidates=60,
+                                     bins_per_tone=10, steps_per_symbol=10)])
 def test_decode_ft8_message_card_matches_cpu(cuda, kw):
     """The host API on the card (the frequency-major stencil kernel, and
-    the OSD kernel under DEEP) decodes the rows it decodes on the CPU."""
+    the OSD kernel under DEEP) decodes the rows it decodes on the CPU; at
+    osr 10x10 too (the generic stencil on a shrunk tile)."""
     fs = 2000.0
     n = int(fs * 15)
     waves, payloads = _planted(15, fs, n)
     wave = waves.numpy().sum(0) / 2.0
-    before = (tsc.sync_scores_kernel.launches, tosc.reduce_basis_batch.launches)
+    before = (tsc.sync_scores_kernel.launches,
+              tosc.reduce_basis_from_order.launches)
     card = tdec.decode_ft8_message(wave, fs, device=cuda, **kw)
     assert tsc.sync_scores_kernel.launches > before[0]
     if kw.get("use_osd"):
-        assert tosc.reduce_basis_batch.launches > before[1]
+        assert tosc.reduce_basis_from_order.launches > before[1]
     host = tdec.decode_ft8_message(wave, fs, device="cpu", **kw)
     assert [(r.message.payload, r.time_sec, r.freq_hz) for r in card] == \
         [(r.message.payload, r.time_sec, r.freq_hz) for r in host]

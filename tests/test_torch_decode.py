@@ -183,6 +183,28 @@ def test_decode_slots_rejects_ragged_chunk_and_unported_options(slots):
             tdec.decode_slot(w[0], p, nf, **{opt: True})
 
 
+def test_decode_slots_beyond_the_kernels_tile_matches_jax(slots):
+    """On the CPU decode_slots and decode_slot take a time_osr above the
+    waterfall kernels' MAX_TAU (2 kHz, osr 2x10): the planted payloads and
+    the JAX decode_slots payload set per slot."""
+    waves, payloads = slots
+    p = waterfall_params(FS, 2, 10)
+    nf = p.num_frames(N)
+    kw = dict(max_candidates=K, min_score=MIN_SCORE)
+    got = tdec.decode_slots(torch.as_tensor(waves), p, nf, chunk=2,
+                            bp_chunk=4, **kw)
+    want = jdec.decode_slots(jnp.asarray(waves),
+                             jwf.waterfall_params(FS, 2, 10), nf, chunk=2,
+                             bp_chunk=4, **kw)
+    for b in range(B):
+        got_set = {d[0] for d in _decodes(got, b)}
+        assert bytes(payloads[b]) in got_set, f"slot {b}"
+        assert got_set == {d[0] for d in _decodes(want, b)}, f"slot {b}"
+    one = tdec.decode_slot(torch.as_tensor(waves[1]), p, nf, **kw)
+    for name, a, b in zip(one._fields, one, got):
+        torch.testing.assert_close(a, b[1], rtol=0, atol=0, msg=name)
+
+
 # --- the DEEP decode: osr 4x4, K 40, min_score 1, OSD, mf_first ----------
 
 K_DEEP = 40

@@ -1,7 +1,7 @@
 """PyTorch port vs JAX package: ordered-statistics decoding (CPU).
 
-Bit packing, the permuted pack and the GF(2) elimination are integer
-work and must agree bit for bit.  The search's soft distances are float32
+Bit packing, the permuted pack, the GF(2) elimination and the OSD
+kernel's table are integer work and must agree bit for bit.  The search's soft distances are float32
 sums in another order than XLA's; on every input here the accept masks and
 the codewords come out identical all the same, and the tests say so
 exactly.
@@ -75,37 +75,76 @@ def test_permuted_pack_equals_jax_matmul_pack(rng):
                          stable=True).indices
     np.testing.assert_array_equal(t_order.numpy(), np.asarray(order))
     want = np.asarray(josd._permute_pack(ranks)).view(np.int32)
-    got = tosd._permute_pack(t_order, tosd.osd_tables("cpu")).numpy()
+    got = tcuda._permute_pack(t_order, tosd.osd_tables("cpu")).numpy()
     np.testing.assert_array_equal(got, want)
 
 
 def test_plain_elimination_equals_jax_and_pallas_interpret(rng):
+    """The kernel's plain version (reliability order in: the permute-pack,
+    then the elimination) equals the JAX elimination and the Pallas kernel
+    in interpret mode on the JAX package's permuted pack."""
     llr = _tied_llrs(rng, 19)
     _, ranks = _jax_order_ranks(llr)
+    t_order = torch.sort(-torch.as_tensor(llr).abs(), dim=-1,
+                         stable=True).indices
     packed = josd._permute_pack(ranks)
     r_jnp, p_jnp = jax.vmap(josd._reduce_basis_packed)(packed)
     r_pl, p_pl = josd._reduce_basis_pallas_batch(packed, interpret=True)
-    got_r, got_p = tcuda.reduce_basis_batch(
+    tables = tosd.osd_tables("cpu")
+    got_r, got_p = tcuda.reduce_basis_from_order(t_order, tables)
+    plain_r, plain_p = tcuda.reduce_basis_batch_plain(
         torch.as_tensor(np.array(packed).view(np.int32)))
     for want_r, want_p in ((r_jnp, p_jnp), (r_pl, p_pl)):
-        np.testing.assert_array_equal(got_r.numpy(),
-                                      np.asarray(want_r).view(np.int32))
-        np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
+        for r, p in ((got_r, got_p), (plain_r, plain_p)):
+            np.testing.assert_array_equal(r.numpy(),
+                                          np.asarray(want_r).view(np.int32))
+            np.testing.assert_array_equal(p.numpy(), np.asarray(want_p))
     # every row holds a pivot, each column at most one
     assert (np.sort(got_p.numpy(), axis=1)[:, 1:]
             > np.sort(got_p.numpy(), axis=1)[:, :-1]).all()
 
 
 def test_elimination_wrapper_checks_and_counts(rng):
-    before = tcuda.reduce_basis_batch.launches
-    empty_r, empty_p = tcuda.reduce_basis_batch(
-        torch.zeros((0, 91, 6), dtype=torch.int32))
+    tables = tosd.osd_tables("cpu")
+    before = tcuda.reduce_basis_from_order.launches
+    empty_r, empty_p = tcuda.reduce_basis_from_order(
+        torch.zeros((0, 174), dtype=torch.int64), tables)
     assert empty_r.shape == (0, 91, 6) and empty_p.shape == (0, 91)
-    assert tcuda.reduce_basis_batch.launches == before
-    with pytest.raises(ValueError, match="int32"):
-        tcuda.reduce_basis_batch(torch.zeros((2, 91, 6), dtype=torch.int64))
-    with pytest.raises(ValueError, match="91"):
-        tcuda.reduce_basis_batch(torch.zeros((2, 90, 6), dtype=torch.int32))
+    assert empty_r.dtype == empty_p.dtype == torch.int32
+    assert tcuda.reduce_basis_from_order.launches == before
+    with pytest.raises(ValueError, match="int64"):
+        tcuda.reduce_basis_from_order(
+            torch.zeros((2, 174), dtype=torch.int32), tables)
+    with pytest.raises(ValueError, match="174"):
+        tcuda.reduce_basis_from_order(
+            torch.zeros((2, 173), dtype=torch.int64), tables)
+
+
+def test_kernel_table_equals_jax_basis_and_syndromes(rng):
+    """OSDTables.basis_cols holds the bits of JAX's basis (column n's row k
+    at bit k % 32 of word 3n + k // 32) and its row syndromes after them;
+    permuted rows read from it as the kernel reads them equal the plain
+    permute-pack."""
+    tables = tosd.osd_tables("cpu")
+    table = tables.basis_cols.numpy().view(np.uint32).astype(np.int64)
+    assert table.shape == (tcuda.TABLE_WORDS,) == (3 * 174 + 91,)
+    cols = table[: 3 * 174].reshape(174, 3)
+    k = np.arange(96)
+    bits = (cols[:, k // 32] >> (k % 32)) & 1               # (174, 96)
+    np.testing.assert_array_equal(bits[:, :91].T, josd._basis())
+    assert not bits[:, 91:].any()
+    shift = 174 - 32 * 5
+    synd = (table[3 * 174:, None] >> (shift + np.arange(14))) & 1
+    np.testing.assert_array_equal(synd, josd._ROW_SYNDROMES_NP)
+    assert not (table[3 * 174:] & ~(((1 << 14) - 1) << shift)).any()
+    # bit i of permuted row k = bit k of column order[i]'s mask
+    order = torch.sort(-torch.as_tensor(_tied_llrs(rng, 6)).abs(), dim=-1,
+                       stable=True).indices.numpy()
+    rows = bits[order][:, :, :91].transpose(0, 2, 1)        # (6, 91, 174)
+    want = tcuda._permute_pack(torch.as_tensor(order), tables).numpy()
+    got = tcuda._pack(torch.as_tensor(rows)).numpy()
+    got[..., 5] |= table[3 * 174:].astype(np.int32)
+    np.testing.assert_array_equal(got, want)
 
 
 def _both(llr, **kw):
@@ -167,6 +206,35 @@ def test_osd_masked_equals_batch_on_needed_rows(rng):
     assert torch.equal(ok_s.reshape(-1), ok_all & need)
     p_z, ok_z = tosd.osd_decode_masked(llr, torch.zeros(90, dtype=bool))
     assert not ok_z.any() and (p_z == 0).all()
+
+
+def test_osd_masked_in_chunks_equals_one_pass_and_jax(rng):
+    """A search chunk smaller than the needed rows (5 on 13) gives what one
+    pass gives and what JAX gives; the bases of all 13 rows come from one
+    call of the kernel's entry."""
+    cw = _codewords(rng, 30)
+    llr = ((2 * cw - 1) * 2.0 + 1.7 * rng.standard_normal(cw.shape)) \
+        .astype(np.float32)
+    need = np.zeros(30, bool)
+    need[rng.choice(30, 13, replace=False)] = True
+    want_p, want_ok = (np.asarray(a) for a in josd.osd_decode_masked(
+        jnp.asarray(llr), jnp.asarray(need)))
+    calls = []
+    entry = tosd.reduce_basis_from_order
+    tosd.reduce_basis_from_order = \
+        lambda order, tables: calls.append(order.shape[0]) \
+        or entry(order, tables)
+    try:
+        runs = [tosd.osd_decode_masked(torch.as_tensor(llr),
+                                       torch.as_tensor(need), chunk=chunk)
+                for chunk in (5, 13, 1024)]
+    finally:
+        tosd.reduce_basis_from_order = entry
+    assert calls == [13, 13, 13]
+    assert want_ok.sum() >= 3
+    for plain, ok in runs:
+        np.testing.assert_array_equal(ok.numpy(), want_ok)
+        np.testing.assert_array_equal(plain.numpy(), want_p)
 
 
 def test_osd_orders_checked_like_jax():

@@ -106,12 +106,60 @@ def test_pack_weights_tiles_cover_every_bin():
 
 
 def test_fused_wrapper_rejects_four_constants():
+    """The kernel's route (any tensor off the CPU; the checks run before a
+    launch, so a meta tensor reaches them here) wants all five constants;
+    the CPU's plain version reads the first four."""
     p = waterfall_params(2000.0, 2, 2)
     nf = p.num_frames(30000)
     consts = twc.fused_constants(p, torch.device("cpu"))
-    with pytest.raises(ValueError, match="constants"):
-        twc.block_waterfall_tf_fused_batch(torch.zeros(1, 30000), p, nf,
-                                           consts[:4])
+    for fn in (twc.block_waterfall_tf_fused_batch,
+               twc.block_waterfall_mf_tf_fused_batch):
+        with pytest.raises(ValueError, match="constants"):
+            fn(torch.zeros(1, 30000, device="meta"), p, nf, consts[:4])
+        with pytest.raises(ValueError, match="constants"):
+            fn(torch.zeros(1, 30000), p, nf, consts[:3])
+    waves = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (1, 30000)).astype(np.float32))
+    assert torch.equal(
+        twc.block_waterfall_tf_fused_batch(waves, p, nf, consts[:4]),
+        twc.block_waterfall_tf_fused_batch(waves, p, nf, consts))
+
+
+@pytest.mark.parametrize("osr", [(2, 10), (64, 2)])
+def test_cpu_wrappers_take_any_osr(osr):
+    """Beyond the kernels' tile (time_osr > MAX_TAU, 2 freq_osr >=
+    TILE_COLS) a CPU tensor takes the plain version, equal to the plain
+    functions, with no packed weights built; the kernel's route raises a
+    ValueError that names the limit before any launch."""
+    p = waterfall_params(2000.0, *osr)
+    nf = 24
+    nb = nf + p.time_osr - 1
+    waves = torch.as_tensor(np.random.default_rng(sum(osr)).standard_normal(
+        (2, nb * p.hop + 5)).astype(np.float32))
+    twc.fused_constants.cache_clear()
+    got = twc.block_waterfall_tf_fused_batch(waves, p, nf)
+    torch.testing.assert_close(
+        got, twc.block_waterfall_tf_fused_batch_plain(waves, p, nf),
+        rtol=0, atol=0)
+    db, box = twc.block_waterfall_mf_tf_fused_batch(waves, p, nf)
+    want_db, want_box = twc.block_waterfall_mf_tf_fused_batch_plain(
+        waves, p, nf)
+    torch.testing.assert_close(db, want_db, rtol=0, atol=0)
+    torch.testing.assert_close(box, want_box, rtol=0, atol=0)
+    assert got.shape == (2, nf, p.num_freq_bins)
+    assert box.shape == (2, nf + 2 * (p.time_osr - 1), p.num_freq_bins)
+    assert twc.fused_constants.cache_info().currsize == 0
+    decoder = tdec.slot_decoder(p, nf, torch.device("cpu"))
+    assert len(decoder.waterfall_consts()) == 4
+    assert decoder.dft_packed is None
+    limit = "MAX_TAU" if p.time_osr > twc.MAX_TAU else "TILE_COLS"
+    meta = torch.zeros(2, waves.shape[1], device="meta")
+    for fn in (twc.block_waterfall_tf_fused_batch,
+               twc.block_waterfall_mf_tf_fused_batch):
+        with pytest.raises(ValueError, match=limit):
+            fn(meta, p, nf)
+    with pytest.raises(ValueError, match=limit):
+        twc.fused_constants(p, torch.device("cpu"))
 
 
 def test_entry_points_run_on_the_card_by_default():
