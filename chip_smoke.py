@@ -76,16 +76,28 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    planted payload above its stated SNR and nothing unplanted, gives the
    rows the CPU gives (payloads, times, frequencies; score within 1e-4,
    SNR within 0.1), launches the frequency-major sync kernel (and the OSD
-   kernel under DEEP); the buried signal decodes only in the second pass;
-   then osr 10x10 (bins_per_tone = steps_per_symbol = 10) on a band crop
-   around the strongest signal: it decodes, with the CPU's rows;
+   kernel under OSD); the buried signal decodes only in the second pass;
+   the deep retries on top of DEEP (mf_refine, mf_first + mf_refine,
+   coherent, ap with two calls, coherent + ap) also decode every payload
+   DEEP decodes; then osr 10x10 (bins_per_tone = steps_per_symbol = 10) on
+   a band crop around the strongest signal: it decodes, with the CPU's
+   rows; then a second capture of six weak off-grid CQ transmissions
+   (-22..-19 dB, packed by the port's message codec): DEEP, coherent, ap
+   and coherent + ap give the CPU's rows, nothing unplanted, and some
+   retry decodes a payload DEEP misses (printed); on the same capture as
+   one slot, decode_slot with use_mf + mf_refine, mf_first + mf_refine and
+   mf_first + coherent (osr 4x4, OSD) gives the CPU's decode set and
+   launches the kernels of its route;
 13. times (device time as in phase 6): both sync kernels against their
    plain versions and bounds at the decodes' sizes; decode_ft8_message ms per
-   capture, STANDARD and DEEP; the stage split of decode_ft8_message and
-   of decode_slots at batch 256 (STANDARD and DEEP), host and device ms
-   per ft8.<stage> record_function range of the decoders (host ms
-   exclusive of the ranges nested inside: OSD's ft8.osd inside ft8.decode),
-   from profiler traces of the real calls; peak device memory.
+   capture, STANDARD, DEEP, DEEP plus each retry and the deepest stack
+   (DEEP + mf_refine + coherent + ap, the CLI's --deep --mf-refine
+   --coherent --ap-calls); the stage split of decode_ft8_message (STANDARD,
+   DEEP, the deepest stack) and of decode_slots at batch 256 (STANDARD and
+   DEEP), host and device ms per ft8.<stage> record_function range of the
+   decoders (host ms exclusive of the ranges nested inside: OSD's ft8.osd
+   inside ft8.decode, the retries' decodes inside ft8.ap), from profiler
+   traces of the real calls; peak device memory.
 
 Then one JSON line with the kernels (each with its launches on the main
 path, device ms, plain ms, bound ms and what bounds it, and the library
@@ -994,13 +1006,35 @@ def _crowded_capture():
 
 DEEP_API = dict(bins_per_tone=4, steps_per_symbol=4, max_candidates=40,
                 min_score=1.0, use_osd=True, use_mf=True)
+AP_CALLS = "K1ABC W9XYZ"
+# the deep retries, each on top of DEEP_API: every one decodes what DEEP
+# decodes and more or the same
+RETRY_RUNS = {
+    "mf_refine": dict(mf_refine=True),
+    "mf_first+mf_refine": dict(use_mf=False, mf_first=True, mf_refine=True),
+    "coherent": dict(coherent=True),
+    "ap": dict(ap=AP_CALLS),
+    "coherent+ap": dict(coherent=True, ap=AP_CALLS),
+}
+# the CLI's deepest stack: --deep --mf-refine --coherent --ap-calls
+DEEPEST = dict(DEEP_API, mf_refine=True, coherent=True, ap=AP_CALLS)
 # (options, every planted signal at or above this SNR must decode)
 API_RUNS = {
     "STANDARD": ({}, -4.0),
     "DEEP": (DEEP_API, 0.0),
     "mf_first": (dict(DEEP_API, use_mf=False, mf_first=True), 0.0),
     "passes=2": (dict(passes=2), -11.0),
+    **{name: (dict(DEEP_API, **kw), 0.0) for name, kw in RETRY_RUNS.items()},
 }
+# a capture of weak off-grid CQ transmissions, packed by the port's message
+# codec, where DEEP misses some that the coherent or a-priori retry finds:
+# SNRs (2500-Hz convention) spread evenly over WEAK_SNR_DB
+WEAK_SEED = 6
+WEAK_MESSAGES = ("CQ K1ABC FN42", "CQ W9XYZ EN37", "CQ DL1ABC JO62",
+                 "CQ JA1XYZ PM95", "CQ VK2ABC QF56", "CQ G4XYZ IO91")
+WEAK_SNR_DB = (-22.0, -19.0)
+WEAK_RUNS = {"DEEP": {}, "coherent": dict(coherent=True),
+             "ap": dict(ap=True), "coherent+ap": dict(coherent=True, ap=True)}
 
 
 def _check_api_rows(name: str, card, host) -> None:
@@ -1042,7 +1076,7 @@ def _api_phase(dev) -> tuple[int, dict]:
         k6_total += k6
         host = decode_ft8_message(wave, FS, device="cpu", **kw)
         got = [r.message.payload for r in card]
-        if k6 < 1 or (name == "DEEP" and k4 < 1):
+        if k6 < 1 or (kw.get("use_osd") and k4 < 1):
             raise RuntimeError(f"{name}: sync kernel {k6}, OSD kernel {k4} "
                                "launches")
         _check_api_rows(name, card, host)
@@ -1052,6 +1086,9 @@ def _api_phase(dev) -> tuple[int, dict]:
         if unplanted or missed:
             raise RuntimeError(f"{name}: {len(unplanted)} unplanted decodes,"
                                f" planted signals missed at {missed} dB")
+        if name in RETRY_RUNS and not {
+                r.message.payload for r in out["DEEP"]} <= set(got):
+            raise RuntimeError(f"{name}: lost a payload that DEEP decodes")
         if (name == "STANDARD" and buried in got) \
                 or (name == "passes=2" and buried not in got):
             raise RuntimeError(f"{name}: the buried signal "
@@ -1093,8 +1130,133 @@ def _api_phase(dev) -> tuple[int, dict]:
     _phase(12, f"decode_ft8_message on a crowded {FS / 1000:g} kHz capture "
                f"({CROWD_SIGNALS} + 1 buried signals): "
                + "; ".join(lines) + "; card == CPU rows in every run; the "
-               "buried signal decodes in the second pass only")
-    return k6_total, out
+               "buried signal decodes in the second pass only; every retry "
+               "run decodes what DEEP decodes")
+    return k6_total + _weak_phase(dev), out
+
+
+def _weak_capture():
+    """One 15-s 12 kHz capture from numpy.random.default_rng(WEAK_SEED):
+    the WEAK_MESSAGES (packed by the port's codec) at SNRs spread evenly
+    over WEAK_SNR_DB (2500-Hz convention, unit noise), off the search grid
+    in time and frequency: 400-2600 Hz, >= 150 Hz apart, starting in
+    0.2-1.2 s.  Returns (wave (n,) float32, payloads (6, 10), snr_db)."""
+    from ft8_demodulator_tpu_torch.ops.gfsk import _baseband_complex
+    from ft8_demodulator_tpu_torch.protocol import constants as C
+    from ft8_demodulator_tpu_torch.protocol.encode import encode_tones
+    from ft8_demodulator_tpu_torch.protocol.message import pack_message
+
+    rng = np.random.default_rng(WEAK_SEED)
+    n = int(FS * SLOT_S)
+    sps = int(C.SYMBOL_PERIOD_S * FS)
+    count = len(WEAK_MESSAGES)
+    while True:
+        f0 = np.sort(rng.uniform(400.0, 2600.0, count))
+        if np.diff(f0).min() >= 150.0:
+            break
+    snr = rng.permutation(np.linspace(*WEAK_SNR_DB, count))
+    starts = (rng.uniform(0.2, 1.2, count) * FS).astype(int)
+    payloads = np.stack([pack_message(m) for m in WEAK_MESSAGES])
+    wave = rng.standard_normal(n)
+    tones = encode_tones(torch.as_tensor(payloads))
+    for i in range(count):
+        sig = _baseband_complex(tones[i], sps, FS, float(f0[i])).real.numpy()
+        amp = np.sqrt(2.0 * 10.0 ** (snr[i] / 10.0) * 2500.0 / (FS / 2.0))
+        wave[starts[i]: starts[i] + len(sig)] += amp * sig
+    return wave.astype(np.float32), payloads, snr
+
+
+def _weak_phase(dev) -> int:
+    """Phase 12, second part: decode_ft8_message on the weak capture (DEEP
+    and the coherent and a-priori retries; card rows == CPU rows, nothing
+    unplanted, at least one payload beyond DEEP), then decode_slot on it as
+    one slot with mf_refine, mf_first + mf_refine and coherent (card ==
+    CPU).  Returns the frequency-major sync kernel's launches."""
+    from ft8_demodulator_tpu_torch.demod.decode import (decode_ft8_message,
+                                                        decode_slot)
+    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
+    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
+    from ft8_demodulator_tpu_torch.ops import waterfall_cuda as wc
+    from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
+
+    wave, payloads, snr = _weak_capture()
+    planted = {bytes(pl): float(s) for pl, s in zip(payloads, snr)}
+    k6_total, found, lines = 0, {}, []
+    for name, extra in WEAK_RUNS.items():
+        kw = dict(DEEP_API, **extra)
+        torch.cuda.synchronize()
+        sc.sync_scores_kernel.launches = 0
+        oc.reduce_basis_from_order.launches = 0
+        card = decode_ft8_message(wave, FS, device=dev, **kw)
+        torch.cuda.synchronize()
+        k6, k4 = sc.sync_scores_kernel.launches, \
+            oc.reduce_basis_from_order.launches
+        k6_total += k6
+        if k6 < 1 or k4 < 1:
+            raise RuntimeError(f"weak capture, {name}: sync kernel {k6}, "
+                               f"OSD kernel {k4} launches")
+        _check_api_rows(f"weak capture, {name}", card,
+                        decode_ft8_message(wave, FS, device="cpu", **kw))
+        found[name] = {r.message.payload for r in card}
+        if not found[name] <= set(planted) \
+                or not found["DEEP"] <= found[name]:
+            raise RuntimeError(f"weak capture, {name}: decoded "
+                               f"{sorted(found[name])}, DEEP "
+                               f"{sorted(found['DEEP'])}")
+        lines.append(f"{name} " + ", ".join(
+            f"{planted[pl]:.1f} dB" for pl in sorted(found[name],
+                                                     key=planted.get)))
+    beyond = {name: sorted(planted[pl] for pl in got - found["DEEP"])
+              for name, got in found.items() if name != "DEEP"}
+    if not any(beyond.values()):
+        raise RuntimeError(f"weak capture: no retry decodes beyond DEEP "
+                           f"({lines})")
+    _phase(12, f"weak off-grid CQ capture ({len(planted)} signals at "
+               f"{WEAK_SNR_DB[0]:g}..{WEAK_SNR_DB[1]:g} dB): decoded "
+               + "; ".join(lines) + "; beyond DEEP: "
+               + ", ".join(f"{name} {v}" for name, v in beyond.items())
+               + "; card == CPU rows in every run")
+
+    p = waterfall_params(FS, *DEEP_OSR)
+    nf = p.num_frames(wave.shape[0])
+    slot_kw = dict(max_candidates=DEEP_CANDIDATES, min_score=DEEP_MIN_SCORE,
+                   max_iterations=BP_ITERATIONS, use_osd=True)
+    counters = {"K1": wc.block_waterfall_tf_fused_batch,
+                "K3": wc.block_waterfall_mf_tf_fused_batch,
+                "K5": sc.sync_scores_tf_kernel, "K6": sc.sync_scores_kernel,
+                "K4": oc.reduce_basis_from_order}
+    slot_lines = []
+    for name, extra, used in (
+            ("use_mf + mf_refine", dict(use_mf=True, mf_refine=True),
+             ("K1", "K5", "K4")),
+            ("mf_first + mf_refine", dict(mf_first=True, mf_refine=True),
+             ("K6", "K4")),
+            ("mf_first + coherent", dict(mf_first=True, coherent=True),
+             ("K3", "K5", "K4"))):
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        card = decode_slot(torch.as_tensor(wave, device=dev), p, nf,
+                           **slot_kw, **extra)
+        torch.cuda.synchronize()
+        launched = {k: fn.launches for k, fn in counters.items()}
+        k6_total += launched["K6"]
+        if not all(launched[k] >= 1 for k in used):
+            raise RuntimeError(f"decode_slot {name}: launches {launched}")
+        lift = lambda r: type(r)(*(a[None] for a in r))
+        sets = _decode_sets(lift(card), 1)
+        host = _decode_sets(lift(decode_slot(
+            torch.as_tensor(wave), p, nf, **slot_kw, **extra)), 1)
+        if sets != host or not {s[0] for s in sets[0]} <= set(planted):
+            raise RuntimeError(f"decode_slot {name}: card {sorted(sets[0])},"
+                               f" CPU {sorted(host[0])}")
+        slot_lines.append(f"{name} {len(sets[0])} decodes (launches "
+                          + ", ".join(f"{k} {launched[k]}" for k in used)
+                          + ")")
+    _phase(12, "decode_slot on the weak capture as one slot (osr 4x4, K "
+               f"{DEEP_CANDIDATES}, OSD): " + "; ".join(slot_lines)
+               + "; card == CPU decode sets in each")
+    return k6_total
 
 
 def _stage_split(fn) -> dict[str, tuple[float, float]]:
@@ -1214,6 +1376,15 @@ def _time_phase(dev, smi: str, chunks, captures, waves) -> dict:
         call = lambda: decode_ft8_message(wave, FS, device=dev, **kw)
         api[name] = (_median_ms(call, API_REPS), _median_split(call, 3))
     api_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    # the deep retries: ms per capture of DEEP plus each, and the deepest
+    # stack's split and peak memory
+    retry_ms = {name: _median_ms(lambda: decode_ft8_message(
+        wave, FS, device=dev, **API_RUNS[name][0]), API_REPS)
+        for name in RETRY_RUNS}
+    torch.cuda.reset_peak_memory_stats()
+    call = lambda: decode_ft8_message(wave, FS, device=dev, **DEEPEST)
+    api["deepest"] = (_median_ms(call, API_REPS), _median_split(call, 3))
+    deepest_peak = torch.cuda.max_memory_allocated() / 2 ** 20
 
     slots = {}
     n = waves.shape[1]
@@ -1243,7 +1414,12 @@ def _time_phase(dev, smi: str, chunks, captures, waves) -> dict:
                    f"{name} {whole:.1f} ms (stages from profiler traces, "
                    f"host/device ms, median of 3: {_split_text(split)})"
                    for name, (whole, split) in api.items())
-               + f", DEEP peak memory {api_peak:.1f} MiB; decode_slots "
+               + f", DEEP peak memory {api_peak:.1f} MiB; DEEP plus each "
+               f"retry, median of {API_REPS}: "
+               + ", ".join(f"{k} {v:.1f} ms" for k, v in retry_ms.items())
+               + f"; deepest stack (DEEP + mf_refine + coherent + ap "
+               f"'{AP_CALLS}') peak memory {deepest_peak:.1f} MiB; "
+               "decode_slots "
                f"batch {BATCH} stages (one profiled call, host/device ms; "
                "decode is BP + CRC, osd the ft8.osd range inside it): "
                + "; ".join(f"{name} {_split_text(st)}"

@@ -27,8 +27,8 @@ class DecoderConfig(NamedTuple):
     mf_first: bool = False       # decode ALL candidates from MF LLRs in one
                                  # pass (the boxcar-grid route)
     mf_refine: bool = False      # sub-grid (dt, df) offset search before MF
-                                 # extraction (not ported yet)
-    coherent: bool = False       # coherent MF retry (not ported yet)
+                                 # extraction
+    coherent: bool = False       # coherent MF retry
 
     def waterfall(self, fs: float) -> WaterfallParams:
         return waterfall_params(fs, self.bins_per_tone,

@@ -9,18 +9,25 @@
 
 Port of ``ft8_demodulator_tpu/demod/decode.py`` for real input on block
 geometries: ``decode_slots`` (the bench path), ``decode_slot`` with the
-OSD, matched-filter retry (``use_mf``) and ``mf_first`` options, and
-``finish_decode`` with the gated OSD.  The slot fronts always run the fused
-kernels of ``ops/waterfall_cuda.py`` and the time-major stencil of
-``ops/sync_cuda.py`` (the CUDA kernels on the card, their plain versions
-on the CPU); ``mf_first`` always takes the boxcar-grid route, which the
-JAX package takes on the TPU.
+OSD, matched-filter retry (``use_mf``), ``mf_first``, ``mf_refine`` and
+``coherent`` options, and ``finish_decode`` with the gated OSD.  The slot
+fronts always run the fused kernels of ``ops/waterfall_cuda.py`` and the
+time-major stencil of ``ops/sync_cuda.py`` (the CUDA kernels on the card,
+their plain versions on the CPU); ``mf_first`` always takes the
+boxcar-grid route, which the JAX package takes on the TPU (with
+``mf_refine`` the JAX package's frequency-major route).
 
 The host API ``decode_ft8_message`` (the CLI's decode) runs the
 frequency-major path on one capture: the plain float32 waterfall ->
 crops -> the frequency-major stencil kernel -> top-K -> Hann LLRs (or
 matched-filter LLRs from the block spectra) -> BP (+ OSD) -> SNR estimate
--> host rows, with subtraction passes.
+-> host rows, with subtraction passes.  The deep retries follow the first
+decode of each pass: the matched-filter retry (with ``mf_refine`` also from
+sub-grid-offset LLRs), the coherent phase-track retry (``coherent``) and
+the a-priori retry (``ap``), which with ``coherent`` also clamps its
+hypotheses inside every coherent branch.  Each retry decodes its LLR
+variants of all candidates as one batch, and each candidate takes its first
+variant that passes the CRC: decodes are a superset of the first pass.
 
 The per-geometry constants (DFT matrices, combine phases, BP routing,
 parity-check and CRC matrices, Gray map, OSD basis and row syndromes, and
@@ -32,7 +39,8 @@ ones the JAX package builds.
 
 Each stage runs inside a ``torch.profiler.record_function`` range named
 ``ft8.<stage>`` (waterfall, sync, top_k, llrs, decode, osd inside decode,
-snr, rows, subtract), so a profiler trace of a decode splits its host and
+snr, rows, subtract; the retries' mf_refine, coherent and ap, with their
+decodes in decode), so a profiler trace of a decode splits its host and
 device time by stage; without a profiler a range is one dispatcher call on
 entry and one on exit.
 """
@@ -49,8 +57,9 @@ from torch.profiler import record_function
 from ..ops.ldpc_decode import BPTables, _build_routing, bp_decode_batch, \
     make_bp_tables
 from ..ops import osd
-from ..ops.llr import (extract_llrs, extract_llrs_matched_blocks,
-                       extract_llrs_matched_grid, extract_llrs_tf)
+from ..ops.llr import (extract_llrs, extract_llrs_coherent,
+                       extract_llrs_matched_blocks, extract_llrs_matched_grid,
+                       extract_llrs_matched_refined, extract_llrs_tf)
 from ..ops.subtract import subtract_decoded
 from ..ops.sync import (SearchGrid, find_candidates, find_candidates_tf,
                         search_grid)
@@ -64,21 +73,19 @@ from ..ops.waterfall_cuda import (block_waterfall_mf_tf_fused_batch,
                                   pack_weights)
 from ..protocol import constants as C
 from ..protocol.encode import encode_tones
+from ..protocol.message import ap_hypotheses
 from ..utils.device import entry_device
 from ..utils.metrics import SlotMetrics, summarize_slot
 from .types import FT8Decode, FT8DecodeStatus, FT8Message, SlotDecodeResult
 
 __all__ = ["SlotDecoder", "decoder_arrays", "slot_decoder", "decode_slot",
            "decode_slots", "decode_waterfall", "decode_waterfall_mf",
-           "decode_ft8_message", "finish_decode", "mf_retry", "estimate_snr"]
+           "decode_ft8_message", "finish_decode", "mf_retry", "ap_retry",
+           "coherent_retry", "estimate_snr"]
 
-# where ROADMAP.md lists the options this slice does not port yet
-_TODO_MF = "ROADMAP.md, queue 1, item 1 'rest of the MF family'"
-_TODO_DECODERS = "ROADMAP.md, queue 1, item 2 'remaining decoders'"
+# where ROADMAP.md lists the options the port does not have yet
 _TODO_WATERFALL = ("ROADMAP.md, queue 1, item 3 'waterfall backends and "
                    "complex input'")
-_TODO_AP = ("ROADMAP.md, queue 1, items 2 'remaining decoders' and 4 'rest "
-            "of the TX' (protocol/message.py)")
 _TODO_BEACON = ("ROADMAP.md, queue 1, item 6 'beacon' "
                 "(beacon.track_known_payload)")
 
@@ -281,21 +288,30 @@ def _merge_results(res: SlotDecodeResult,
     )
 
 
-@record_function("ft8.llrs")
 def _mf_llrs(wave: torch.Tensor, p: WaterfallParams, abs_time: torch.Tensor,
-             abs_freq: torch.Tensor,
-             decoder: SlotDecoder | None = None) -> torch.Tensor:
+             abs_freq: torch.Tensor, decoder: SlotDecoder | None = None,
+             refine: bool = False):
     """Matched-filter LLRs for candidates at absolute audio coordinates,
-    from the block spectra of the whole wave (block geometry only)."""
-    spec = _block_spectrum(wave, p, p.num_frames(wave.shape[-1]))
-    return extract_llrs_matched_blocks(
-        spec, abs_time, abs_freq, p.time_osr, p.freq_osr,
-        decoder.gray_map if decoder is not None else None)
+    from the block spectra of the whole wave (block geometry only).
+
+    ``refine`` takes the sub-grid (dt, df) offset search instead (the
+    direct form, any geometry) and returns its (llrs_base, llrs_refined).
+    """
+    if refine:
+        with record_function("ft8.mf_refine"):
+            return extract_llrs_matched_refined(wave, abs_time, abs_freq,
+                                                p.nperseg, p.hop, p.freq_osr)
+    _require_block(p)
+    with record_function("ft8.llrs"):
+        spec = _block_spectrum(wave, p, p.num_frames(wave.shape[-1]))
+        return extract_llrs_matched_blocks(
+            spec, abs_time, abs_freq, p.time_osr, p.freq_osr,
+            decoder.gray_map if decoder is not None else None)
 
 
 def mf_retry(wave: torch.Tensor, p: WaterfallParams, res: SlotDecodeResult,
              t0_hops: int = 0, f0_rows: int = 0, max_iterations: int = 20,
-             use_osd: bool = False,
+             use_osd: bool = False, mf_refine: bool = False,
              decoder: SlotDecoder | None = None) -> SlotDecodeResult:
     """Matched-filter second chance for candidates BP(+OSD) could not
     crack.
@@ -304,13 +320,16 @@ def mf_retry(wave: torch.Tensor, p: WaterfallParams, res: SlotDecodeResult,
     and re-runs the decode; rows that now succeed replace their failed
     originals (a strict superset of the first pass).  t0_hops / f0_rows
     translate crop-relative candidate indices to absolute ones.
+    ``mf_refine`` retries with the offset search's base LLRs, then with its
+    refined ones (a superset again).
     """
-    _require_block(p)
     llrs = _mf_llrs(wave, p, res.abs_time + t0_hops, res.abs_freq + f0_rows,
-                    decoder)
-    return _merge_results(res, finish_decode(
-        llrs, res.abs_time, res.abs_freq, res.score, res.candidate_valid,
-        max_iterations, use_osd, decoder))
+                    decoder, mf_refine)
+    for v in (llrs if mf_refine else (llrs,)):
+        res = _merge_results(res, finish_decode(
+            v, res.abs_time, res.abs_freq, res.score, res.candidate_valid,
+            max_iterations, use_osd, decoder))
+    return res
 
 
 def _candidates(mag_tf: torch.Tensor, g: SearchGrid, max_candidates: int,
@@ -437,35 +456,165 @@ def decode_slot(wave: torch.Tensor, p: WaterfallParams, num_frames: int,
     dual-output waterfall's boxcar grid in one BP(+OSD) pass (row for row
     what :func:`decode_slots` gives); otherwise the Hann LLRs decode and
     ``use_mf`` adds the matched-filter retry (:func:`mf_retry`).
-    ``is_complex``, ``mf_refine`` and ``coherent`` raise
+    ``mf_refine`` adds the sub-grid offset search to whichever matched
+    filter runs: with ``mf_first`` the frequency-major route of the JAX
+    package (the plain float32 waterfall, :func:`decode_waterfall_mf`).
+    ``coherent`` then adds :func:`coherent_retry`.  ``is_complex`` raises
     NotImplementedError.
     """
     if is_complex:
         raise _not_ported("is_complex", _TODO_WATERFALL)
-    if mf_refine:
-        raise _not_ported("mf_refine", _TODO_MF)
-    if coherent:
-        raise _not_ported("coherent", _TODO_DECODERS)
     _require_block(p)
     if decoder is None:
         decoder = slot_decoder(p, num_frames, wave.device)
     _check_decoder(decoder, p, num_frames, wave.device)
-    if mf_first:
+    if mf_first and mf_refine:
+        with record_function("ft8.waterfall"):
+            mag = waterfall_real(wave, p, num_frames)
+        res = decode_waterfall_mf(mag, wave, p, decoder.g, 0, 0,
+                                  max_candidates, min_score, max_iterations,
+                                  use_osd, mf_refine=True)
+    elif mf_first:
         with record_function("ft8.waterfall"):
             mags, boxes = block_waterfall_mf_tf_fused_batch(
                 wave[None], p, num_frames, decoder.waterfall_consts())
         outs = _front_mf_grid(mags[0], boxes[0], decoder.g, max_candidates,
                               min_score, decoder)
-        return finish_decode(*outs, max_iterations, use_osd, decoder)
-    with record_function("ft8.waterfall"):
-        mag_tf = block_waterfall_tf_fused_batch(
-            wave[None], p, num_frames, decoder.waterfall_consts())[0]
-    outs = _front_from_mag_tf(mag_tf, decoder.g, max_candidates, min_score,
-                              decoder)
-    res = finish_decode(*outs, max_iterations, use_osd, decoder)
-    if use_mf:
-        res = mf_retry(wave, p, res, 0, 0, max_iterations, use_osd, decoder)
+        res = finish_decode(*outs, max_iterations, use_osd, decoder)
+    else:
+        with record_function("ft8.waterfall"):
+            mag_tf = block_waterfall_tf_fused_batch(
+                wave[None], p, num_frames, decoder.waterfall_consts())[0]
+        outs = _front_from_mag_tf(mag_tf, decoder.g, max_candidates,
+                                  min_score, decoder)
+        res = finish_decode(*outs, max_iterations, use_osd, decoder)
+        if use_mf:
+            res = mf_retry(wave, p, res, 0, 0, max_iterations, use_osd,
+                           mf_refine, decoder)
+    if coherent:
+        res = coherent_retry(wave, p, res, 0, 0, max_iterations, use_osd,
+                             decoder=decoder)
     return res
+
+
+# ---------------------------------------------------------------------------
+# the CRC-arbitrated retries: coherent branches and a-priori hypotheses
+# ---------------------------------------------------------------------------
+
+def variant_retry(llrs: torch.Tensor, res: SlotDecodeResult,
+                  max_iterations: int, use_osd: bool,
+                  decoder: SlotDecoder | None = None) -> SlotDecodeResult:
+    """(B, K, 174) LLR variants -> per-candidate first valid decode.
+
+    All B*K rows run one BP(+OSD) batch (one OSD kernel launch) and each
+    candidate takes its first variant that decodes (the first maximum of
+    the success flags, as ``jnp.argmax``; variant 0 when none does).
+    Merge into an existing result with ``_merge_results``.
+    """
+    b, k = llrs.shape[:2]
+    rep = lambda a: a.repeat(b, *([1] * (a.ndim - 1)))
+    sub = finish_decode(llrs.reshape(b * k, C.LDPC_N), rep(res.abs_time),
+                        rep(res.abs_freq), rep(res.score),
+                        rep(res.candidate_valid), max_iterations, use_osd,
+                        decoder)
+    succ = sub.success.reshape(b, k)
+    idx = torch.argmax(succ.to(torch.int32), dim=0) * k \
+        + torch.arange(k, device=succ.device)
+    return SlotDecodeResult(
+        success=succ.any(0), payload=sub.payload[idx], crc=sub.crc[idx],
+        crc_extracted=sub.crc_extracted[idx],
+        ldpc_errors=sub.ldpc_errors[idx], abs_time=res.abs_time,
+        abs_freq=res.abs_freq, score=res.score,
+        candidate_valid=res.candidate_valid)
+
+
+def _coherent_llrs(wave: torch.Tensor, p: WaterfallParams,
+                   res: SlotDecodeResult, t0_hops: int, f0_rows: int,
+                   num_branches: int) -> torch.Tensor:
+    with record_function("ft8.coherent"):
+        return extract_llrs_coherent(
+            wave, res.abs_time + t0_hops, res.abs_freq + f0_rows, p.nperseg,
+            p.hop, p.freq_osr, num_branches=num_branches)
+
+
+def coherent_retry(wave: torch.Tensor, p: WaterfallParams,
+                   res: SlotDecodeResult, t0_hops: int = 0, f0_rows: int = 0,
+                   max_iterations: int = 20, use_osd: bool = False,
+                   num_branches: int = 5,
+                   decoder: SlotDecoder | None = None) -> SlotDecodeResult:
+    """Coherent matched-filter retry: ``num_branches`` phase-track branch
+    variants of every candidate's LLRs (``ops/llr.py``
+    ``extract_llrs_coherent``) decode as one batch; each candidate takes
+    its first branch that passes the CRC, and rows that now decode replace
+    their failed originals.  The extraction searches its own (dt, df), so
+    no ``mf_refine`` is needed before it."""
+    llrs = _coherent_llrs(wave, p, res, t0_hops, f0_rows, num_branches)
+    return _merge_results(res, variant_retry(llrs, res, max_iterations,
+                                             use_osd, decoder))
+
+
+def ap_arrays(ap, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The host ``ap`` argument (True, "MYCALL" or "MYCALL DXCALL") ->
+    (values (V, 77) uint8, mask (V, 77) bool) hypothesis tensors
+    (``protocol/message.py`` ``ap_hypotheses``)."""
+    calls = [] if ap is True else str(ap).upper().split()
+    if len(calls) > 2:
+        raise ValueError("ap accepts at most 'MYCALL DXCALL'")
+    vals, msk = ap_hypotheses(*calls)
+    return (torch.as_tensor(vals, device=device),
+            torch.as_tensor(msk, device=device))
+
+
+def _ap_clamped(llrs: torch.Tensor, ap_values: torch.Tensor,
+                ap_mask: torch.Tensor) -> torch.Tensor:
+    """(..., K, 174) LLRs + V hypotheses -> (..., V, K, 174): each
+    hypothesis's fixed payload bits clamped to +-100."""
+    pad = (0, C.LDPC_N - C.PAYLOAD_BITS)
+    dev = llrs.device
+    clamp = torch.nn.functional.pad(
+        (2.0 * ap_values.to(dev, torch.float32) - 1.0) * 100.0, pad)
+    mask = torch.nn.functional.pad(ap_mask.to(dev, torch.bool), pad)
+    return torch.where(mask[:, None, :], clamp[:, None, :],
+                       llrs[..., None, :, :])
+
+
+def ap_retry_llrs(llrs: torch.Tensor, res: SlotDecodeResult,
+                  ap_values: torch.Tensor, ap_mask: torch.Tensor,
+                  max_iterations: int, use_osd: bool) -> SlotDecodeResult:
+    """(K, 174) LLRs + V hypotheses -> per-candidate first AP decode: the
+    V*K clamped rows decode as one batch (:func:`variant_retry`)."""
+    return variant_retry(_ap_clamped(llrs, ap_values, ap_mask), res,
+                         max_iterations, use_osd)
+
+
+@record_function("ft8.ap")
+def ap_retry(wave: torch.Tensor, p: WaterfallParams, res: SlotDecodeResult,
+             t0_hops: int, f0_rows: int, ap_values: torch.Tensor,
+             ap_mask: torch.Tensor, max_iterations: int = 20,
+             use_osd: bool = False) -> SlotDecodeResult:
+    """A-priori retry: matched-filter LLRs of every candidate with each
+    hypothesis's payload bits clamped (``protocol/message.py``
+    ``ap_hypotheses``: CQ, MyCall, MyCall + DxCall, the exchanges), the
+    first hypothesis that passes the CRC per candidate.  The CRC covers all
+    77 bits, so a wrong hypothesis does not validate."""
+    llrs = _mf_llrs(wave, p, res.abs_time + t0_hops, res.abs_freq + f0_rows)
+    return _merge_results(res, ap_retry_llrs(llrs, res, ap_values, ap_mask,
+                                             max_iterations, use_osd))
+
+
+@record_function("ft8.ap")
+def ap_coherent_retry(wave: torch.Tensor, p: WaterfallParams,
+                      res: SlotDecodeResult, t0_hops: int, f0_rows: int,
+                      ap_values: torch.Tensor, ap_mask: torch.Tensor,
+                      max_iterations: int = 20, use_osd: bool = False,
+                      num_branches: int = 5) -> SlotDecodeResult:
+    """The hypotheses clamped inside every coherent branch: (B branches x
+    V hypotheses x K candidates) rows decode as one batch, the first
+    (branch, hypothesis) that passes the CRC per candidate."""
+    cllrs = _coherent_llrs(wave, p, res, t0_hops, f0_rows, num_branches)
+    clamped = _ap_clamped(cllrs, ap_values, ap_mask)      # (B, V, K, 174)
+    return _merge_results(res, variant_retry(
+        clamped.flatten(0, 1), res, max_iterations, use_osd))
 
 
 # ---------------------------------------------------------------------------
@@ -509,27 +658,34 @@ def decode_waterfall_mf(mag: torch.Tensor, wave: torch.Tensor,
     ``mag`` (F, T), every candidate decoded from matched-filter LLRs of the
     block spectra in one BP (+ OSD) pass.  ``spec`` optionally carries the
     complex block spectra of the uncropped ``wave``; t0_hops / f0_rows
-    translate crop-relative candidates to absolute ones.  ``is_complex``
-    and ``mf_refine`` raise NotImplementedError.
+    translate crop-relative candidates to absolute ones.  ``mf_refine``
+    adds the sub-grid offset search: the base LLRs decode first and the
+    refined ones retry the failures.  ``is_complex`` raises
+    NotImplementedError.
     """
     if is_complex:
         raise _not_ported("is_complex", _TODO_WATERFALL)
-    if mf_refine:
-        raise _not_ported("mf_refine", _TODO_MF)
     with record_function("ft8.sync"):
         scores = sync_scores_kernel(mag, g)
     with record_function("ft8.top_k"):
         abs_time, abs_freq, score, cand_valid = find_candidates(
             scores, g, max_candidates, min_score)
-    with record_function("ft8.llrs"):
-        if spec is None:
-            _require_block(p)
-            spec = _block_spectrum(wave, p, p.num_frames(wave.shape[-1]))
-        llrs = extract_llrs_matched_blocks(spec, abs_time + t0_hops,
-                                           abs_freq + f0_rows, p.time_osr,
-                                           p.freq_osr)
-    return finish_decode(llrs, abs_time, abs_freq, score, cand_valid,
-                         max_iterations, use_osd)
+    if spec is None or mf_refine:
+        llrs = _mf_llrs(wave, p, abs_time + t0_hops, abs_freq + f0_rows,
+                        refine=mf_refine)
+    else:
+        with record_function("ft8.llrs"):
+            llrs = extract_llrs_matched_blocks(spec, abs_time + t0_hops,
+                                               abs_freq + f0_rows,
+                                               p.time_osr, p.freq_osr)
+    if not mf_refine:
+        return finish_decode(llrs, abs_time, abs_freq, score, cand_valid,
+                             max_iterations, use_osd)
+    res = finish_decode(llrs[0], abs_time, abs_freq, score, cand_valid,
+                        max_iterations, use_osd)
+    return _merge_results(res, finish_decode(llrs[1], abs_time, abs_freq,
+                                             score, cand_valid,
+                                             max_iterations, use_osd))
 
 
 def _block_spec_and_mag(wave: torch.Tensor, p: WaterfallParams,
@@ -671,6 +827,14 @@ def decode_ft8_message(wave_data, sample_rate: float,
     * ``use_osd``: ordered-statistics decoding of the candidates BP leaves;
     * ``use_mf``: the matched-filter retry of failed candidates;
     * ``mf_first``: every candidate from matched-filter LLRs in one pass;
+    * ``mf_refine``: the matched filter (first pass or retry) also takes
+      each candidate's best sub-grid (dt, df) offset;
+    * ``coherent``: the coherent phase-track retry (:func:`coherent_retry`);
+    * ``ap``: the a-priori retry (:func:`ap_retry`): True tries "CQ ? ?",
+      "MYCALL" adds "MYCALL ? ?", "MYCALL DXCALL" the full-QSO and
+      RRR/RR73/73 hypotheses; with ``coherent`` a null hypothesis and then
+      each a-priori one are also clamped inside every coherent branch
+      (:func:`ap_coherent_retry`) in place of the plain coherent retry;
     * ``passes`` > 1: after each pass the decoded transmissions are
       subtracted and the residual decoded again; later passes report only
       new payloads;
@@ -679,18 +843,11 @@ def decode_ft8_message(wave_data, sample_rate: float,
     * ``return_metrics``: also return the first pass's ``SlotMetrics``.
 
     Not ported yet (NotImplementedError naming the ROADMAP item): complex
-    input, ``ap``, ``coherent``, ``mf_refine``, ``refine_fixes``; and
-    geometries other than the block one.
+    input, ``refine_fixes``, and geometries other than the block one.
     """
     wave = np.asarray(wave_data)
     if np.iscomplexobj(wave):
         raise _not_ported("complex input", _TODO_WATERFALL)
-    if ap:
-        raise _not_ported("ap", _TODO_AP)
-    if coherent:
-        raise _not_ported("coherent", _TODO_DECODERS)
-    if mf_refine:
-        raise _not_ported("mf_refine", _TODO_MF)
     if refine_fixes:
         raise _not_ported("refine_fixes", _TODO_BEACON)
     device = entry_device(device)
@@ -708,6 +865,7 @@ def decode_ft8_message(wave_data, sample_rate: float,
     wave_d = torch.as_tensor(wave.astype(np.float32), device=device)
     hop_seconds = C.SYMBOL_PERIOD_S / p.time_osr
     freq_step = C.TONE_SPACING_HZ / p.freq_osr
+    ap_vm = ap_arrays(ap, device) if ap else None
     f_lo, f_hi, t_lo, t_hi = 0, p.num_freq_bins, 0, num_frames
     if freq_min is not None or freq_max is not None:
         f_lo, f_hi = _crop(np.arange(p.num_freq_bins) * freq_step,
@@ -722,7 +880,7 @@ def decode_ft8_message(wave_data, sample_rate: float,
     for pass_idx in range(max(1, passes)):
         spec = None
         with record_function("ft8.waterfall"):
-            if mf_first:
+            if mf_first and not mf_refine:
                 # the block spectra feed both the dB waterfall and the
                 # boxcar matched-filter DFTs
                 spec, mag = _block_spec_and_mag(wave_d, p, num_frames)
@@ -739,13 +897,29 @@ def decode_ft8_message(wave_data, sample_rate: float,
         if mf_first:
             res = decode_waterfall_mf(mag, wave_d, p, g, t_lo, f_lo,
                                       max_candidates, float(min_score),
-                                      max_iterations, use_osd, spec=spec)
+                                      max_iterations, use_osd, spec=spec,
+                                      mf_refine=mf_refine)
         else:
             res = decode_waterfall(mag, g, max_candidates, float(min_score),
                                    max_iterations, use_osd)
             if use_mf:
                 res = mf_retry(wave_d, p, res, t_lo, f_lo, max_iterations,
-                               use_osd)
+                               use_osd, mf_refine)
+        if coherent and ap_vm is None:
+            res = coherent_retry(wave_d, p, res, t_lo, f_lo, max_iterations,
+                                 use_osd)
+        if ap_vm is not None:
+            res = ap_retry(wave_d, p, res, t_lo, f_lo, *ap_vm,
+                           max_iterations, use_osd)
+            if coherent:
+                # a null (unclamped) hypothesis first: the plain coherent
+                # retry inside the same extraction
+                null = torch.zeros_like(ap_vm[0][:1])
+                res = ap_coherent_retry(
+                    wave_d, p, res, t_lo, f_lo,
+                    torch.cat([null, ap_vm[0]]),
+                    torch.cat([null.bool(), ap_vm[1]]), max_iterations,
+                    use_osd)
         if first_res is None:
             first_res = res
         snr = estimate_snr(mag, res.payload, res.abs_time, res.abs_freq,

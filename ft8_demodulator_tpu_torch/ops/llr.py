@@ -14,21 +14,35 @@ max-of-4 LLRs and normalise each vector to variance 24.
   so zero LLRs.
 * :func:`extract_llrs_matched_blocks` assembles the boxcar symbol DFTs
   from the slot's block spectra (blocks outside the slot are zero).
+* :func:`extract_llrs_matched` evaluates the boxcar symbol DFTs straight
+  from the audio (any geometry), :func:`extract_llrs_matched_refined` the
+  same on a sub-grid of (dt, df) offsets around each candidate, and
+  :func:`extract_llrs_coherent` projects the complex symbol correlations
+  onto each candidate's carrier-phase track (branch variants).
 
 The JAX package routes the reads through one-hot matmuls (a TPU
 workaround); here they are index gathers, which select the same cells
-exactly.
+exactly.  The direct forms' tone DFTs and the coherent path's small
+correlation products are float64 matrix products rounded once to float32
+(the JAX package's HIGH precision, whatever the order of the sums and
+whether the card would use TF32).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..protocol import constants as C
+from .subtract import _linspace_f32
 
-__all__ = ["extract_llrs", "extract_llrs_tf", "extract_llrs_matched_grid",
-           "extract_llrs_matched_blocks", "normalize_llrs"]
+__all__ = ["extract_llrs", "extract_llrs_tf", "extract_llrs_matched",
+           "extract_llrs_matched_grid", "extract_llrs_matched_blocks",
+           "extract_llrs_matched_refined", "extract_llrs_coherent",
+           "extract_llrs_coherent_stacked", "normalize_llrs"]
 
 # Bit b of symbol value j (MSB first) — selects the max-of-4 groups.
 _BIT_SET = np.array(
@@ -199,3 +213,380 @@ def extract_llrs_matched_blocks(spec: torch.Tensor, abs_time: torch.Tensor,
     174)."""
     return _powers_to_llrs(_mf_block_powers(spec, abs_time, abs_freq,
                                             time_osr, freq_osr), gray_map)
+
+
+# ---------------------------------------------------------------------------
+# matched-filter LLRs straight from the audio (any geometry)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def _mf_tone_matrices(sps: int) -> tuple[np.ndarray, np.ndarray]:
+    """(sps, 8) cos/sin of the integer-tone boxcar DFT
+    e^{-2pi i tone n/sps}."""
+    n = np.arange(sps)[:, None]
+    tone = np.arange(8)[None, :]
+    ang = -2.0 * np.pi * ((n * tone) % sps) / sps
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _mf_mix_tables(sps: int, phi: int) -> tuple[np.ndarray, np.ndarray]:
+    """(sps*phi,) cos/sin lookup for e^{-2pi i q n/(sps*phi)} mixes."""
+    ang = -2.0 * np.pi * np.arange(sps * phi) / (sps * phi)
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+def _tone_block(tc: np.ndarray, ts: np.ndarray) -> np.ndarray:
+    """(..., sps, 8) cos/sin -> the (..., 2*sps, 16) float64 matrix M with
+    [xr, xi] @ M = [xr@tc - xi@ts, xr@ts + xi@tc] (real, imaginary part of
+    the complex product)."""
+    tc, ts = np.float64(tc), np.float64(ts)
+    return np.concatenate([np.concatenate([tc, ts], -1),
+                           np.concatenate([-ts, tc], -1)], -2)
+
+
+def _refine_tone_matrices(sps: int, phi: int, nf: int
+                          ) -> list[tuple[np.ndarray, np.ndarray]]:
+    """The refined search's nf (sps, 8) cos/sin tone matrices: the integer
+    tones shifted by the df bin centres of one candidate row."""
+    f_fr = [(i + 0.5) / nf - 0.5 for i in range(nf)]
+    n_ = np.arange(sps)[:, None]
+    tone = np.arange(8)[None, :]
+    mats = []
+    for df in f_fr:
+        ang = -2.0 * np.pi * n_ * (tone / sps + df / (sps * phi))
+        mats.append((np.cos(ang).astype(np.float32),
+                     np.sin(ang).astype(np.float32)))
+    return mats
+
+
+class _MFTables(NamedTuple):
+    """The direct matched filter's constants on one device."""
+
+    mix_cos: torch.Tensor     # (sps*phi,) float32
+    mix_sin: torch.Tensor
+    tones: torch.Tensor       # (2*sps, 16) float64 block of the integer tones
+    gray_map: torch.Tensor    # (8,) int64
+
+
+@functools.lru_cache(maxsize=16)
+def _mf_tables(sps: int, phi: int, device: torch.device) -> _MFTables:
+    """The constants of (sps, phi) on ``device``, built once."""
+    t = lambda a: torch.as_tensor(a, device=device)
+    return _MFTables(*map(t, _mf_mix_tables(sps, phi)),
+                     t(_tone_block(*_mf_tone_matrices(sps))),
+                     t(np.asarray(C.GRAY_MAP, np.int64)))
+
+
+@functools.lru_cache(maxsize=16)
+def _refine_blocks(sps: int, phi: int, nf: int,
+                   device: torch.device) -> torch.Tensor:
+    """The refined search's (2*sps, nf*16) float64 tone blocks on
+    ``device``, built once."""
+    return torch.as_tensor(np.concatenate(
+        [_tone_block(tc, ts) for tc, ts in
+         _refine_tone_matrices(sps, phi, nf)], -1), device=device)
+
+
+def _tone_dft(xr: torch.Tensor, xi: torch.Tensor,
+              block: torch.Tensor) -> torch.Tensor:
+    """Mixed windows (..., sps) x2 -> [re, im] tone correlations (...,
+    block columns) float32: the products summed in float64 and rounded
+    once."""
+    return (torch.cat([xr, xi], -1).double() @ block).float()
+
+
+def _padded(wave: torch.Tensor, sps: int, is_complex: bool):
+    """Audio (..., n) real or (..., n, 2) [re, im] -> (real, imaginary or
+    None) float32 (..., n + 2*79*sps), 79 symbols of zeros on each side:
+    windows past either end read zeros."""
+    n_sig = C.NUM_SYMBOLS * sps
+    pad = lambda x: torch.nn.functional.pad(x.to(torch.float32),
+                                            (n_sig, n_sig))
+    if is_complex:
+        return pad(wave[..., 0]), pad(wave[..., 1])
+    return pad(wave), None
+
+
+def _windows(xp: torch.Tensor, starts: torch.Tensor, positions: torch.Tensor,
+             sps: int) -> torch.Tensor:
+    """Padded audio (R..., L) + window starts (S..., K) (sample of symbol
+    0 in ``xp``, clipped so that the 79 symbols lie inside) + symbol
+    positions (P,) -> (R..., S..., K, P, sps): one gather of whole symbols
+    from a strided view (an index per symbol, not per sample)."""
+    n_sig = C.NUM_SYMBOLS * sps
+    starts = starts.clamp(0, xp.shape[-1] - n_sig)
+    rows = starts[..., None] + positions * sps            # (S..., K, P)
+    return xp.unfold(-1, sps, 1)[..., rows, :]
+
+
+def _mixes(abs_freq: torch.Tensor, sps: int, phi: int, tables: _MFTables):
+    """Per-candidate (K, sps) cos/sin of e^{-2pi i q n/(sps*phi)}, q the
+    candidate's row, by modular lookup."""
+    m = sps * phi
+    q = torch.remainder(abs_freq.to(torch.int64), m)
+    tab = torch.remainder(q[:, None] * torch.arange(sps, device=q.device), m)
+    return tables.mix_cos[tab], tables.mix_sin[tab]
+
+
+def _mix(wr, wi, mc, ms):
+    """Windows (..., K, P, sps) times the candidates' (K, sps) mixes."""
+    mc, ms = mc[:, None, :], ms[:, None, :]
+    if wi is None:
+        return wr * mc, wr * ms
+    return wr * mc - wi * ms, wr * ms + wi * mc
+
+
+def _positions(rows, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(rows, np.int64), device=device)
+
+
+def _tone_corr(xp, starts: torch.Tensor, rows, mixes, block: torch.Tensor,
+               sps: int) -> torch.Tensor:
+    """Padded audio (real, imaginary or None) (R..., L) + window starts
+    (S..., K) + symbol positions ``rows`` + the candidates' (K, sps) mixes
+    -> [re, im] tone correlations (R..., S..., K, P, block columns)."""
+    pos = _positions(rows, starts.device)
+    wr = _windows(xp[0], starts, pos, sps)
+    wi = None if xp[1] is None else _windows(xp[1], starts, pos, sps)
+    return _tone_dft(*_mix(wr, wi, *mixes), block)
+
+
+def _mf_direct_powers(wave: torch.Tensor, abs_time: torch.Tensor,
+                      abs_freq: torch.Tensor, sps: int, hop: int,
+                      freq_osr: int, is_complex: bool) -> torch.Tensor:
+    """Audio (n[, 2]) -> per-candidate boxcar symbol powers (K, 58, 8)."""
+    dev = wave.device
+    tables = _mf_tables(sps, freq_osr, dev)
+    starts = abs_time.to(dev, torch.int64) * hop + C.NUM_SYMBOLS * sps
+    y = _tone_corr(_padded(wave, sps, is_complex), starts,
+                   C.DATA_SYMBOL_POSITIONS,
+                   _mixes(abs_freq.to(dev), sps, freq_osr, tables),
+                   tables.tones, sps)
+    re, im = y[..., :8], y[..., 8:]
+    return re * re + im * im
+
+
+def extract_llrs_matched(wave: torch.Tensor, abs_time: torch.Tensor,
+                         abs_freq: torch.Tensor, sps: int, hop: int,
+                         freq_osr: int,
+                         is_complex: bool = False) -> torch.Tensor:
+    """Matched-filter LLRs straight from the audio: (K, 174), normalised.
+
+    Each of the 58 data symbols is a rectangular window of exactly one
+    symbol (sps samples) at the candidate's start (abs_time * hop), mixed
+    down by the candidate's row (``abs_freq`` in 1/freq_osr tone steps, an
+    (sps*freq_osr)-entry lookup) and correlated with the 8 integer tones.
+    ``wave``: (n,) real or (n, 2) [re, im] with ``is_complex``.  Samples
+    before or past the audio read zero.
+    """
+    tables = _mf_tables(sps, freq_osr, wave.device)
+    return _powers_to_llrs(_mf_direct_powers(
+        wave, abs_time, abs_freq, sps, hop, freq_osr, is_complex),
+        tables.gray_map)
+
+
+def extract_llrs_matched_refined(wave: torch.Tensor, abs_time: torch.Tensor,
+                                 abs_freq: torch.Tensor, sps: int, hop: int,
+                                 freq_osr: int, is_complex: bool = False,
+                                 nt: int = 5, nf: int = 3
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Matched-filter LLRs with a per-candidate sub-grid (dt, df) offset
+    search: (llrs_base, llrs_refined), each (K, 174).
+
+    The offsets are the nt x nf bin centres of one candidate cell (dt in
+    samples, ``int(round(.))`` of fractions of a hop; df in fractions of a
+    row, folded into the tone matrices).  Each offset is scored on the 21
+    Costas symbols by the linear-power contrast (on-tone power minus the
+    8-tone mean, summed); each candidate takes its first best offset
+    (``best`` = argmax over dt-major offsets) for the 58 data symbols.
+    ``llrs_base`` is the (0, 0) offset: callers decode it first and retry
+    the failures with ``llrs_refined``.
+    """
+    if nt % 2 == 0 or nf % 2 == 0:
+        raise ValueError("nt/nf must be odd so the (0, 0) base offset is "
+                         "a grid point (it feeds llrs_base)")
+    dev = wave.device
+    phi = freq_osr
+    k = abs_freq.shape[0]
+    tables = _mf_tables(sps, phi, dev)
+    blocks = _refine_blocks(sps, phi, nf, dev)
+    xp = _padded(wave, sps, is_complex)
+    t_fr = [(i + 0.5) / nt - 0.5 for i in range(nt)]
+    dts = torch.as_tensor([int(round(f * hop)) for f in t_fr],
+                          dtype=torch.int64, device=dev)
+    s0 = abs_time.to(dev, torch.int64) * hop + C.NUM_SYMBOLS * sps
+    mixes = _mixes(abs_freq.to(dev), sps, phi, tables)
+    tone_corr = lambda starts, rows, block: _tone_corr(xp, starts, rows,
+                                                       mixes, block, sps)
+
+    # stage 1: every offset scored on the 21 Costas symbols
+    costas_pos = np.flatnonzero(C.FRAME_IS_COSTAS)
+    y = tone_corr(s0 + dts[:, None], costas_pos, blocks)
+    y = y.reshape(nt, k, len(costas_pos), nf, 16).transpose(2, 3)
+    pw = y[..., :8] ** 2 + y[..., 8:] ** 2                # (nt, K, nf, 21, 8)
+    tone = _positions(C.FRAME_COSTAS_TONE[costas_pos], dev)
+    on = pw[..., torch.arange(len(costas_pos), device=dev), tone]
+    scores = (on - pw.mean(-1)).sum(-1)                   # (nt, K, nf)
+    best = torch.argmax(scores.transpose(1, 2).reshape(nt * nf, k), dim=0)
+    dt_best = dts[best // nf]
+    df_idx = best % nf
+
+    sym = C.DATA_SYMBOL_POSITIONS
+    centre = blocks[:, (nf // 2) * 16: (nf // 2 + 1) * 16]
+    y0 = tone_corr(s0, sym, centre)
+    base = _powers_to_llrs(y0[..., :8] ** 2 + y0[..., 8:] ** 2,
+                           tables.gray_map)
+    yb = tone_corr(s0 + dt_best, sym, blocks)
+    yb = yb.reshape(k, len(sym), nf, 16)[torch.arange(k, device=dev), :,
+                                         df_idx]          # (K, 58, 16)
+    return base, _powers_to_llrs(yb[..., :8] ** 2 + yb[..., 8:] ** 2,
+                                 tables.gray_map)
+
+
+# ---------------------------------------------------------------------------
+# coherent matched-filter LLRs
+# ---------------------------------------------------------------------------
+
+def extract_llrs_coherent(wave: torch.Tensor, abs_time: torch.Tensor,
+                          abs_freq: torch.Tensor, sps: int, hop: int,
+                          freq_osr: int, is_complex: bool = False,
+                          num_branches: int = 5) -> torch.Tensor:
+    """Coherent matched-filter LLR variants: (B, K, 174), B =
+    ``num_branches``, the centre branch first.
+
+    FT8's modulation index is 1, so the complex one-symbol tone
+    correlations of a transmission share one carrier-phase track theta +
+    2pi df s (+ 2pi dt k for a fractional timing offset).  The track is
+    estimated from the 21 Costas cells: a 9-step dt grid over +-hop/2
+    (best by the coarse-df coherence metric), a coarse df grid for the
+    centre branch, then per branch (1/36 cycle/symbol apart: the Costas
+    blocks sit 36 symbols apart) an 11 x 5 fine (df, dt) grid and a phase.
+    Each branch projects the 79 symbols onto its track, clamps at 0 and
+    forms LLRs from the linear powers.  Real input is first made analytic
+    by one FFT (its negative-frequency image forms a second coherent
+    track).
+    """
+    return extract_llrs_coherent_stacked(
+        wave[None], abs_time, abs_freq, sps, hop, freq_osr, is_complex,
+        num_branches)
+
+
+def extract_llrs_coherent_stacked(waves: torch.Tensor, abs_time: torch.Tensor,
+                                  abs_freq: torch.Tensor, sps: int, hop: int,
+                                  freq_osr: int, is_complex: bool = False,
+                                  num_branches: int = 5) -> torch.Tensor:
+    """Coherent LLR variants from R slot-aligned repeats (R, n[, 2]) of one
+    transmission: the track search sums the repeats' coherence metrics,
+    each repeat gets its own phase, and the projected powers are summed
+    over the repeats.  R = 1 is :func:`extract_llrs_coherent`."""
+    dev = waves.device
+    phi = freq_osr
+    k = abs_freq.shape[0]
+    tables = _mf_tables(sps, phi, dev)
+    n_sig = C.NUM_SYMBOLS * sps
+    costas_pos = np.flatnonzero(C.FRAME_IS_COSTAS)
+    n_costas = len(costas_pos)
+    cpos = _positions(costas_pos, dev).to(torch.float32)
+    ctone = _positions(C.FRAME_COSTAS_TONE[costas_pos], dev)
+    c_idx = torch.arange(n_costas, device=dev)
+    two_pi = 2.0 * np.pi
+
+    if not is_complex:
+        # the analytic signal: one FFT per repeat, the negative
+        # frequencies zeroed and the positive ones doubled
+        n = waves.shape[1]
+        spec = torch.fft.fft(waves.to(torch.complex64), dim=1)
+        weight = torch.zeros(n, dtype=torch.float32, device=dev)
+        weight[0] = 1.0
+        weight[1:(n + 1) // 2] = 2.0
+        if n % 2 == 0:
+            weight[n // 2] = 1.0
+        waves = torch.view_as_real(torch.fft.ifft(spec * weight, dim=1))
+    xp = _padded(waves, sps, True)                        # (R, L) x2
+
+    mixes = _mixes(abs_freq.to(dev), sps, phi, tables)
+    # the per-symbol mix restarts its phase at every window, leaving a
+    # residual phase step of 2pi (abs_freq mod phi)/phi per symbol; the
+    # division is XLA's multiply by fl32(1/phi)
+    q_frac = torch.remainder(abs_freq.to(dev, torch.int64), phi).to(
+        torch.float32) * np.float32(1.0 / phi)
+    s0 = abs_time.to(dev, torch.int64) * hop + n_sig
+
+    def complex_syms(dt, rows):
+        """Window offsets dt (broadcast to (..., K)) -> (R, ..., K, P, 8)
+        complex tone correlations, the base-row phase step removed."""
+        y = _tone_corr(xp, s0 + dt, rows, mixes, tables.tones, sps)
+        re, im = y[..., :8], y[..., 8:]
+        ang0 = (-two_pi * q_frac[:, None]) * _positions(rows, dev).to(
+            torch.float32)
+        cos0 = torch.cos(ang0)[..., None]
+        sin0 = torch.sin(ang0)[..., None]
+        return re * cos0 - im * sin0, re * sin0 + im * cos0
+
+    def costas_z(re, im):
+        """On-track Costas values (..., 21) from (..., 21, 8)."""
+        return re[..., c_idx, ctone], im[..., c_idx, ctone]
+
+    # stage 1: the dt grid, scored by the coarse-df coherence metric
+    dts = np.round(np.linspace(-hop // 2, hop // 2, 9)).astype(np.int64)
+    half_row = 0.5 / phi + 0.02
+    n_coarse = int(np.ceil(2 * half_row * 4 * C.NUM_SYMBOLS)) | 1
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    deltas = _linspace_f32(f32(-half_row), f32(half_row), n_coarse)
+    ramp = (-two_pi * deltas[:, None]) * cpos[None, :]    # (D, 21)
+    rc, rs = torch.cos(ramp), torch.sin(ramp)
+    spec_block = torch.cat([torch.cat([rc.T, rs.T], 1),
+                            torch.cat([-rs.T, rc.T], 1)], 0).double()
+
+    def spectrum(zr, zi):
+        """Coherence spectrum summed over the repeats: (R, ..., 21) ->
+        (..., D)."""
+        s = (torch.cat([zr, zi], -1).double() @ spec_block).float()
+        sr, si = s[..., :n_coarse], s[..., n_coarse:]
+        return (sr * sr + si * si).sum(0)
+
+    re, im = complex_syms(_positions(dts, dev)[:, None], costas_pos)
+    mets = spectrum(*costas_z(re, im)).amax(-1)           # (9, K)
+    dt_sel = _positions(dts, dev)[torch.argmax(mets, dim=0)]
+
+    # the 79 symbols at each candidate's dt; stage 2: the centre branch
+    re79, im79 = complex_syms(dt_sel, np.arange(C.NUM_SYMBOLS))
+    zr79, zi79 = costas_z(re79[..., costas_pos, :], im79[..., costas_pos, :])
+    d_centre = deltas[torch.argmax(spectrum(zr79, zi79), dim=-1)]   # (K,)
+
+    # stages 3-4: every branch's fine (df, dt) track and projection
+    order = [0, 1, -1, 2, -2, 3, -3][:num_branches]
+    step = torch.tensor([m * (1.0 / 36.0) for m in order],
+                        dtype=torch.float32, device=dev)
+    fine_d = _linspace_f32(f32(-0.016), f32(0.016), 11)
+    fine_t = _linspace_f32(f32(-0.06), f32(0.06), 5)
+    t2 = fine_t.shape[0]
+    d_all = (d_centre[None, :] + step[:, None])[..., None] + fine_d  # (B,K,F)
+    angf = ((-two_pi * d_all)[..., None, None] * cpos) \
+        - (two_pi * fine_t)[:, None] * ctone.to(torch.float32)
+    angf = angf.reshape(*d_all.shape[:2], -1, n_costas)  # (B, K, F*T2, 21)
+    cf, sf = torch.cos(angf), torch.sin(angf)
+    w = torch.cat([torch.cat([cf, -sf], -1), torch.cat([sf, cf], -1)],
+                  2).double()                             # (B, K, 2X, 42)
+    z = torch.einsum("rkc,bkxc->rbkx", torch.cat([zr79, zi79], -1).double(),
+                     w).float()
+    x = angf.shape[2]
+    zrr, zii = z[..., :x], z[..., x:]                     # (R, B, K, X)
+    idx = torch.argmax((zrr * zrr + zii * zii).sum(0), dim=-1)       # (B, K)
+    d_fin = torch.gather(d_all, 2, (idx // t2)[..., None])[..., 0]
+    t_fin = fine_t[idx % t2]
+    pick = lambda a: torch.gather(
+        a, 3, idx[None, ..., None].expand(a.shape[0], -1, -1, 1))[..., 0]
+    th = torch.atan2(pick(zii), pick(zrr))                # (R, B, K)
+    s79 = torch.arange(C.NUM_SYMBOLS, dtype=torch.float32, device=dev)
+    tone8 = torch.arange(8, dtype=torch.float32, device=dev)
+    track = th[..., None, None] \
+        + (two_pi * d_fin)[..., None, None] * s79[:, None] \
+        + (two_pi * t_fin)[..., None, None] * tone8       # (R, B, K, 79, 8)
+    proj = re79[:, None] * torch.cos(track) + im79[:, None] * torch.sin(track)
+    proj = torch.clamp(proj, min=0.0)
+    powers = (proj * proj).sum(0)[:, :, _positions(C.DATA_SYMBOL_POSITIONS,
+                                                   dev)]  # (B, K, 58, 8)
+    llr = _llr_from_powers(powers[..., tables.gray_map])
+    return normalize_llrs(llr.reshape(len(order), k, C.LDPC_N))

@@ -140,6 +140,18 @@ def _require_block(p: WaterfallParams) -> None:
             "yet: ROADMAP.md, queue 1, 'waterfall backends'")
 
 
+@functools.lru_cache(maxsize=8)
+def _block_constants(p: WaterfallParams, device: torch.device):
+    """((cos, sin) float64 DFT matrices, (cos, sin) float32 combine phases)
+    of geometry ``p`` on ``device``, copied there once."""
+    dft = tuple(torch.as_tensor(m, device=device).double()
+                for m in _block_dft_matrices(p.hop, p.nfft, p.num_freq_bins,
+                                             p.freq_osr))
+    phases = tuple(torch.as_tensor(m, device=device)
+                   for m in _block_combine_phases(p))
+    return dft, phases
+
+
 def _blocks(wave: torch.Tensor, p: WaterfallParams,
             num_frames: int) -> torch.Tensor:
     """Real (..., n) -> (..., nb, hop) non-overlapping hop blocks."""
@@ -157,9 +169,7 @@ def _block_spectrum(wave: torch.Tensor, p: WaterfallParams,
     (exact float32), whatever the order of the sums.
     """
     blocks = _blocks(wave, p, num_frames).double()
-    cos_m, sin_m = (torch.as_tensor(m, device=wave.device).double()
-                    for m in _block_dft_matrices(p.hop, p.nfft,
-                                                 p.num_freq_bins, p.freq_osr))
+    cos_m, sin_m = _block_constants(p, wave.device)[0]
     return torch.complex((blocks @ cos_m).float(), (blocks @ sin_m).float())
 
 
@@ -168,10 +178,9 @@ def _block_power(spec: torch.Tensor, p: WaterfallParams, num_frames: int,
                  ) -> torch.Tensor:
     """Combine complex block spectra (..., nb, Kx) into windowed power
     (..., T, K).  ``phases`` = (cos, sin) (time_osr, Kx) float32 tensors;
-    None builds them from :func:`_block_combine_phases`."""
+    None takes the cached ones of :func:`_block_combine_phases`."""
     if phases is None:
-        phases = tuple(torch.as_tensor(m, device=spec.device)
-                       for m in _block_combine_phases(p))
+        phases = _block_constants(p, spec.device)[1]
     w = torch.complex(*phases)
     u = spec[..., 0:num_frames, :] * w[0]
     for s in range(1, p.time_osr):
@@ -198,8 +207,7 @@ def _block_boxcar_tf(spec: torch.Tensor, p: WaterfallParams, num_frames: int,
     same combine as row t + time_osr - 1.
     """
     if phases is None:
-        phases = tuple(torch.as_tensor(m, device=spec.device)
-                       for m in _block_combine_phases(p))
+        phases = _block_constants(p, spec.device)[1]
     tau, phi = p.time_osr, p.freq_osr
     k0, k1 = phi, phi + p.num_freq_bins
     nbrows = num_frames + 2 * (tau - 1)

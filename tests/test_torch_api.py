@@ -3,7 +3,8 @@
 The same numpy captures at fs 2 kHz go through the JAX package's
 ``decode_ft8_message`` and the port's, for every ported option: STANDARD,
 a DEEP-like run (osr 4x4, K 40, min_score 1, OSD, the matched-filter
-retry), ``mf_first``, a frequency + time crop, ``passes=2`` on the
+retry), ``mf_first``, DEEP with ``mf_refine``, ``coherent``, ``ap`` and
+``coherent`` + ``ap``, a frequency + time crop, ``passes=2`` on the
 subtraction recipe of ``tests/test_multipass.py`` and ``return_metrics``.
 The rows must be identical (payload, time, frequency, SNR, status), with
 the score within 1e-5 (the port's waterfall sums its DFT products in
@@ -22,6 +23,7 @@ import torch
 
 import jax.numpy as jnp
 
+from ft8_demodulator_tpu import protocol as jproto
 from ft8_demodulator_tpu.demod import decode as jdec
 from ft8_demodulator_tpu.ops import llr as jllr
 from ft8_demodulator_tpu.ops import sync as jsync
@@ -31,6 +33,7 @@ from ft8_demodulator_tpu.ops.subtract import subtract_decoded as jsub
 from ft8_demodulator_tpu.protocol import constants as JC
 from ft8_demodulator_tpu.utils import metrics as jmetrics
 import ft8_demodulator_tpu_torch.demod as tdemod
+import ft8_demodulator_tpu_torch.protocol as tproto
 from ft8_demodulator_tpu_torch.demod import decode as tdec
 from ft8_demodulator_tpu_torch.ops import llr as tllr
 from ft8_demodulator_tpu_torch.ops import sync as tsync
@@ -85,6 +88,10 @@ CASES = {
     "standard": dict(min_score=5.0),
     "deep": DEEP,
     "mf_first": dict(DEEP, use_mf=False, mf_first=True),
+    "mf_refine": dict(DEEP, mf_refine=True),
+    "coherent": dict(DEEP, coherent=True),
+    "ap": dict(DEEP, ap="K1ABC"),
+    "coherent+ap": dict(DEEP, coherent=True, ap="K1ABC W9XYZ"),
     "crop": dict(min_score=2.0, freq_min=350.0, freq_max=700.0,
                  time_min=0.3, time_max=12.0),
     "no_dedup": dict(min_score=1.0, deduplicate=False,
@@ -285,28 +292,29 @@ def test_decode_waterfall_matches_jax(capture):
 
 def test_unported_options_raise_naming_roadmap(capture):
     wave, _ = capture
-    for kw, item in ((dict(ap=True), "items 2"), (dict(ap="K1ABC"), "items 2"),
-                     (dict(coherent=True), "item 2"),
-                     (dict(mf_refine=True), "item 1"),
-                     (dict(refine_fixes=True), "item 6")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-            tdec.decode_ft8_message(wave, FS, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 6"):
+        tdec.decode_ft8_message(wave, FS, device="cpu", refine_fixes=True)
     with pytest.raises(NotImplementedError, match="item 3"):
         tdec.decode_ft8_message(wave.astype(np.complex64), FS, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tdec.decode_ft8_message(wave, FS, steps_per_symbol=3, device="cpu")
     p = waterfall_params(FS, 2, 2)
     g = tsync.search_grid(p.num_freq_bins, p.num_frames(N), 2, 2)
-    for kw in (dict(is_complex=True), dict(mf_refine=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tdec.decode_waterfall_mf(torch.zeros(p.num_freq_bins, 186),
-                                     torch.as_tensor(wave), p, g, 0, 0, 20,
-                                     5.0, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 3"):
+        tdec.decode_waterfall_mf(torch.zeros(p.num_freq_bins, 186),
+                                 torch.as_tensor(wave), p, g, 0, 0, 20, 5.0,
+                                 is_complex=True)
 
 
 def test_exports_and_metrics_copy_match_jax(capture):
     for name in ("decode_ft8_message", "decode_waterfall", "estimate_snr"):
         assert name in tdemod.__all__ and hasattr(tdemod, name)
+    # the retries: exported by the decode module as the JAX package's is
+    for name in ("mf_retry", "ap_retry", "coherent_retry"):
+        assert name in jdec.__all__
+        assert name in tdec.__all__ and hasattr(tdec, name)
+    assert {"ap_hypotheses", "pack_message", "unpack_message"} <= \
+        set(tproto.__all__) & set(jproto.__all__)
     assert tmetrics.SlotMetrics.__dataclass_fields__.keys() == \
         jmetrics.SlotMetrics.__dataclass_fields__.keys()
     wave, _ = capture

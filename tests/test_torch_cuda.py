@@ -2,7 +2,9 @@
 waterfall (dB only and dual output), the OSD kernel (reliability order ->
 reduced bases) and the sync stencil (time-major and frequency-major, the
 generic instance's shrunk tiles included); the limits left on the card
-raise ValueErrors; the host decode API on the card against the CPU;
+raise ValueErrors; the host decode API on the card against the CPU; the
+direct, refined and coherent matched-filter LLRs on the card against the
+CPU;
 chip_smoke.py's library yardstick (torch.stft) against the float32 plain
 waterfall.
 
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from ft8_demodulator_tpu_torch.demod import decode as tdec
+from ft8_demodulator_tpu_torch.ops import llr as tllr
 from ft8_demodulator_tpu_torch.ops import osd as tosd
 from ft8_demodulator_tpu_torch.ops import osd_cuda as tosc
 from ft8_demodulator_tpu_torch.ops import sync as tsync
@@ -438,6 +441,41 @@ def test_decode_ft8_message_card_matches_cpu(cuda, kw):
         assert abs(a.score - b.score) <= 1e-4
         assert abs(a.snr_db - b.snr_db) <= 0.1
     assert {bytes(p) for p in payloads} <= {r.message.payload for r in card}
+
+
+@pytest.mark.parametrize("osr", [(2, 2), (4, 4)])
+def test_mf_extractions_card_match_cpu(cuda, osr):
+    """The direct, refined and coherent matched-filter LLRs of a 12-kHz
+    capture (four planted signals, candidates on them, in the pre-roll and
+    on noise) on the card against the CPU: direct and refined within 1e-4
+    (float64 tone products on both), coherent within 1e-3 (float32 cos,
+    sin, atan2 and FFT differ by ulps), i.e. the same offset and branch
+    picks."""
+    fs = 12000.0
+    n = int(fs * 15)
+    p = waterfall_params(fs, *osr)
+    waves, _ = _planted(16, fs, n)
+    wave = waves.sum(0) / 2.0
+    step = 6.25 / p.freq_osr
+    rng = np.random.default_rng(5)
+    at = torch.as_tensor(np.concatenate([
+        np.full(4, 300 // p.hop), [-3 * p.time_osr],
+        rng.integers(0, 60 * p.time_osr, 7)]))
+    af = torch.as_tensor(np.concatenate([
+        np.int64((350.0 + 80.0 * np.arange(4)) / step), [int(700 / step)],
+        rng.integers(20, p.num_freq_bins // 2, 7)]))
+    args = (p.nperseg, p.hop, p.freq_osr)
+    for fn, atol in ((tllr.extract_llrs_matched, 1e-4),
+                     (tllr.extract_llrs_matched_refined, 1e-4),
+                     (tllr.extract_llrs_coherent, 1e-3)):
+        card = fn(wave.to(cuda), at.to(cuda), af.to(cuda), *args)
+        host = fn(wave, at, af, *args)
+        torch.cuda.synchronize()
+        card = card if isinstance(card, tuple) else (card,)
+        host = host if isinstance(host, tuple) else (host,)
+        for a, b in zip(card, host):
+            assert a.is_cuda and torch.isfinite(a).all()
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=atol)
 
 
 def _chip_smoke():

@@ -178,7 +178,7 @@ def test_decode_slots_rejects_ragged_chunk_and_unported_options(slots):
     p3 = waterfall_params(FS, 2, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tdec.decode_slots(w, p3, p3.num_frames(N), chunk=1)
-    for opt in ("is_complex", "mf_refine", "coherent"):
+    for opt in ("is_complex",):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tdec.decode_slot(w[0], p, nf, **{opt: True})
 

@@ -23,6 +23,7 @@ def test_torch_import_without_jax():
         "import ft8_demodulator_tpu_torch.ops.subtract\n"
         "import ft8_demodulator_tpu_torch.ops.sync_cuda\n"
         "import ft8_demodulator_tpu_torch.ops.waterfall_cuda\n"
+        "import ft8_demodulator_tpu_torch.protocol.message\n"
         "import ft8_demodulator_tpu_torch.utils.metrics\n"
         "assert 'ft8_demodulator_tpu' not in sys.modules\n"
         "print('ok')\n")
@@ -43,7 +44,10 @@ def test_torch_port_imports_from_a_copy_of_its_package_alone(tmp_path):
         "sys.modules['jax'] = None\n"
         "import ft8_demodulator_tpu_torch.protocol.constants as C\n"
         "import ft8_demodulator_tpu_torch.ops.sync_cuda\n"
+        "from ft8_demodulator_tpu_torch.protocol import message\n"
         "assert C.LDPC_GENERATOR.shape == (83, 91)\n"
+        "assert message.unpack_message(message.pack_message("
+        "'CQ K1ABC FN42')) == 'CQ K1ABC FN42'\n"
         "assert not any(m == 'ft8_demodulator_tpu' or m.startswith("
         "'ft8_demodulator_tpu.') for m in sys.modules)\n"
         "print('ok')\n")

@@ -109,3 +109,30 @@ def test_non_block_geometry_not_ported():
     assert twf._pick_backend(p, None) == "matmul"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         twf.waterfall_real(torch.zeros(N), p, p.num_frames(N))
+
+
+def test_block_constants_copied_once_per_geometry(rng):
+    """The host API's plain waterfall and MF spectra copy the DFT matrices
+    and combine phases to the device once per (geometry, device): a second
+    call builds nothing and gives the same values, those of the numpy
+    builders."""
+    tp = twf.waterfall_params(FS, 4, 4)
+    nf = tp.num_frames(N)
+    wave = torch.as_tensor(_noisy(rng, 1)[0])
+    twf._block_constants.cache_clear()
+    first = twf.waterfall_real(wave, tp, nf)
+    spec = twf._block_spectrum(wave, tp, nf)
+    box = twf._block_boxcar_tf(spec, tp, nf)
+    assert twf._block_constants.cache_info().misses == 1
+    assert torch.equal(twf.waterfall_real(wave, tp, nf), first)
+    assert torch.equal(twf._block_boxcar_tf(spec, tp, nf), box)
+    info = twf._block_constants.cache_info()
+    # seven lookups (waterfall_real makes two), one build
+    assert info.misses == 1 and info.hits == 6
+    (cos_m, sin_m), (wc, ws) = twf._block_constants(tp, wave.device)
+    dft = twf._block_dft_matrices(tp.hop, tp.nfft, tp.num_freq_bins,
+                                  tp.freq_osr)
+    for got, want in zip((cos_m, sin_m, wc, ws),
+                         dft + twf._block_combine_phases(tp)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert cos_m.dtype == torch.float64 and wc.dtype == torch.float32
