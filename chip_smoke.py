@@ -1,5 +1,5 @@
-"""Chip smoke test of the PyTorch port: the STANDARD and DEEP slot decodes
-and the host decode API on one card.
+"""Chip smoke test of the PyTorch port: the STANDARD and DEEP slot decodes,
+the host decode API and the beacon receiver on one card.
 
     python3 chip_smoke.py
 
@@ -97,7 +97,30 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    DEEP), host and device ms per ft8.<stage> record_function range of the
    decoders (host ms exclusive of the ranges nested inside: OSD's ft8.osd
    inside ft8.decode, the retries' decodes inside ft8.ap), from profiler
-   traces of the real calls; peak device memory.
+   traces of the real calls; peak device memory;
+14. the beacon receiver: the waterfall backends on the card against the
+   CPU (waterfall_complex on the block geometry at 12 kHz, the matmul
+   backend at 1,999 Hz real and complex, the fft backend at 32,768 Hz
+   complex and 48 kHz real) within 1e-3 dB above -100 dB; a
+   BeaconSession (12 kHz, max_repeats 8, OSD, coherent, correction,
+   refine_fixes) fed in uneven feeds over 8 cycles of a beacon drifting 3
+   Hz/s at -11 dB (no raw cycle decodes alone, card and CPU) and a tail
+   holding another transmission, then flushed: the beacon reported once,
+   first with two or more cycles in the ring, the tail's payload by the
+   flush, the CPU's rows (times within 1e-3 s, frequencies within 0.01
+   Hz, SNRs within 0.1 dB), the OSD kernel launched in the stacked
+   decodes and the frequency-major sync kernel in the flush only, and a
+   checkpoint saved after 4.5 cycles resumes with the same rows;
+   detect_known_payload at R = 1 and R = 8 and track_known_payload, card
+   against CPU; decode_ft8_message on the analytic form of phase 12's
+   capture and on a 48-kHz resampling of it (fft backend), card rows ==
+   CPU rows, the sync kernel launched; decode_ft8_stacked at 2 kHz, R = 8
+   (the stacking results' geometry), card == CPU; times (median of 3, and
+   stage splits as in phase 13, with the ranges ft8.stack, ft8.sync_z,
+   ft8.detect and ft8.drift): a feed that completes a cycle,
+   correct_frequency_drift per cycle, decode_ft8_stacked at R = 1, 4, 8
+   and at 2 kHz R = 8, detect_known_payload at R = 8, the complex and
+   48-kHz decodes; peak device memory of each.
 
 Then one JSON line with the kernels (each with its launches on the main
 path, device ms, plain ms, bound ms and what bounds it, and the library
@@ -1427,6 +1450,421 @@ def _time_phase(dev, smi: str, chunks, captures, waves) -> dict:
     return kt
 
 
+# the beacon path (phase 14): BEACON_REPEATS 15-s cycles of 12-kHz audio,
+# each holding the beacon at BEACON_F0 drifting BEACON_DRIFT Hz/s from its
+# cycle's start at BEACON_SNR_DB (2500-Hz convention over unit noise),
+# then 0.9 of a cycle holding another transmission at BEACON_TAIL_SNR_DB
+# for the flush.  The SNR and seed were chosen with a CPU run of the port:
+# no raw cycle decodes alone and the session first decodes the beacon with
+# two cycles in its ring
+BEACON_FS = 12000.0
+BEACON_REPEATS = 8
+BEACON_SNR_DB = -11.0
+BEACON_DRIFT = 3.0
+BEACON_F0 = 1500.0
+BEACON_START_S = 0.5
+BEACON_SEED = 1
+BEACON_PAYLOAD = np.array([0x1C, 0x3F, 0x8A, 0x6A, 0xE2, 0x07, 0xA1, 0xE3,
+                           0x94, 0x50], dtype=np.uint8)
+BEACON_TAIL = "CQ K1ABC FN42"
+BEACON_TAIL_F0 = 1000.0
+BEACON_TAIL_SNR_DB = -3.0
+BEACON_FEED = 50001              # samples a feed: cycles end mid-feed
+BEACON_SESSION = dict(max_repeats=BEACON_REPEATS, use_osd=True,
+                      coherent=True, correction=True, refine_fixes=True)
+BEACON_DECODE = dict(use_osd=True, coherent=True, refine_fixes=True)
+# card rows against CPU rows
+BEACON_TIME_ATOL = 1e-3
+BEACON_FREQ_ATOL = 0.01
+BEACON_SNR_ATOL = 0.1
+# known-payload detection and tracking, card against CPU
+Z_RTOL = 1e-5
+TRACK_STAT_ATOL = 0.02
+TRACK_TIME_ATOL = 1e-4
+TRACK_FREQ_ATOL = 0.01
+# the waterfall backends, card against CPU (dB, above NULL_DB)
+BACKEND_ATOL_DB = 1e-3
+# the stacking results' geometry: 2 kHz, R = 8, no drift
+STACK2K_SNR_DB = -22.0
+BEACON_REPS = 3
+
+
+def _amplitude(snr_db: float, fs: float) -> float:
+    """Peak amplitude of a unit-power-baseband transmission at ``snr_db``
+    in 2500 Hz over unit-variance white noise at ``fs``."""
+    return float(np.sqrt(2.0 * 10.0 ** (snr_db / 10.0) * 2500.0
+                         / (fs / 2.0)))
+
+
+def _beacon_stream():
+    """(the stream (8.9 cycles) float32, the BEACON_REPEATS raw cycles,
+    the beacon's payload bytes, the tail's payload bytes)."""
+    from ft8_demodulator_tpu_torch.ops.gfsk import _baseband_complex
+    from ft8_demodulator_tpu_torch.protocol import constants as C
+    from ft8_demodulator_tpu_torch.protocol.encode import encode_tones
+    from ft8_demodulator_tpu_torch.protocol.message import pack_message
+
+    fs = BEACON_FS
+    n = int(fs * SLOT_S)
+    sps = int(C.SYMBOL_PERIOD_S * fs)
+    start = int(BEACON_START_S * fs)
+    tail_payload = pack_message(BEACON_TAIL)
+    tones = encode_tones(torch.as_tensor(np.stack([BEACON_PAYLOAD,
+                                                   tail_payload])))
+    bb = _baseband_complex(tones[0], sps, fs, BEACON_F0).numpy().astype(
+        np.complex128)
+    t = (start + np.arange(len(bb))) / fs
+    one = np.zeros(n)
+    one[start: start + len(bb)] = (bb * np.exp(1j * np.pi * BEACON_DRIFT
+                                               * t * t)).real
+    cycles = []
+    for c in range(BEACON_REPEATS):
+        rng = np.random.default_rng(BEACON_SEED * 100 + c)
+        cycles.append((_amplitude(BEACON_SNR_DB, fs) * one
+                       + rng.standard_normal(n)).astype(np.float32))
+    rng = np.random.default_rng(BEACON_SEED * 100 + BEACON_REPEATS)
+    tail = rng.standard_normal(int(0.9 * n))
+    other = _baseband_complex(tones[1], sps, fs, BEACON_TAIL_F0).real.numpy()
+    tail[start: start + len(other)] += _amplitude(BEACON_TAIL_SNR_DB,
+                                                  fs) * other
+    stream = np.concatenate(cycles + [tail.astype(np.float32)])
+    return stream, cycles, BEACON_PAYLOAD.tobytes(), bytes(tail_payload)
+
+
+def _feed_all(session, samples) -> tuple[list, int | None]:
+    """Feed ``samples`` in BEACON_FEED-sample feeds: (rows, the ring depth
+    at the feed that first reported BEACON_PAYLOAD)."""
+    rows, first_at = [], None
+    for i in range(0, len(samples), BEACON_FEED):
+        got = session.feed(samples[i: i + BEACON_FEED])
+        if first_at is None and BEACON_PAYLOAD.tobytes() in {
+                r.message.payload for r in got}:
+            first_at = session.repeats_buffered
+        rows += got
+    return rows, first_at
+
+
+def _check_beacon_rows(name: str, card, host) -> None:
+    """Card rows against CPU rows: the same payloads in order, times within
+    BEACON_TIME_ATOL, frequencies within BEACON_FREQ_ATOL, SNRs within
+    BEACON_SNR_ATOL."""
+    def text(rows):
+        return [(r.message.payload.hex(), r.time_sec, r.freq_hz, r.snr_db)
+                for r in rows]
+
+    if [r.message.payload for r in card] != [r.message.payload
+                                              for r in host] \
+            or any(abs(a.time_sec - b.time_sec) > BEACON_TIME_ATOL
+                   or abs(a.freq_hz - b.freq_hz) > BEACON_FREQ_ATOL
+                   or abs(a.snr_db - b.snr_db) > BEACON_SNR_ATOL
+                   for a, b in zip(card, host)):
+        raise RuntimeError(f"{name}: card rows {text(card)} != CPU rows "
+                           f"{text(host)}")
+
+
+def _backend_phase(dev) -> str:
+    """Phase 14, part 1: waterfall_complex (block, 12 kHz), the matmul
+    backend (1,999 Hz) and the fft backend (32,768 and 48,000 Hz) on the
+    card against the CPU."""
+    from ft8_demodulator_tpu_torch.ops import waterfall as twf
+
+    texts = []
+    rng = np.random.default_rng(14)
+    for fs, complex_in, want in ((12000.0, True, "block"),
+                                 (1999.0, False, "matmul"),
+                                 (1999.0, True, "matmul"),
+                                 (32768.0, True, "fft"),
+                                 (48000.0, False, "fft")):
+        p = twf.waterfall_params(fs, 2, 2)
+        n = int(fs * SLOT_S)
+        nf = p.num_frames(n)
+        if twf._pick_backend(p, None) != want:
+            raise RuntimeError(f"{fs} Hz picks {twf._pick_backend(p, None)}"
+                               f", want {want}")
+        shape = (n, 2) if complex_in else (n,)
+        w = torch.as_tensor(rng.standard_normal(shape).astype(np.float32))
+        fn = twf.waterfall_complex if complex_in else twf.waterfall_real
+        card = fn(w.to(dev), p, nf).cpu()
+        host = fn(w, p, nf)
+        keep = host > NULL_DB
+        err = float((card - host).abs()[keep].max())
+        if card.shape != (p.num_freq_bins, nf) \
+                or not bool(torch.isfinite(card).all()) \
+                or not err <= BACKEND_ATOL_DB:
+            raise RuntimeError(f"{want} at {fs} Hz: card vs CPU {err} dB "
+                               f"(bound {BACKEND_ATOL_DB}), shape "
+                               f"{tuple(card.shape)}")
+        texts.append(f"{want} {'complex' if complex_in else 'real'} "
+                     f"{fs / 1000:g} kHz ({p.num_freq_bins}x{nf}) "
+                     f"{err:.2e} dB")
+    return ", ".join(texts)
+
+
+def _beacon_phase(dev, smi: str) -> tuple[int, int]:
+    """Phase 14: the beacon receiver on the card.  Returns the OSD and the
+    frequency-major sync kernels' launches on its paths."""
+    import scipy.signal
+
+    from ft8_demodulator_tpu_torch.beacon import (correct_frequency_drift,
+                                                  detect_known_payload,
+                                                  track_known_payload)
+    from ft8_demodulator_tpu_torch.demod import (BeaconSession,
+                                                 decode_ft8_message,
+                                                 decode_ft8_stacked)
+    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
+    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
+
+    fs = BEACON_FS
+    n = int(fs * SLOT_S)
+    _phase(14, "waterfall backends, card vs CPU, max |diff| above "
+               f"{NULL_DB:g} dB: {_backend_phase(dev)} (bound "
+               f"{BACKEND_ATOL_DB})")
+
+    # a single raw cycle misses the beacon
+    stream, cycles, beacon, tail = _beacon_stream()
+    single = [beacon in {r.message.payload for r in decode_ft8_message(
+        c, fs, device=dev)} for c in cycles]
+    single_cpu = beacon in {r.message.payload for r in decode_ft8_message(
+        cycles[0], fs, device="cpu")}
+    if any(single) or single_cpu:
+        raise RuntimeError(f"a single raw cycle decodes the beacon: card "
+                           f"{single}, CPU cycle 0 {single_cpu}")
+
+    # the session on the card: the counts from 0 just before, read after
+    torch.cuda.synchronize()
+    oc.reduce_basis_from_order.launches = 0
+    sc.sync_scores_kernel.launches = 0
+    t0 = time.perf_counter()
+    card_s = BeaconSession(fs, device=dev, **BEACON_SESSION)
+    card, first_at = _feed_all(card_s, stream)
+    torch.cuda.synchronize()
+    k4_feed = oc.reduce_basis_from_order.launches
+    k6_feed = sc.sync_scores_kernel.launches
+    sc.sync_scores_kernel.launches = 0
+    flushed = card_s.flush()
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    k6_flush = sc.sync_scores_kernel.launches
+    card += flushed
+    t0 = time.perf_counter()
+    host_s = BeaconSession(fs, device="cpu", **BEACON_SESSION)
+    host, host_first = _feed_all(host_s, stream)
+    host += host_s.flush()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    _check_beacon_rows("BeaconSession", card, host)
+    payloads = [r.message.payload for r in card]
+    if payloads.count(beacon) != 1 or first_at != host_first \
+            or first_at is None or first_at < 2 \
+            or tail not in {r.message.payload for r in flushed}:
+        raise RuntimeError(f"BeaconSession: beacon reported "
+                           f"{payloads.count(beacon)} times, first at ring "
+                           f"depth {first_at} (CPU {host_first}); flushed "
+                           f"{[r.message.payload for r in flushed]}")
+    if k4_feed < 1 or k6_feed != 0 or k6_flush < 1:
+        raise RuntimeError(f"BeaconSession: OSD kernel {k4_feed} launches in"
+                           f" the stacked decodes, sync kernel {k6_feed} in "
+                           f"them and {k6_flush} in the flush")
+    # save / load mid-stream resumes with the same rows
+    cut = int(4.5 * n)
+    first = BeaconSession(fs, device=dev, **BEACON_SESSION)
+    rows = _feed_all(first, stream[:cut])[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "session.npz")
+        first.save(path)
+        resumed = BeaconSession.load(path, device=dev)
+    rows += _feed_all(resumed, stream[cut:])[0] + resumed.flush()
+    key = lambda rs: [(r.message.payload, r.time_sec, r.freq_hz, r.snr_db)
+                      for r in rs]
+    if key(rows) != key(card):
+        raise RuntimeError(f"save/load: resumed rows {key(rows)} != "
+                           f"{key(card)}")
+    beacon_row = card[payloads.index(beacon)]
+    # what the blind corrector fits on each raw cycle at this SNR
+    rates = [correct_frequency_drift(
+        scipy.signal.hilbert(c.astype(np.float64)), fs, return_model=True,
+        device=dev)[2]["rate_hz_per_s"] for c in cycles]
+    _phase(14, f"BeaconSession at {fs / 1000:g} kHz (max_repeats "
+               f"{BEACON_REPEATS}, OSD, coherent, correction, refine_fixes) "
+               f"on {BEACON_REPEATS} cycles of a beacon drifting "
+               f"{BEACON_DRIFT:g} Hz/s at {BEACON_SNR_DB:g} dB plus a "
+               f"{BEACON_TAIL_SNR_DB:g} dB tail, fed {BEACON_FEED} samples at"
+               f" a time: no raw cycle decodes alone (decode_ft8_message, "
+               f"card; cycle 0 on the CPU too); the beacon reported once, "
+               f"first at ring depth {first_at} (t {beacon_row.time_sec} s, "
+               f"f {beacon_row.freq_hz} Hz, SNR {beacon_row.snr_db} dB), the "
+               f"tail's payload by the flush; card == CPU rows ({len(card)}); "
+               f"OSD kernel launches in the stacked decodes {k4_feed}, sync "
+               f"kernel launches {k6_feed} there and {k6_flush} in the "
+               f"flush; save/load after 4.5 cycles resumes with the same "
+               f"rows; whole stream card {card_ms:.0f} ms, CPU "
+               f"{host_ms:.0f} ms; correct_frequency_drift's fitted rate "
+               f"per raw cycle (Hz/s, {BEACON_DRIFT:g} injected): "
+               + ", ".join("none" if r is None else f"{r:.2f}"
+                           for r in rates))
+
+    # known-payload detection and tracking on the same captures: R = 1 on
+    # a raw cycle, R = 8 on the CPU session's corrected cycles
+    corrected = np.stack(host_s._cycles)
+    det = {}
+    for label, waves in (("R1", cycles[0]), ("R8", corrected)):
+        got = [detect_known_payload(waves, fs, BEACON_PAYLOAD, top_k=4,
+                                    min_z=-100.0, device=d)
+               for d in (dev, "cpu")]
+        if [(x.time_sec, x.freq_hz) for x in got[0]] != \
+                [(x.time_sec, x.freq_hz) for x in got[1]] \
+                or any(abs(a.z - b.z) > Z_RTOL * abs(b.z)
+                       for a, b in zip(*got)):
+            raise RuntimeError(f"detect_known_payload {label}: card "
+                               f"{got[0]}, CPU {got[1]}")
+        det[label] = got[0][0]
+    hint = det["R8"]
+    fixes = [track_known_payload(corrected[-1], fs, BEACON_PAYLOAD,
+                                 hint.time_sec, hint.freq_hz, device=d)
+             for d in (dev, "cpu")]
+    a, b = fixes
+    if a.detected != b.detected or abs(a.stat - b.stat) > TRACK_STAT_ATOL \
+            or abs(a.time_sec - b.time_sec) > TRACK_TIME_ATOL \
+            or abs(a.freq_hz - b.freq_hz) > TRACK_FREQ_ATOL:
+        raise RuntimeError(f"track_known_payload: card {a}, CPU {b}")
+    _phase(14, "known payload, card == CPU: detect_known_payload top "
+               + ", ".join(f"{k} z {v.z:.2f} at {v.time_sec:.3f} s "
+                           f"{v.freq_hz:.3f} Hz" for k, v in det.items())
+               + f"; track_known_payload on the newest corrected cycle: "
+               f"detected {a.detected}, stat {a.stat}, {a.time_sec} s, "
+               f"{a.freq_hz} Hz")
+
+    # complex and non-block decodes of phase 12's crowded capture
+    wave, cpayloads, csnr, _ = _crowded_capture()
+    planted = {bytes(pl) for pl in cpayloads}
+    analytic = scipy.signal.hilbert(wave.astype(np.float64)).astype(
+        np.complex64)
+    # a 48-kHz sound card: the capture resampled, and white noise over
+    # the band above the capture's (in band +0.26 dB of noise)
+    w48 = (scipy.signal.resample_poly(wave.astype(np.float64), 4, 1)
+           + 0.5 * np.random.default_rng(48).standard_normal(4 * len(wave))
+           ).astype(np.float32)
+    k6_api, api_lines = 0, []
+    for name, w, rate in (("analytic", analytic, FS), ("48 kHz", w48,
+                                                       48000.0)):
+        torch.cuda.synchronize()
+        sc.sync_scores_kernel.launches = 0
+        got = decode_ft8_message(w, rate, device=dev)
+        torch.cuda.synchronize()
+        k6 = sc.sync_scores_kernel.launches
+        k6_api += k6
+        _check_api_rows(f"decode_ft8_message {name}", got,
+                        decode_ft8_message(w, rate, device="cpu"))
+        found = {r.message.payload for r in got}
+        if k6 < 1 or not found <= planted or len(found) < CROWD_SIGNALS // 2:
+            raise RuntimeError(f"decode_ft8_message {name}: sync kernel "
+                               f"{k6} launches, {len(found)} payloads, "
+                               f"{len(found - planted)} unplanted")
+        api_lines.append(f"{name} {len(found)} planted payloads, sync "
+                         f"kernel launches {k6}")
+    # the stacking results' geometry: R = 8 at 2 kHz
+    w2k = np.stack([scipy.signal.resample_poly(c.astype(np.float64), 1, 6)
+                    for c in _stack2k_cycles()]).astype(np.float32)
+    torch.cuda.synchronize()
+    oc.reduce_basis_from_order.launches = 0
+    got = decode_ft8_stacked(w2k, 2000.0, device=dev, **BEACON_DECODE)
+    torch.cuda.synchronize()
+    k4_2k = oc.reduce_basis_from_order.launches
+    _check_beacon_rows("decode_ft8_stacked 2 kHz R 8", got,
+                       decode_ft8_stacked(w2k, 2000.0, device="cpu",
+                                          **BEACON_DECODE))
+    if k4_2k < 1:
+        raise RuntimeError(f"decode_ft8_stacked 2 kHz: OSD kernel {k4_2k}")
+    verdict = "decoded" if beacon in {r.message.payload for r in got} \
+        else "missed"
+    _phase(14, "decode_ft8_message on phase 12's capture, card == CPU rows: "
+               + "; ".join(api_lines) + f"; decode_ft8_stacked at 2 kHz, R "
+               f"{BEACON_REPEATS}, {STACK2K_SNR_DB:g} dB, no drift: "
+               f"{verdict}, card == CPU rows, OSD kernel launches {k4_2k}")
+
+    _beacon_times(dev, smi, cycles, corrected, analytic, w48, w2k)
+    return k4_feed + k4_2k, k6_flush + k6_api
+
+
+def _stack2k_cycles():
+    """BEACON_REPEATS 12-kHz cycles of the beacon without drift at
+    STACK2K_SNR_DB, noise from BEACON_SEED + 1 (resampled to 2 kHz by the
+    caller)."""
+    from ft8_demodulator_tpu_torch.ops.gfsk import _baseband_complex
+    from ft8_demodulator_tpu_torch.protocol import constants as C
+    from ft8_demodulator_tpu_torch.protocol.encode import encode_tones
+
+    fs = BEACON_FS
+    n = int(fs * SLOT_S)
+    start = int(BEACON_START_S * fs)
+    sig = _baseband_complex(encode_tones(torch.as_tensor(BEACON_PAYLOAD)),
+                            int(C.SYMBOL_PERIOD_S * fs), fs,
+                            400.0).real.numpy()
+    out = []
+    for c in range(BEACON_REPEATS):
+        w = np.random.default_rng((BEACON_SEED + 1) * 100 + c
+                                  ).standard_normal(n)
+        w[start: start + len(sig)] += _amplitude(STACK2K_SNR_DB, fs) * sig
+        out.append(w)
+    return out
+
+
+def _beacon_times(dev, smi: str, cycles, corrected, analytic, w48,
+                  w2k) -> None:
+    """Phase 14, times: ms per feed that completes a cycle (correction and
+    an R = 8 decode with coherent and OSD), correct_frequency_drift per
+    cycle, decode_ft8_stacked at R = 1, 4, 8, detect_known_payload at R = 8,
+    the complex and 48-kHz decodes per capture, each with its stage split
+    (ft8.<stage> ranges, host/device ms), and peak device memory."""
+    import scipy.signal
+
+    from ft8_demodulator_tpu_torch.beacon import (correct_frequency_drift,
+                                                  detect_known_payload)
+    from ft8_demodulator_tpu_torch.demod import (BeaconSession,
+                                                 decode_ft8_message,
+                                                 decode_ft8_stacked)
+
+    fs = BEACON_FS
+    session = BeaconSession(fs, device=dev, **BEACON_SESSION)
+    for c in cycles:
+        session.feed(c)
+    turn = iter(range(10 ** 6))
+    feed = lambda: session.feed(cycles[next(turn) % len(cycles)])
+    torch.cuda.reset_peak_memory_stats()
+    feed_ms = _median_ms(feed, BEACON_REPS)
+    feed_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    runs = {"feed": (feed_ms, _median_split(feed, BEACON_REPS))}
+    z = scipy.signal.hilbert(cycles[0].astype(np.float64))
+    calls = {
+        "correct_frequency_drift": lambda: correct_frequency_drift(
+            z, fs, device=dev),
+        **{f"decode_ft8_stacked R{r}": (
+            lambda r=r: decode_ft8_stacked(corrected[-r:], fs, device=dev,
+                                           **BEACON_DECODE))
+           for r in (1, 4, BEACON_REPEATS)},
+        "decode_ft8_stacked 2 kHz R8": lambda: decode_ft8_stacked(
+            w2k, 2000.0, device=dev, **BEACON_DECODE),
+        "detect_known_payload R8": lambda: detect_known_payload(
+            corrected, fs, BEACON_PAYLOAD, device=dev),
+        "decode_ft8_message analytic": lambda: decode_ft8_message(
+            analytic, FS, device=dev),
+        "decode_ft8_message 48 kHz": lambda: decode_ft8_message(
+            w48, 48000.0, device=dev),
+    }
+    peaks = {}
+    for name, fn in calls.items():
+        torch.cuda.reset_peak_memory_stats()
+        ms = _median_ms(fn, BEACON_REPS)
+        peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 20
+        runs[name] = (ms, _median_split(fn, BEACON_REPS))
+    _phase(14, f"[{smi}] times, median of {BEACON_REPS} (host ms to a "
+               f"synchronize; stages from profiler traces, host/device ms, "
+               f"median of {BEACON_REPS}): "
+               + "; ".join(f"{name} {ms:.1f} ms ({_split_text(split)})"
+                           for name, (ms, split) in runs.items())
+               + f"; peak memory: feed {feed_peak:.1f} MiB, "
+               + ", ".join(f"{k} {v:.1f} MiB" for k, v in peaks.items()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1608,6 +2046,9 @@ def main() -> int:
     sync_diffs, chunks, captures = _sync_phase(dev, kl.log)
     k6_launches, _ = _api_phase(dev)
     kt = _time_phase(dev, smi, chunks, captures, waves)
+    k4_beacon, k6_beacon = _beacon_phase(dev, smi)
+    deep_kernels[1]["launches"] += k4_beacon
+    k6_launches += k6_beacon
     k5_err = max(v for k, v in sync_diffs.items() if k.startswith("K5"))
     k6_err = max(v for k, v in sync_diffs.items() if k.startswith("K6"))
 

@@ -7,18 +7,23 @@
               boxcar grid -> BP -> CRC -> OSD on the rows BP left
     -> payloads + accept mask
 
-Port of ``ft8_demodulator_tpu/demod/decode.py`` for real input on block
-geometries: ``decode_slots`` (the bench path), ``decode_slot`` with the
-OSD, matched-filter retry (``use_mf``), ``mf_first``, ``mf_refine`` and
-``coherent`` options, and ``finish_decode`` with the gated OSD.  The slot
-fronts always run the fused kernels of ``ops/waterfall_cuda.py`` and the
+Port of ``ft8_demodulator_tpu/demod/decode.py``: ``decode_slots`` (the
+bench path), ``decode_slot`` with the OSD, matched-filter retry
+(``use_mf``), ``mf_first``, ``mf_refine`` and ``coherent`` options, and
+``finish_decode`` with the gated OSD.  For real input on a block geometry
+the slot fronts run the fused kernels of ``ops/waterfall_cuda.py`` and the
 time-major stencil of ``ops/sync_cuda.py`` (the CUDA kernels on the card,
-their plain versions on the CPU); ``mf_first`` always takes the
-boxcar-grid route, which the JAX package takes on the TPU (with
-``mf_refine`` the JAX package's frequency-major route).
+their plain versions on the CPU); ``mf_first`` takes the boxcar-grid
+route, which the JAX package takes on the TPU.  Complex input ((n, 2)
+[re, im] with ``is_complex``), other geometries and ``mf_first`` with
+``mf_refine`` take the JAX package's frequency-major route: the plain
+float32 waterfall of the geometry's backend (``ops/waterfall.py``) -> the
+frequency-major stencil kernel -> top-K -> LLRs; ``decode_slots`` decodes
+such slots one by one through ``decode_slot``.
 
 The host API ``decode_ft8_message`` (the CLI's decode) runs the
-frequency-major path on one capture: the plain float32 waterfall ->
+frequency-major path on one real or complex capture at any geometry: the
+plain float32 waterfall ->
 crops -> the frequency-major stencil kernel -> top-K -> Hann LLRs (or
 matched-filter LLRs from the block spectra) -> BP (+ OSD) -> SNR estimate
 -> host rows, with subtraction passes.  The deep retries follow the first
@@ -28,6 +33,9 @@ the a-priori retry (``ap``), which with ``coherent`` also clamps its
 hypotheses inside every coherent branch.  Each retry decodes its LLR
 variants of all candidates as one batch, and each candidate takes its first
 variant that passes the CRC: decodes are a superset of the first pass.
+``refine_fixes`` then replaces each row's grid-quantised time and
+frequency with a coherent known-payload fix (``beacon/detect.py``
+``track_known_payload``).
 
 The per-geometry constants (DFT matrices, combine phases, BP routing,
 parity-check and CRC matrices, Gray map, OSD basis and row syndromes, and
@@ -47,6 +55,7 @@ entry and one on exit.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -54,19 +63,22 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
+from ..beacon.detect import track_known_payload
 from ..ops.ldpc_decode import BPTables, _build_routing, bp_decode_batch, \
     make_bp_tables
 from ..ops import osd
 from ..ops.llr import (extract_llrs, extract_llrs_coherent,
-                       extract_llrs_matched_blocks, extract_llrs_matched_grid,
-                       extract_llrs_matched_refined, extract_llrs_tf)
+                       extract_llrs_matched, extract_llrs_matched_blocks,
+                       extract_llrs_matched_grid, extract_llrs_matched_refined,
+                       extract_llrs_tf)
 from ..ops.subtract import subtract_decoded
 from ..ops.sync import (SearchGrid, find_candidates, find_candidates_tf,
                         search_grid)
 from ..ops.sync_cuda import sync_scores_kernel, sync_scores_tf_kernel
-from ..ops.waterfall import (WaterfallParams, _block_combine_phases,
-                             _block_dft_matrices, _block_spectrum,
-                             _block_waterfall_tf, _require_block,
+from ..ops.waterfall import (WaterfallParams, _as_complex,
+                             _block_combine_phases, _block_dft_matrices,
+                             _block_spectrum, _block_waterfall_tf,
+                             _pick_backend, waterfall_complex,
                              waterfall_params, waterfall_real)
 from ..ops.waterfall_cuda import (block_waterfall_mf_tf_fused_batch,
                                   block_waterfall_tf_fused_batch,
@@ -82,16 +94,6 @@ __all__ = ["SlotDecoder", "decoder_arrays", "slot_decoder", "decode_slot",
            "decode_slots", "decode_waterfall", "decode_waterfall_mf",
            "decode_ft8_message", "finish_decode", "mf_retry", "ap_retry",
            "coherent_retry", "estimate_snr"]
-
-# where ROADMAP.md lists the options the port does not have yet
-_TODO_WATERFALL = ("ROADMAP.md, queue 1, item 3 'waterfall backends and "
-                   "complex input'")
-_TODO_BEACON = ("ROADMAP.md, queue 1, item 6 'beacon' "
-                "(beacon.track_known_payload)")
-
-
-def _not_ported(option: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{option} is not ported yet: see {where}")
 
 
 def decoder_arrays(p: WaterfallParams, num_frames: int
@@ -290,20 +292,26 @@ def _merge_results(res: SlotDecodeResult,
 
 def _mf_llrs(wave: torch.Tensor, p: WaterfallParams, abs_time: torch.Tensor,
              abs_freq: torch.Tensor, decoder: SlotDecoder | None = None,
-             refine: bool = False):
-    """Matched-filter LLRs for candidates at absolute audio coordinates,
-    from the block spectra of the whole wave (block geometry only).
+             refine: bool = False, is_complex: bool = False):
+    """Matched-filter LLRs for candidates at absolute audio coordinates.
 
-    ``refine`` takes the sub-grid (dt, df) offset search instead (the
-    direct form, any geometry) and returns its (llrs_base, llrs_refined).
+    ``wave``: (n,) real or (n, 2) [re, im] with ``is_complex``.  Where the
+    block backend applies, from the block spectra of the whole wave;
+    otherwise the direct form.  ``refine`` takes the sub-grid (dt, df)
+    offset search instead (the direct form, any geometry) and returns its
+    (llrs_base, llrs_refined).
     """
     if refine:
         with record_function("ft8.mf_refine"):
             return extract_llrs_matched_refined(wave, abs_time, abs_freq,
-                                                p.nperseg, p.hop, p.freq_osr)
-    _require_block(p)
+                                                p.nperseg, p.hop, p.freq_osr,
+                                                is_complex)
     with record_function("ft8.llrs"):
-        spec = _block_spectrum(wave, p, p.num_frames(wave.shape[-1]))
+        if _pick_backend(p, None) != "block":
+            return extract_llrs_matched(wave, abs_time, abs_freq, p.nperseg,
+                                        p.hop, p.freq_osr, is_complex)
+        x = _as_complex(wave) if is_complex else wave
+        spec = _block_spectrum(x, p, p.num_frames(x.shape[-1]))
         return extract_llrs_matched_blocks(
             spec, abs_time, abs_freq, p.time_osr, p.freq_osr,
             decoder.gray_map if decoder is not None else None)
@@ -311,7 +319,8 @@ def _mf_llrs(wave: torch.Tensor, p: WaterfallParams, abs_time: torch.Tensor,
 
 def mf_retry(wave: torch.Tensor, p: WaterfallParams, res: SlotDecodeResult,
              t0_hops: int = 0, f0_rows: int = 0, max_iterations: int = 20,
-             use_osd: bool = False, mf_refine: bool = False,
+             use_osd: bool = False, is_complex: bool = False,
+             mf_refine: bool = False,
              decoder: SlotDecoder | None = None) -> SlotDecodeResult:
     """Matched-filter second chance for candidates BP(+OSD) could not
     crack.
@@ -321,10 +330,11 @@ def mf_retry(wave: torch.Tensor, p: WaterfallParams, res: SlotDecodeResult,
     originals (a strict superset of the first pass).  t0_hops / f0_rows
     translate crop-relative candidate indices to absolute ones.
     ``mf_refine`` retries with the offset search's base LLRs, then with its
-    refined ones (a superset again).
+    refined ones (a superset again).  ``wave``: (n,) real or (n, 2)
+    [re, im] with ``is_complex``.
     """
     llrs = _mf_llrs(wave, p, res.abs_time + t0_hops, res.abs_freq + f0_rows,
-                    decoder, mf_refine)
+                    decoder, mf_refine, is_complex)
     for v in (llrs if mf_refine else (llrs,)):
         res = _merge_results(res, finish_decode(
             v, res.abs_time, res.abs_freq, res.score, res.candidate_valid,
@@ -399,15 +409,22 @@ def decode_slots(waves: torch.Tensor, p: WaterfallParams, num_frames: int,
 
     B must be a multiple of `chunk`; `bp_chunk` is clamped to B and rounded
     down to a divisor of B.  ``decoder`` defaults to the cached one of this
-    geometry on the device of ``waves``.
+    geometry on the device of ``waves``.  On a geometry the block backend
+    does not take, each slot decodes through :func:`decode_slot` (the JAX
+    package's chunked ``vmap(decode_slot)``).
     """
-    _require_block(p)
     b = waves.shape[0]
     if b % chunk:
         raise ValueError(f"batch {b} not a multiple of chunk {chunk}")
     if decoder is None:
         decoder = slot_decoder(p, num_frames, waves.device)
     _check_decoder(decoder, p, num_frames, waves.device)
+    if _pick_backend(p, None) != "block":
+        rows = [decode_slot(w, p, num_frames, max_candidates, min_score,
+                            max_iterations, use_osd=use_osd,
+                            mf_first=mf_first, decoder=decoder)
+                for w in waves]
+        return SlotDecodeResult(*(torch.stack(parts) for parts in zip(*rows)))
     g = decoder.g
 
     fronts = []
@@ -450,30 +467,41 @@ def decode_slot(wave: torch.Tensor, p: WaterfallParams, num_frames: int,
                 mf_refine: bool = False,
                 coherent: bool = False,
                 decoder: SlotDecoder | None = None) -> SlotDecodeResult:
-    """Real audio (n,) -> SlotDecodeResult (K rows).
+    """Audio (n,) real, or (n, 2) [re, im] with ``is_complex`` ->
+    SlotDecodeResult (K rows).
 
-    ``mf_first`` decodes every candidate from matched-filter LLRs of the
-    dual-output waterfall's boxcar grid in one BP(+OSD) pass (row for row
-    what :func:`decode_slots` gives); otherwise the Hann LLRs decode and
-    ``use_mf`` adds the matched-filter retry (:func:`mf_retry`).
-    ``mf_refine`` adds the sub-grid offset search to whichever matched
-    filter runs: with ``mf_first`` the frequency-major route of the JAX
-    package (the plain float32 waterfall, :func:`decode_waterfall_mf`).
-    ``coherent`` then adds :func:`coherent_retry`.  ``is_complex`` raises
-    NotImplementedError.
+    ``mf_first`` decodes every candidate from matched-filter LLRs in one
+    BP(+OSD) pass (for real input on a block geometry from the dual-output
+    waterfall's boxcar grid, row for row what :func:`decode_slots` gives);
+    otherwise the Hann LLRs decode and ``use_mf`` adds the matched-filter
+    retry (:func:`mf_retry`).  ``mf_refine`` adds the sub-grid offset
+    search to whichever matched filter runs.  Complex input, other
+    geometries and ``mf_first`` with ``mf_refine`` take the JAX package's
+    frequency-major route (the plain float32 waterfall of the geometry's
+    backend, the frequency-major stencil, :func:`decode_waterfall` or
+    :func:`decode_waterfall_mf`).  ``coherent`` then adds
+    :func:`coherent_retry`.
     """
-    if is_complex:
-        raise _not_ported("is_complex", _TODO_WATERFALL)
-    _require_block(p)
     if decoder is None:
         decoder = slot_decoder(p, num_frames, wave.device)
     _check_decoder(decoder, p, num_frames, wave.device)
-    if mf_first and mf_refine:
+    if is_complex or _pick_backend(p, None) != "block" \
+            or (mf_first and mf_refine):
         with record_function("ft8.waterfall"):
-            mag = waterfall_real(wave, p, num_frames)
-        res = decode_waterfall_mf(mag, wave, p, decoder.g, 0, 0,
-                                  max_candidates, min_score, max_iterations,
-                                  use_osd, mf_refine=True)
+            mag = waterfall_complex(wave, p, num_frames) if is_complex \
+                else waterfall_real(wave, p, num_frames)
+        if mf_first:
+            res = decode_waterfall_mf(mag, wave, p, decoder.g, 0, 0,
+                                      max_candidates, min_score,
+                                      max_iterations, use_osd, is_complex,
+                                      mf_refine=mf_refine, decoder=decoder)
+        else:
+            res = decode_waterfall(mag, decoder.g, max_candidates,
+                                   min_score, max_iterations, use_osd,
+                                   decoder=decoder)
+            if use_mf:
+                res = mf_retry(wave, p, res, 0, 0, max_iterations, use_osd,
+                               is_complex, mf_refine, decoder)
     elif mf_first:
         with record_function("ft8.waterfall"):
             mags, boxes = block_waterfall_mf_tf_fused_batch(
@@ -490,10 +518,10 @@ def decode_slot(wave: torch.Tensor, p: WaterfallParams, num_frames: int,
         res = finish_decode(*outs, max_iterations, use_osd, decoder)
         if use_mf:
             res = mf_retry(wave, p, res, 0, 0, max_iterations, use_osd,
-                           mf_refine, decoder)
+                           False, mf_refine, decoder)
     if coherent:
         res = coherent_retry(wave, p, res, 0, 0, max_iterations, use_osd,
-                             decoder=decoder)
+                             is_complex, decoder=decoder)
     return res
 
 
@@ -530,17 +558,17 @@ def variant_retry(llrs: torch.Tensor, res: SlotDecodeResult,
 
 def _coherent_llrs(wave: torch.Tensor, p: WaterfallParams,
                    res: SlotDecodeResult, t0_hops: int, f0_rows: int,
-                   num_branches: int) -> torch.Tensor:
+                   num_branches: int, is_complex: bool) -> torch.Tensor:
     with record_function("ft8.coherent"):
         return extract_llrs_coherent(
             wave, res.abs_time + t0_hops, res.abs_freq + f0_rows, p.nperseg,
-            p.hop, p.freq_osr, num_branches=num_branches)
+            p.hop, p.freq_osr, is_complex, num_branches)
 
 
 def coherent_retry(wave: torch.Tensor, p: WaterfallParams,
                    res: SlotDecodeResult, t0_hops: int = 0, f0_rows: int = 0,
                    max_iterations: int = 20, use_osd: bool = False,
-                   num_branches: int = 5,
+                   is_complex: bool = False, num_branches: int = 5,
                    decoder: SlotDecoder | None = None) -> SlotDecodeResult:
     """Coherent matched-filter retry: ``num_branches`` phase-track branch
     variants of every candidate's LLRs (``ops/llr.py``
@@ -548,7 +576,8 @@ def coherent_retry(wave: torch.Tensor, p: WaterfallParams,
     its first branch that passes the CRC, and rows that now decode replace
     their failed originals.  The extraction searches its own (dt, df), so
     no ``mf_refine`` is needed before it."""
-    llrs = _coherent_llrs(wave, p, res, t0_hops, f0_rows, num_branches)
+    llrs = _coherent_llrs(wave, p, res, t0_hops, f0_rows, num_branches,
+                          is_complex)
     return _merge_results(res, variant_retry(llrs, res, max_iterations,
                                              use_osd, decoder))
 
@@ -580,24 +609,27 @@ def _ap_clamped(llrs: torch.Tensor, ap_values: torch.Tensor,
 
 def ap_retry_llrs(llrs: torch.Tensor, res: SlotDecodeResult,
                   ap_values: torch.Tensor, ap_mask: torch.Tensor,
-                  max_iterations: int, use_osd: bool) -> SlotDecodeResult:
+                  max_iterations: int, use_osd: bool,
+                  decoder: SlotDecoder | None = None) -> SlotDecodeResult:
     """(K, 174) LLRs + V hypotheses -> per-candidate first AP decode: the
     V*K clamped rows decode as one batch (:func:`variant_retry`)."""
     return variant_retry(_ap_clamped(llrs, ap_values, ap_mask), res,
-                         max_iterations, use_osd)
+                         max_iterations, use_osd, decoder)
 
 
 @record_function("ft8.ap")
 def ap_retry(wave: torch.Tensor, p: WaterfallParams, res: SlotDecodeResult,
              t0_hops: int, f0_rows: int, ap_values: torch.Tensor,
              ap_mask: torch.Tensor, max_iterations: int = 20,
-             use_osd: bool = False) -> SlotDecodeResult:
+             use_osd: bool = False,
+             is_complex: bool = False) -> SlotDecodeResult:
     """A-priori retry: matched-filter LLRs of every candidate with each
     hypothesis's payload bits clamped (``protocol/message.py``
     ``ap_hypotheses``: CQ, MyCall, MyCall + DxCall, the exchanges), the
     first hypothesis that passes the CRC per candidate.  The CRC covers all
     77 bits, so a wrong hypothesis does not validate."""
-    llrs = _mf_llrs(wave, p, res.abs_time + t0_hops, res.abs_freq + f0_rows)
+    llrs = _mf_llrs(wave, p, res.abs_time + t0_hops, res.abs_freq + f0_rows,
+                    is_complex=is_complex)
     return _merge_results(res, ap_retry_llrs(llrs, res, ap_values, ap_mask,
                                              max_iterations, use_osd))
 
@@ -607,11 +639,13 @@ def ap_coherent_retry(wave: torch.Tensor, p: WaterfallParams,
                       res: SlotDecodeResult, t0_hops: int, f0_rows: int,
                       ap_values: torch.Tensor, ap_mask: torch.Tensor,
                       max_iterations: int = 20, use_osd: bool = False,
+                      is_complex: bool = False,
                       num_branches: int = 5) -> SlotDecodeResult:
     """The hypotheses clamped inside every coherent branch: (B branches x
     V hypotheses x K candidates) rows decode as one batch, the first
     (branch, hypothesis) that passes the CRC per candidate."""
-    cllrs = _coherent_llrs(wave, p, res, t0_hops, f0_rows, num_branches)
+    cllrs = _coherent_llrs(wave, p, res, t0_hops, f0_rows, num_branches,
+                           is_complex)
     clamped = _ap_clamped(cllrs, ap_values, ap_mask)      # (B, V, K, 174)
     return _merge_results(res, variant_retry(
         clamped.flatten(0, 1), res, max_iterations, use_osd))
@@ -624,12 +658,14 @@ def ap_coherent_retry(wave: torch.Tensor, p: WaterfallParams,
 def decode_waterfall(mag: torch.Tensor, g: SearchGrid, max_candidates: int,
                      min_score: float, max_iterations: int = 20,
                      use_osd: bool = False,
-                     min_abs_time=None) -> SlotDecodeResult:
+                     min_abs_time=None,
+                     decoder: SlotDecoder | None = None) -> SlotDecodeResult:
     """Positive-frequency dB waterfall (F, T) -> SlotDecodeResult (K rows).
 
     Sync (the frequency-major stencil kernel on the card) -> top-K -> Hann
     LLRs -> BP (+ OSD with ``use_osd``) -> CRC.  ``min_abs_time`` (int,
-    optional) masks out candidate start times below it.
+    optional) masks out candidate start times below it.  ``decoder``
+    supplies the BP, CRC and OSD tables (None builds them).
     """
     with record_function("ft8.sync"):
         scores = sync_scores_kernel(mag, g)
@@ -643,7 +679,7 @@ def decode_waterfall(mag: torch.Tensor, g: SearchGrid, max_candidates: int,
         llrs = extract_llrs(mag, abs_time, abs_freq, g.time_osr, g.freq_osr,
                             g.num_blocks)
     return finish_decode(llrs, abs_time, abs_freq, score, cand_valid,
-                         max_iterations, use_osd)
+                         max_iterations, use_osd, decoder)
 
 
 def decode_waterfall_mf(mag: torch.Tensor, wave: torch.Tensor,
@@ -653,18 +689,19 @@ def decode_waterfall_mf(mag: torch.Tensor, wave: torch.Tensor,
                         use_osd: bool = False,
                         is_complex: bool = False,
                         spec: torch.Tensor | None = None,
-                        mf_refine: bool = False) -> SlotDecodeResult:
+                        mf_refine: bool = False,
+                        decoder: SlotDecoder | None = None
+                        ) -> SlotDecodeResult:
     """MF-first decode: candidates from the (possibly cropped) waterfall
-    ``mag`` (F, T), every candidate decoded from matched-filter LLRs of the
-    block spectra in one BP (+ OSD) pass.  ``spec`` optionally carries the
+    ``mag`` (F, T), every candidate decoded from matched-filter LLRs in
+    one BP (+ OSD) pass (:func:`_mf_llrs`: the block spectra where the
+    block backend applies, else the direct form; ``wave`` (n,) real or
+    (n, 2) [re, im] with ``is_complex``).  ``spec`` optionally carries the
     complex block spectra of the uncropped ``wave``; t0_hops / f0_rows
     translate crop-relative candidates to absolute ones.  ``mf_refine``
     adds the sub-grid offset search: the base LLRs decode first and the
-    refined ones retry the failures.  ``is_complex`` raises
-    NotImplementedError.
+    refined ones retry the failures.
     """
-    if is_complex:
-        raise _not_ported("is_complex", _TODO_WATERFALL)
     with record_function("ft8.sync"):
         scores = sync_scores_kernel(mag, g)
     with record_function("ft8.top_k"):
@@ -672,7 +709,7 @@ def decode_waterfall_mf(mag: torch.Tensor, wave: torch.Tensor,
             scores, g, max_candidates, min_score)
     if spec is None or mf_refine:
         llrs = _mf_llrs(wave, p, abs_time + t0_hops, abs_freq + f0_rows,
-                        refine=mf_refine)
+                        decoder, mf_refine, is_complex)
     else:
         with record_function("ft8.llrs"):
             llrs = extract_llrs_matched_blocks(spec, abs_time + t0_hops,
@@ -680,12 +717,13 @@ def decode_waterfall_mf(mag: torch.Tensor, wave: torch.Tensor,
                                                p.time_osr, p.freq_osr)
     if not mf_refine:
         return finish_decode(llrs, abs_time, abs_freq, score, cand_valid,
-                             max_iterations, use_osd)
+                             max_iterations, use_osd, decoder)
     res = finish_decode(llrs[0], abs_time, abs_freq, score, cand_valid,
-                        max_iterations, use_osd)
+                        max_iterations, use_osd, decoder)
     return _merge_results(res, finish_decode(llrs[1], abs_time, abs_freq,
                                              score, cand_valid,
-                                             max_iterations, use_osd))
+                                             max_iterations, use_osd,
+                                             decoder))
 
 
 def _block_spec_and_mag(wave: torch.Tensor, p: WaterfallParams,
@@ -796,6 +834,38 @@ def _crop(axis_values: np.ndarray, lo: float | None, hi: float | None):
     return int(np.argmax(mask)), int(len(mask) - np.argmax(mask[::-1]))
 
 
+def _refine_rows(rows: list[FT8Decode], wave, sample_rate: float,
+                 freq_step: float, device) -> list[FT8Decode]:
+    """Each decoded row's grid-quantised (time, freq) replaced by a coherent
+    known-payload fix (``beacon/detect.py`` ``track_known_payload`` seeded
+    by the decode itself).
+
+    The candidate frequency can sit up to ~2 cells off (the sync stencil's
+    contrast peaks on the +-2-sub-bin sidelobes of a strong tone) while
+    the tracker's df ramp models only fractional-cycle offsets, so each
+    row tries the five integer-cell hint shifts with a tight box (+-half
+    a cell + 0.6 Hz) and keeps the strongest detected fix; rows where no
+    shift clears the threshold keep their coordinates.
+    """
+    tol = 0.5 * freq_step + 0.6
+    out = []
+    for r in rows:
+        payload = np.frombuffer(r.message.payload, np.uint8)
+        best = None
+        for shift in (0, -1, 1, -2, 2):
+            fix = track_known_payload(
+                wave, sample_rate, payload, time_hint_s=r.time_sec,
+                freq_hint_hz=r.freq_hz + shift * freq_step,
+                freq_tolerance_hz=tol, device=device)
+            if fix.detected and (best is None or fix.stat > best.stat):
+                best = fix
+        if best is not None:
+            r = dataclasses.replace(r, time_sec=best.time_sec,
+                                    freq_hz=best.freq_hz)
+        out.append(r)
+    return out
+
+
 def decode_ft8_message(wave_data, sample_rate: float,
                        bins_per_tone: int = 2, steps_per_symbol: int = 2,
                        max_candidates: int = 20, min_score: float = 10.0,
@@ -816,13 +886,14 @@ def decode_ft8_message(wave_data, sample_rate: float,
                        min_plausible_snr_db: float | None = -26.0,
                        refine_fixes: bool = False,
                        device: str | torch.device = "cuda"):
-    """Decode all FT8 messages in a real audio capture (host API).
+    """Decode all FT8 messages in an audio capture (host API).
 
     The JAX package's ``decode_ft8_message`` on ``device`` (the audio is
-    numpy; the decode runs on the card unless the caller passes
-    ``device="cpu"``, and without a card a CUDA device raises).  Reported
-    time and frequency are physical units with crops applied; duplicate
-    decodes of a message are merged unless ``deduplicate=False``.
+    numpy, real or complex; the decode runs on the card unless the caller
+    passes ``device="cpu"``, and without a card a CUDA device raises), at
+    any geometry (``ops/waterfall.py`` picks the backend).  Reported time
+    and frequency are physical units with crops applied; duplicate decodes
+    of a message are merged unless ``deduplicate=False``.
 
     * ``use_osd``: ordered-statistics decoding of the candidates BP leaves;
     * ``use_mf``: the matched-filter retry of failed candidates;
@@ -837,19 +908,14 @@ def decode_ft8_message(wave_data, sample_rate: float,
       (:func:`ap_coherent_retry`) in place of the plain coherent retry;
     * ``passes`` > 1: after each pass the decoded transmissions are
       subtracted and the residual decoded again; later passes report only
-      new payloads;
+      new payloads (real audio only: complex input runs one pass);
     * ``min_plausible_snr_db``: rows with a lower SNR estimate are dropped
       (None keeps them);
+    * ``refine_fixes``: each row's time and frequency become a coherent
+      known-payload fix (:func:`_refine_rows`);
     * ``return_metrics``: also return the first pass's ``SlotMetrics``.
-
-    Not ported yet (NotImplementedError naming the ROADMAP item): complex
-    input, ``refine_fixes``, and geometries other than the block one.
     """
     wave = np.asarray(wave_data)
-    if np.iscomplexobj(wave):
-        raise _not_ported("complex input", _TODO_WATERFALL)
-    if refine_fixes:
-        raise _not_ported("refine_fixes", _TODO_BEACON)
     device = entry_device(device)
 
     def _empty():
@@ -858,11 +924,18 @@ def decode_ft8_message(wave_data, sample_rate: float,
         return [], SlotMetrics(0, 0, 0, float("-inf"), float("nan"), 0.0)
 
     p = waterfall_params(sample_rate, bins_per_tone, steps_per_symbol)
-    _require_block(p)
     if wave.shape[-1] < p.nperseg:
         return _empty()
     num_frames = p.num_frames(wave.shape[-1])
-    wave_d = torch.as_tensor(wave.astype(np.float32), device=device)
+    is_complex = bool(np.iscomplexobj(wave))
+    if is_complex:
+        passes = 1
+        wave_d = torch.as_tensor(np.stack([wave.real, wave.imag], axis=-1)
+                                 .astype(np.float32), device=device)
+    else:
+        wave_d = torch.as_tensor(wave.astype(np.float32), device=device)
+    block_spec = mf_first and not mf_refine and not is_complex \
+        and _pick_backend(p, None) == "block"
     hop_seconds = C.SYMBOL_PERIOD_S / p.time_osr
     freq_step = C.TONE_SPACING_HZ / p.freq_osr
     ap_vm = ap_arrays(ap, device) if ap else None
@@ -880,10 +953,12 @@ def decode_ft8_message(wave_data, sample_rate: float,
     for pass_idx in range(max(1, passes)):
         spec = None
         with record_function("ft8.waterfall"):
-            if mf_first and not mf_refine:
+            if block_spec:
                 # the block spectra feed both the dB waterfall and the
                 # boxcar matched-filter DFTs
                 spec, mag = _block_spec_and_mag(wave_d, p, num_frames)
+            elif is_complex:
+                mag = waterfall_complex(wave_d, p, num_frames)
             else:
                 mag = waterfall_real(wave_d, p, num_frames)
         # the crops are views: the stencil kernel reads them in place
@@ -897,20 +972,20 @@ def decode_ft8_message(wave_data, sample_rate: float,
         if mf_first:
             res = decode_waterfall_mf(mag, wave_d, p, g, t_lo, f_lo,
                                       max_candidates, float(min_score),
-                                      max_iterations, use_osd, spec=spec,
-                                      mf_refine=mf_refine)
+                                      max_iterations, use_osd, is_complex,
+                                      spec, mf_refine)
         else:
             res = decode_waterfall(mag, g, max_candidates, float(min_score),
                                    max_iterations, use_osd)
             if use_mf:
                 res = mf_retry(wave_d, p, res, t_lo, f_lo, max_iterations,
-                               use_osd, mf_refine)
+                               use_osd, is_complex, mf_refine)
         if coherent and ap_vm is None:
             res = coherent_retry(wave_d, p, res, t_lo, f_lo, max_iterations,
-                                 use_osd)
+                                 use_osd, is_complex)
         if ap_vm is not None:
             res = ap_retry(wave_d, p, res, t_lo, f_lo, *ap_vm,
-                           max_iterations, use_osd)
+                           max_iterations, use_osd, is_complex)
             if coherent:
                 # a null (unclamped) hypothesis first: the plain coherent
                 # retry inside the same extraction
@@ -919,7 +994,7 @@ def decode_ft8_message(wave_data, sample_rate: float,
                     wave_d, p, res, t_lo, f_lo,
                     torch.cat([null, ap_vm[0]]),
                     torch.cat([null.bool(), ap_vm[1]]), max_iterations,
-                    use_osd)
+                    use_osd, is_complex)
         if first_res is None:
             first_res = res
         snr = estimate_snr(mag, res.payload, res.abs_time, res.abs_freq,
@@ -942,6 +1017,8 @@ def decode_ft8_message(wave_data, sample_rate: float,
                 wave_d = subtract_decoded(wave_d, p, res.payload,
                                           res.abs_time + t_lo,
                                           res.abs_freq + f_lo, res.success)
+    if refine_fixes and rows:
+        rows = _refine_rows(rows, wave, sample_rate, freq_step, device)
     if not return_metrics:
         return rows
     return rows, summarize_slot(first_res)

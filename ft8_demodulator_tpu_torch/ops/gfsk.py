@@ -1,10 +1,12 @@
 """GFSK modulator: tone ids -> phase-continuous complex baseband (native TX).
 
-Port of ``ft8_demodulator_tpu/ops/gfsk.py`` without ``reference_quirk``:
-symbol k's Gaussian pulse is centred at sample (k + 0.5) * sps, the WSJT-X
-alignment.  The frequency track is three outer products (each symbol slot
-sees exactly three Gaussian pulse segments) and the phase accumulation is
-hierarchical so that it stays accurate in float32:
+Port of ``ft8_demodulator_tpu/ops/gfsk.py``: symbol k's Gaussian pulse is
+centred at sample (k + 0.5) * sps, the WSJT-X alignment, or with
+``reference_quirk`` one symbol later with the last Costas symbol cut off
+(the reference modulator's own waveform).  The frequency track is three
+outer products (each symbol slot sees exactly three Gaussian pulse
+segments) and the phase accumulation is hierarchical so that it stays
+accurate in float32:
 
 * within a symbol slot: cumsum over <= sps samples (values stay small),
 * across slots: a cumulative product of 79 unit phasors, so the growing
@@ -12,7 +14,9 @@ hierarchical so that it stays accurate in float32:
 
 Waveform convention: ``w[n] = sin(phi_n) - j cos(phi_n) = -j exp(j phi_n)``,
 raised-cosine amplitude ramps over the first/last sps/8 samples.  Complex
-signals are native ``complex64`` tensors.
+signals are native ``complex64`` tensors; ``tones_to_baseband`` returns the
+JAX function's (..., n, 2) float32 [re, im] array.  The host entry points
+run on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from ..protocol import constants as C
 from ..protocol.encode import encode_tones
 from ..utils.device import entry_device
 
-__all__ = ["gauss_window", "gfsk_frequency_track", "ft8_passband"]
+__all__ = ["gauss_window", "gfsk_frequency_track", "tones_to_baseband",
+           "ft8_baseband", "tones_to_passband", "ft8_passband"]
 
 _GFSK_BT = 2.0
 
@@ -69,15 +74,19 @@ def _window_segments(sps: int, dtype, device=None) -> torch.Tensor:
 
 
 def gfsk_frequency_track(tones: torch.Tensor, sps: int,
-                         dtype=torch.float32) -> torch.Tensor:
+                         dtype=torch.float32,
+                         reference_quirk: bool = False) -> torch.Tensor:
     """(..., 79) tone ids -> (..., 79, sps) tone-unit frequency track.
 
     track[s] = te[s]*w2 + te[s+1]*w1 + te[s+2]*w0 with
-    te = [t0, t0..t78, t78] (first/last tone extended past the frame).
+    te = [t0, t0..t78, t78] (first/last tone extended past the frame);
+    ``reference_quirk`` reads te = [0, t0, t0..t78, t78] instead, every
+    symbol one symbol late.
     """
     w0, w1, w2 = _window_segments(sps, dtype, tones.device)
     t = tones.to(dtype)
-    te = torch.cat([t[..., :1], t, t[..., -1:]], dim=-1)      # (..., 81)
+    lead = [torch.zeros_like(t[..., :1])] if reference_quirk else []
+    te = torch.cat(lead + [t[..., :1], t, t[..., -1:]], dim=-1)
     return (te[..., 0:79, None] * w2
             + te[..., 1:80, None] * w1
             + te[..., 2:81, None] * w0)
@@ -123,11 +132,12 @@ def _phase_fraction(track: torch.Tensor, sps: int, fs: float,
 
 
 def _baseband_complex(tones: torch.Tensor, sps: int, fs: float,
-                      f0: float | torch.Tensor) -> torch.Tensor:
+                      f0: float | torch.Tensor,
+                      reference_quirk: bool = False) -> torch.Tensor:
     """(..., 79) tone ids -> (..., 79*sps) complex64 baseband; the carrier
     as :func:`_phase_fraction` takes it."""
     dtype = torch.float32
-    track = gfsk_frequency_track(tones, sps, dtype)
+    track = gfsk_frequency_track(tones, sps, dtype, reference_quirk)
     e_slot, frac = _phase_fraction(track, sps, fs, f0, dtype)
     w = e_slot[..., :, None] * torch.polar(torch.ones_like(frac),
                                            2.0 * np.pi * frac)
@@ -145,17 +155,54 @@ def _baseband_complex(tones: torch.Tensor, sps: int, fs: float,
     return (w * ramp).to(torch.complex64)
 
 
+def _tones(tones, device) -> torch.Tensor:
+    if not isinstance(tones, torch.Tensor):
+        tones = torch.from_numpy(np.array(tones))
+    return tones.to(entry_device(device))
+
+
+def _payload_tones(payload, device) -> torch.Tensor:
+    return encode_tones(torch.as_tensor(np.array(payload, np.uint8),
+                                        device=entry_device(device)))
+
+
+def tones_to_baseband(tones, sps: int, fs: float, f0: float,
+                      reference_quirk: bool = False,
+                      device: str | torch.device = "cuda") -> torch.Tensor:
+    """(..., 79) tone ids -> (..., 79*sps, 2) float32 [real, imag]
+    baseband on ``device``."""
+    return torch.view_as_real(_baseband_complex(
+        _tones(tones, device), sps, float(fs), float(f0), reference_quirk))
+
+
+def ft8_baseband(payload, fs: float, f0: float,
+                 reference_quirk: bool = False,
+                 device: str | torch.device = "cuda") -> torch.Tensor:
+    """(..., 10) payload bytes -> complex64 baseband transmission on
+    ``device`` (the card unless the caller asks for the CPU; without a
+    card, a CUDA device raises)."""
+    sps = int(C.SYMBOL_PERIOD_S * fs)
+    return _baseband_complex(_payload_tones(payload, device), sps, float(fs),
+                             float(f0), reference_quirk)
+
+
+def tones_to_passband(tones, sps: int, fs: float, f0: float, fc: float,
+                      reference_quirk: bool = False,
+                      device: str | torch.device = "cuda") -> torch.Tensor:
+    """Real passband waveform Re{baseband * exp(j 2 pi fc t)} on
+    ``device``: mixing to fc equals generating the baseband at carrier
+    f0 + fc, which keeps the whole phase inside the float32-safe
+    accumulator."""
+    return _baseband_complex(_tones(tones, device), sps, float(fs),
+                             float(f0 + fc), reference_quirk).real
+
+
 def ft8_passband(payload, fs: float, f0: float, fc: float,
+                 reference_quirk: bool = False,
                  device: str | torch.device = "cuda") -> torch.Tensor:
     """(..., 10) payload bytes -> float32 passband transmission on
     ``device`` (the card unless the caller asks for the CPU; without a
-    card, a CUDA device raises).
-
-    Mixing to fc equals generating the baseband at carrier f0 + fc, which
-    keeps the whole phase inside the float32-safe accumulator.
-    """
-    payload = torch.as_tensor(np.asarray(payload, np.uint8),
-                              device=entry_device(device))
+    card, a CUDA device raises)."""
     sps = int(C.SYMBOL_PERIOD_S * fs)
-    tones = encode_tones(payload)
-    return _baseband_complex(tones, sps, float(fs), float(f0 + fc)).real
+    return _baseband_complex(_payload_tones(payload, device), sps, float(fs),
+                             float(f0 + fc), reference_quirk).real

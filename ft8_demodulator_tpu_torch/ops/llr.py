@@ -13,7 +13,11 @@ max-of-4 LLRs and normalise each vector to variance 24.
   outside the grid read power 0, which gives equal dB on all 8 tones and
   so zero LLRs.
 * :func:`extract_llrs_matched_blocks` assembles the boxcar symbol DFTs
-  from the slot's block spectra (blocks outside the slot are zero).
+  from the slot's block spectra (blocks outside the slot are zero);
+  :func:`extract_llrs_matched_blocks_stacked` averages those symbol powers
+  over R slot-aligned repeats of one transmission before forming LLRs
+  (noncoherent combining), as :func:`extract_llrs_matched_stacked` does
+  for the direct form.
 * :func:`extract_llrs_matched` evaluates the boxcar symbol DFTs straight
   from the audio (any geometry), :func:`extract_llrs_matched_refined` the
   same on a sub-grid of (dt, df) offsets around each candidate, and
@@ -41,8 +45,10 @@ from .subtract import _linspace_f32
 
 __all__ = ["extract_llrs", "extract_llrs_tf", "extract_llrs_matched",
            "extract_llrs_matched_grid", "extract_llrs_matched_blocks",
-           "extract_llrs_matched_refined", "extract_llrs_coherent",
-           "extract_llrs_coherent_stacked", "normalize_llrs"]
+           "extract_llrs_matched_blocks_stacked",
+           "extract_llrs_matched_stacked", "extract_llrs_matched_refined",
+           "extract_llrs_coherent", "extract_llrs_coherent_stacked",
+           "normalize_llrs"]
 
 # Bit b of symbol value j (MSB first) — selects the max-of-4 groups.
 _BIT_SET = np.array(
@@ -215,6 +221,22 @@ def extract_llrs_matched_blocks(spec: torch.Tensor, abs_time: torch.Tensor,
                                             time_osr, freq_osr), gray_map)
 
 
+def extract_llrs_matched_blocks_stacked(spec: torch.Tensor,
+                                        abs_time: torch.Tensor,
+                                        abs_freq: torch.Tensor,
+                                        time_osr: int, freq_osr: int,
+                                        gray_map=None) -> torch.Tensor:
+    """Repeat-stacked matched-filter LLRs from (R, nb, Kx) complex block
+    spectra of R slot-aligned repeats of one transmission: the per-tone
+    symbol powers are averaged over the repeats in the linear domain (the
+    sufficient statistic of noncoherent FSK under independent noise), then
+    form the (K, 174) LLRs."""
+    r = spec.shape[0]
+    pw = _mf_block_powers(spec, abs_time.expand(r, -1),
+                          abs_freq.expand(r, -1), time_osr, freq_osr)
+    return _powers_to_llrs(pw.mean(0), gray_map)
+
+
 # ---------------------------------------------------------------------------
 # matched-filter LLRs straight from the audio (any geometry)
 # ---------------------------------------------------------------------------
@@ -296,6 +318,19 @@ def _tone_dft(xr: torch.Tensor, xi: torch.Tensor,
     return (torch.cat([xr, xi], -1).double() @ block).float()
 
 
+def _analytic(wave: torch.Tensor) -> torch.Tensor:
+    """Real (..., n) -> its analytic signal, complex64 (..., n): one FFT,
+    the negative frequencies zeroed and the positive ones doubled."""
+    n = wave.shape[-1]
+    spec = torch.fft.fft(wave.to(torch.complex64), dim=-1)
+    weight = torch.zeros(n, dtype=torch.float32, device=wave.device)
+    weight[0] = 1.0
+    weight[1:(n + 1) // 2] = 2.0
+    if n % 2 == 0:
+        weight[n // 2] = 1.0
+    return torch.fft.ifft(spec * weight, dim=-1)
+
+
 def _padded(wave: torch.Tensor, sps: int, is_complex: bool):
     """Audio (..., n) real or (..., n, 2) [re, im] -> (real, imaginary or
     None) float32 (..., n + 2*79*sps), 79 symbols of zeros on each side:
@@ -355,7 +390,8 @@ def _tone_corr(xp, starts: torch.Tensor, rows, mixes, block: torch.Tensor,
 def _mf_direct_powers(wave: torch.Tensor, abs_time: torch.Tensor,
                       abs_freq: torch.Tensor, sps: int, hop: int,
                       freq_osr: int, is_complex: bool) -> torch.Tensor:
-    """Audio (n[, 2]) -> per-candidate boxcar symbol powers (K, 58, 8)."""
+    """Audio (R..., n[, 2]) -> per-candidate boxcar symbol powers (R...,
+    K, 58, 8)."""
     dev = wave.device
     tables = _mf_tables(sps, freq_osr, dev)
     starts = abs_time.to(dev, torch.int64) * hop + C.NUM_SYMBOLS * sps
@@ -383,6 +419,19 @@ def extract_llrs_matched(wave: torch.Tensor, abs_time: torch.Tensor,
     tables = _mf_tables(sps, freq_osr, wave.device)
     return _powers_to_llrs(_mf_direct_powers(
         wave, abs_time, abs_freq, sps, hop, freq_osr, is_complex),
+        tables.gray_map)
+
+
+def extract_llrs_matched_stacked(waves: torch.Tensor, abs_time: torch.Tensor,
+                                 abs_freq: torch.Tensor, sps: int, hop: int,
+                                 freq_osr: int,
+                                 is_complex: bool = False) -> torch.Tensor:
+    """Repeat-stacked matched-filter LLRs straight from (R, n[, 2]) audio:
+    the direct form of :func:`extract_llrs_matched_blocks_stacked` for the
+    geometries the block decomposition does not cover."""
+    tables = _mf_tables(sps, freq_osr, waves.device)
+    return _powers_to_llrs(_mf_direct_powers(
+        waves, abs_time, abs_freq, sps, hop, freq_osr, is_complex).mean(0),
         tables.gray_map)
 
 
@@ -493,16 +542,7 @@ def extract_llrs_coherent_stacked(waves: torch.Tensor, abs_time: torch.Tensor,
     two_pi = 2.0 * np.pi
 
     if not is_complex:
-        # the analytic signal: one FFT per repeat, the negative
-        # frequencies zeroed and the positive ones doubled
-        n = waves.shape[1]
-        spec = torch.fft.fft(waves.to(torch.complex64), dim=1)
-        weight = torch.zeros(n, dtype=torch.float32, device=dev)
-        weight[0] = 1.0
-        weight[1:(n + 1) // 2] = 2.0
-        if n % 2 == 0:
-            weight[n // 2] = 1.0
-        waves = torch.view_as_real(torch.fft.ifft(spec * weight, dim=1))
+        waves = torch.view_as_real(_analytic(waves))
     xp = _padded(waves, sps, True)                        # (R, L) x2
 
     mixes = _mixes(abs_freq.to(dev), sps, phi, tables)

@@ -8,7 +8,9 @@ functions (:func:`sync_scores`, :func:`find_candidates`, on (..., F, T)
 grids) run the time-major ones on the transposed view: the stencil is
 elementwise and the flat candidate index is f * num_times + t in both.
 Candidate selection reproduces ``lax.top_k``'s lowest-index tie order with
-stable sorts.  Every function takes leading batch dimensions.
+stable sorts.  Every function takes leading batch dimensions, but for
+:func:`sync_scores_z`, the linear-power Costas z statistic of the
+repeat-stacked decoder, which takes one (F, T) grid.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch.nn.functional as F
 from ..protocol import constants as C
 
 __all__ = ["SearchGrid", "search_grid", "sync_scores", "sync_scores_tf",
-           "find_candidates", "find_candidates_tf", "cell_mask_tensors"]
+           "sync_scores_z", "find_candidates", "find_candidates_tf",
+           "cell_mask_tensors"]
 
 # The reference scans start times from 10 symbols before the slot up to
 # num_blocks - 59 symbols.
@@ -178,6 +181,66 @@ def _sync_scores_tf_impl(mag_tf: torch.Tensor, g: SearchGrid,
     # stay bit-identical to it
     inv = 1.0 / torch.clamp(count, min=1.0)
     return torch.where(count > 0, total * inv, -torch.inf)
+
+
+def sync_scores_z(linpow: torch.Tensor, g: SearchGrid) -> torch.Tensor:
+    """Linear power grid (F, T) -> normalised Costas detection z (nF, nT).
+
+    Each of the 21 Costas cells contributes its linear on-tone power minus
+    the exact 8-tone mean at that symbol; the sum is normalised to unit
+    noise variance (var(P) of the whole grid; each contrast has variance
+    (7/8) var(P) under noise only, so z ~ N(0, 1) there).  -inf where no
+    cell is in bounds.  The terms are added in the JAX function's order.
+    """
+    tau, phi = g.time_osr, g.freq_osr
+    padded, s8, left = _pad_and_tone_sum(linpow, g)
+    cell_m = cell_mask_tensors(g, linpow.device)[0].to(torch.float32)
+    total = linpow.new_zeros((g.num_freqs, g.num_times))
+    for m in range(C.NUM_COSTAS_SEQS):
+        for k in range(C.COSTAS_LEN):
+            i = m * C.COSTAS_LEN + k
+            b = m * C.SYNC_SEQ_STRIDE + k
+            start = left + g.t_start + b * tau
+            total = total + cell_m[i] * (
+                _cells(padded, int(C.COSTAS_PATTERN[k]) * phi, start, g)
+                - _cells(s8, 0, start, g) * 0.125)
+    return _z_normalise(total, linpow,
+                        _cell_masks(g)[0].sum(0).astype(np.float32))
+
+
+def _cells(grid: torch.Tensor, row: int, col: int,
+           g: SearchGrid) -> torch.Tensor:
+    """The (num_freqs, num_times) window of ``grid`` at (row, col), the
+    start clamped into the grid as ``lax.dynamic_slice`` clamps it."""
+    row = min(max(row, 0), grid.shape[-2] - g.num_freqs)
+    col = min(max(col, 0), grid.shape[-1] - g.num_times)
+    return grid[..., row: row + g.num_freqs, col: col + g.num_times]
+
+
+def _pad_and_tone_sum(linpow: torch.Tensor, g: SearchGrid):
+    """Pad the linear grid for a track scan and build the 8-tone row sum
+    S8(f, t) = sum_j P(f + j*phi, t) over the frequency rows the grid
+    scans.  Returns (padded, s8, left pad)."""
+    left = max(0, -g.t_start)
+    right = max(0, g.t_start + g.num_times
+                + (C.NUM_SYMBOLS - 1) * g.time_osr - linpow.shape[-1])
+    padded = F.pad(linpow, (left, right))
+    s8 = linpow.new_zeros((g.num_freqs, padded.shape[-1]))
+    for j in range(8):
+        s8 = s8 + padded[j * g.freq_osr: j * g.freq_osr + g.num_freqs]
+    return padded, s8, left
+
+
+def _z_normalise(total: torch.Tensor, linpow: torch.Tensor,
+                 count: np.ndarray) -> torch.Tensor:
+    """Contrast sum -> unit-noise-variance z: each contrast has variance
+    (7/8) var(P) under noise only, var(P) the grid's population variance
+    (``jnp.var`` divides by N: ``correction=0``).  ``count``: valid
+    contrasts per time column (host)."""
+    cell_var = torch.var(linpow, correction=0)
+    cnt = torch.as_tensor(count, device=linpow.device)
+    sigma = torch.sqrt(cell_var * 0.875 * torch.clamp(cnt, min=1.0))
+    return torch.where(cnt > 0, total / sigma, -torch.inf)
 
 
 def _top_k_stable(x: torch.Tensor, k: int):

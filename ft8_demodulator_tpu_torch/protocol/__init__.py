@@ -2,7 +2,8 @@
 the message text codec."""
 
 from . import constants
-from .encode import (codeword_to_tones, crc14, encode_codeword, encode_tones,
+from .encode import (bits_to_payload, check_crc, codeword_to_tones, crc14,
+                     crc_generator, encode_codeword, encode_tones,
                      frame_tones, payload_to_bits)
 from .message import (UnsupportedMessageError, ap_hypotheses, hash_callsign,
                       is_standard_callsign, pack_free_text, pack_message,
@@ -19,7 +20,10 @@ __all__ = [
     "pack_telemetry",
     "remember_callsign",
     "unpack_message",
+    "bits_to_payload",
+    "check_crc",
     "codeword_to_tones",
+    "crc_generator",
     "crc14",
     "encode_codeword",
     "encode_tones",

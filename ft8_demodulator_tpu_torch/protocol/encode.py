@@ -17,11 +17,14 @@ from . import constants as C
 
 __all__ = [
     "payload_to_bits",
+    "bits_to_payload",
     "crc14",
     "encode_codeword",
     "codeword_to_tones",
     "frame_tones",
     "encode_tones",
+    "crc_generator",
+    "check_crc",
 ]
 
 
@@ -54,6 +57,13 @@ def payload_to_bits(payload: torch.Tensor) -> torch.Tensor:
     shifts = torch.arange(7, -1, -1, device=payload.device)
     bits = (payload.unsqueeze(-1) >> shifts) & 1
     return bits.reshape(*payload.shape[:-1], 80)[..., : C.PAYLOAD_BITS]
+
+
+def bits_to_payload(bits77: torch.Tensor) -> torch.Tensor:
+    """(..., 77) bits -> (..., 10) uint8 bytes, MSB first, 3 zero pad bits."""
+    bits80 = torch.nn.functional.pad(bits77.to(torch.int64), (0, 3))
+    groups = bits80.reshape(*bits77.shape[:-1], 10, 8)
+    return (groups * _msb_weights(8, bits77.device)).sum(-1).to(torch.uint8)
 
 
 def crc14(bits77: torch.Tensor) -> torch.Tensor:
@@ -96,3 +106,23 @@ def encode_tones(payload: torch.Tensor) -> torch.Tensor:
     """(..., 10) payload bytes -> (..., 79) tone ids (the full TX symbol map)."""
     return frame_tones(codeword_to_tones(encode_codeword(
         payload_to_bits(payload))))
+
+
+# -- reference-API helpers (host numpy) --------------------------------------
+
+def crc_generator(payload: np.ndarray) -> np.ndarray:
+    """payload 10 bytes -> a91 12 bytes = payload77 | crc14 | 5 pad zeros."""
+    bits77 = C.bytes_to_bits(np.asarray(payload, dtype=np.uint8),
+                             C.PAYLOAD_BITS)
+    crc = (C.CRC_MATRIX_77 @ bits77) % 2
+    bits96 = np.zeros(96, dtype=np.uint8)
+    bits96[: C.PAYLOAD_BITS] = bits77
+    bits96[C.PAYLOAD_BITS: C.LDPC_K] = crc
+    return C.bits_to_bytes(bits96)
+
+
+def check_crc(a91: np.ndarray) -> bool:
+    """True iff the CRC embedded in a91 matches the payload's CRC."""
+    bits = C.bytes_to_bits(np.asarray(a91, dtype=np.uint8), C.LDPC_K)
+    crc = (C.CRC_MATRIX_77 @ bits[: C.PAYLOAD_BITS]) % 2
+    return bool((crc == bits[C.PAYLOAD_BITS: C.LDPC_K]).all())

@@ -291,19 +291,45 @@ def test_decode_waterfall_matches_jax(capture):
 
 
 def test_unported_options_raise_naming_roadmap(capture):
-    wave, _ = capture
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 6"):
-        tdec.decode_ft8_message(wave, FS, device="cpu", refine_fixes=True)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tdec.decode_ft8_message(wave.astype(np.complex64), FS, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdec.decode_ft8_message(wave, FS, steps_per_symbol=3, device="cpu")
+    """The options that once raised now decode as JAX does: refine_fixes
+    (payloads and SNRs equal, times within 1e-4 s, frequencies within 0.01
+    Hz), the analytic (complex) capture, 3 steps per symbol (the matmul
+    backend) and decode_waterfall_mf with is_complex."""
+    import scipy.signal
+
+    wave, payloads = capture
+    got = tdec.decode_ft8_message(wave, FS, device="cpu", refine_fixes=True)
+    want = jdec.decode_ft8_message(wave, FS, refine_fixes=True)
+    assert [(r.message.payload, r.snr_db) for r in got] == \
+        [(r.message.payload, r.snr_db) for r in want]
+    for a, b in zip(got, want):
+        assert abs(a.time_sec - b.time_sec) <= 1e-4
+        assert abs(a.freq_hz - b.freq_hz) <= 0.01
+    z = scipy.signal.hilbert(wave.astype(np.float64)).astype(np.complex64)
+    for kw in (dict(min_score=5.0), dict(min_score=5.0, steps_per_symbol=3)):
+        _assert_rows_equal(tdec.decode_ft8_message(z, FS, device="cpu", **kw),
+                           jdec.decode_ft8_message(z, FS, **kw))
+    kw = dict(min_score=5.0, steps_per_symbol=3)
+    got = tdec.decode_ft8_message(wave, FS, device="cpu", **kw)
+    _assert_rows_equal(got, jdec.decode_ft8_message(wave, FS, **kw))
+    assert len(got) >= 3
+    pair = np.stack([z.real, z.imag], -1).astype(np.float32)
     p = waterfall_params(FS, 2, 2)
-    g = tsync.search_grid(p.num_freq_bins, p.num_frames(N), 2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 3"):
-        tdec.decode_waterfall_mf(torch.zeros(p.num_freq_bins, 186),
-                                 torch.as_tensor(wave), p, g, 0, 0, 20, 5.0,
-                                 is_complex=True)
+    nf = p.num_frames(N)
+    mag = np.array(jwf.waterfall_complex(jnp.asarray(pair),
+                                           jwf.waterfall_params(FS, 2, 2), nf))
+    g = tsync.search_grid(p.num_freq_bins, nf, 2, 2)
+    want = jdec.decode_waterfall_mf(
+        jnp.asarray(mag), jnp.asarray(pair), jwf.waterfall_params(FS, 2, 2),
+        jsync.search_grid(p.num_freq_bins, nf, 2, 2), 0, 0, 20, 5.0,
+        is_complex=True)
+    got = tdec.decode_waterfall_mf(torch.as_tensor(mag), torch.as_tensor(pair),
+                                   p, g, 0, 0, 20, 5.0, is_complex=True)
+    ok = np.asarray(want.success)
+    np.testing.assert_array_equal(got.success.numpy(), ok)
+    np.testing.assert_array_equal(got.payload.numpy()[ok],
+                                  np.asarray(want.payload)[ok])
+    assert ok.sum() >= 3
 
 
 def test_exports_and_metrics_copy_match_jax(capture):

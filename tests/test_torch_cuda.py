@@ -6,7 +6,10 @@ raise ValueErrors; the host decode API on the card against the CPU; the
 direct, refined and coherent matched-filter LLRs on the card against the
 CPU;
 chip_smoke.py's library yardstick (torch.stft) against the float32 plain
-waterfall.
+waterfall; the beacon path on the card against the CPU: the waterfall
+backends (block complex, matmul, fft), the z statistics, the stacked
+decode, known-payload detection and tracking, the drift corrector and
+the beacon session.
 
 Needs a CUDA card: every test takes the ``cuda`` fixture, which skips when
 there is none.  The file imports neither JAX nor the JAX package, and uses
@@ -510,3 +513,210 @@ def test_library_yardstick_matches_plain(cuda, fs, osr, box):
     if box:
         assert boxes.shape == (2, nf + 2 * (p.time_osr - 1),
                                p.num_freq_bins)
+
+
+# ---------------------------------------------------------------------------
+# the beacon path, card against CPU
+
+BEACON = np.array([0x1C, 0x3F, 0x8A, 0x6A, 0xE2, 0x07, 0xA1, 0xE3, 0x94,
+                   0x50], dtype=np.uint8)
+
+
+def _beacon_repeats(seed, snr_db, r, fs=2000.0, drift_hz_s=0.0):
+    """R 15-s cycles of real audio, the beacon at 400 Hz from 0.25 s
+    (drifting drift_hz_s Hz/s from the cycle's start), SNR in the 2500-Hz
+    convention over unit noise."""
+    from ft8_demodulator_tpu_torch.ops.gfsk import ft8_baseband
+
+    n = int(fs * 15)
+    start = int(0.25 * fs)
+    bb = ft8_baseband(BEACON, fs, 400.0, device="cpu").numpy().astype(
+        np.complex128)
+    t = (start + np.arange(len(bb))) / fs
+    one = (bb * np.exp(1j * np.pi * drift_hz_s * t * t)).real
+    rng = np.random.default_rng(seed)
+    waves = rng.standard_normal((r, n))
+    waves[:, start: start + len(one)] += np.sqrt(
+        2.0 * 10 ** (snr_db / 10) * 2500.0 / (fs / 2.0)) * one
+    return waves.astype(np.float32)
+
+
+def _assert_db_close(card, host):
+    """1e-3 dB where the CPU grid is above -100 dB."""
+    card, host = card.cpu(), host.cpu()
+    keep = host > -100.0
+    assert card.shape == host.shape
+    assert float((card - host).abs()[keep].max()) <= 1e-3
+
+
+@pytest.mark.parametrize("fs,osr,complex_in,backend", [
+    (12000.0, (2, 2), True, "block"), (1999.0, (2, 2), False, "matmul"),
+    (1999.0, (2, 2), True, "matmul"), (32768.0, (2, 2), True, "fft"),
+    (48000.0, (2, 2), False, "fft")])
+def test_waterfall_backends_card_match_cpu(cuda, fs, osr, complex_in,
+                                           backend):
+    from ft8_demodulator_tpu_torch.ops import waterfall as twf
+
+    p = waterfall_params(fs, *osr)
+    assert twf._pick_backend(p, None) == backend
+    n = int(fs * 3)
+    nf = p.num_frames(n)
+    rng = np.random.default_rng(3)
+    if complex_in:
+        w = torch.as_tensor(rng.standard_normal((n, 2)).astype(np.float32))
+        fn = twf.waterfall_complex
+    else:
+        w = torch.as_tensor(rng.standard_normal(n).astype(np.float32))
+        fn = twf.waterfall_real
+    _assert_db_close(fn(w.to(cuda), p, nf), fn(w, p, nf))
+
+
+def test_z_statistics_card_match_cpu(cuda):
+    """sync_scores_z and known_track_scores of an R = 4 stack: within 1e-5
+    relative, the same -inf masks."""
+    from ft8_demodulator_tpu_torch.beacon import detect as tdetect
+    from ft8_demodulator_tpu_torch.demod import stack as tstack
+    from ft8_demodulator_tpu_torch.protocol.encode import encode_tones
+
+    fs = 12000.0
+    p = waterfall_params(fs, 2, 2)
+    waves = torch.as_tensor(_beacon_repeats(1, -22.0, 4, fs))
+    nf = p.num_frames(waves.shape[1])
+    g = tsync.search_grid(p.num_freq_bins, nf, 2, 2)
+    host = tstack._stacked_power_and_spec(waves, p, nf, False, True)[0]
+    card = tstack._stacked_power_and_spec(waves.to(cuda), p, nf, False,
+                                          True)[0]
+    torch.testing.assert_close(card.cpu(), host, rtol=1e-5, atol=0)
+    track = encode_tones(torch.as_tensor(BEACON))
+    for fn, args in ((tsync.sync_scores_z, ()),
+                     (tdetect.known_track_scores, (track,))):
+        a = fn(host.to(cuda), *[x.to(cuda) for x in args], g).cpu()
+        b = fn(host, *args, g)
+        assert torch.equal(torch.isneginf(a), torch.isneginf(b))
+        fin = torch.isfinite(b)
+        torch.testing.assert_close(a[fin], b[fin], rtol=1e-5, atol=1e-5)
+
+
+def _rows_close(card, host):
+    assert [r.message.payload for r in card] == \
+        [r.message.payload for r in host]
+    for a, b in zip(card, host):
+        assert abs(a.time_sec - b.time_sec) <= 1e-3
+        assert abs(a.freq_hz - b.freq_hz) <= 0.01
+        assert abs(a.snr_db - b.snr_db) <= 0.1
+
+
+@pytest.mark.parametrize("r,fs", [(1, 2000.0), (4, 2000.0), (4, 12000.0)])
+def test_decode_ft8_stacked_card_matches_cpu(cuda, r, fs):
+    """The stacked decode with coherent, OSD and refined fixes: the CPU's
+    rows; OSD (K4) on every stack, the frequency-major stencil (K6) at R =
+    1."""
+    from ft8_demodulator_tpu_torch.demod import decode_ft8_stacked
+
+    waves = _beacon_repeats(2, -13.0 if r == 1 else -19.0, r, fs)
+    kw = dict(min_score=1.0, use_osd=True, coherent=True, refine_fixes=True)
+    before = (tsc.sync_scores_kernel.launches,
+              tosc.reduce_basis_from_order.launches)
+    card = decode_ft8_stacked(waves, fs, device=cuda, **kw)
+    assert tosc.reduce_basis_from_order.launches > before[1]
+    assert (tsc.sync_scores_kernel.launches > before[0]) == (r == 1)
+    _rows_close(card, decode_ft8_stacked(waves, fs, device="cpu", **kw))
+    assert BEACON.tobytes() in {row.message.payload for row in card}
+
+
+def test_stack_of_one_decodes_the_rows_of_mf_first_on_the_card(cuda):
+    """decode_slot_stacked at R = 1 (float64 block spectra) and
+    decode_slot(mf_first) (K3's bf16 grid) decode the same rows on the
+    card."""
+    from ft8_demodulator_tpu_torch.demod import decode_slot_stacked
+
+    fs = 12000.0
+    p = waterfall_params(fs, 2, 2)
+    wave = torch.as_tensor(_beacon_repeats(7, -10.0, 1, fs)).to(cuda)
+    nf = p.num_frames(wave.shape[1])
+    kw = dict(max_candidates=20, min_score=1.0, use_osd=True)
+    stacked = decode_slot_stacked(wave, p, nf, **kw)
+    single = tdec.decode_slot(wave[0], p, nf, mf_first=True, **kw)
+    lift = lambda r: type(r)(*(a[None] for a in r))
+    assert _decode_sets(lift(stacked), 0) == _decode_sets(lift(single), 0)
+    assert BEACON.tobytes() in {s[0] for s in _decode_sets(lift(single), 0)}
+
+
+def test_known_payload_card_matches_cpu(cuda):
+    from ft8_demodulator_tpu_torch.beacon import (detect_known_payload,
+                                                  track_known_payload)
+
+    waves = _beacon_repeats(3, -24.0, 8)
+    for w in (waves[0], waves):
+        card = detect_known_payload(w, 2000.0, BEACON, min_z=-100.0,
+                                    device=cuda)
+        host = detect_known_payload(w, 2000.0, BEACON, min_z=-100.0,
+                                    device="cpu")
+        assert [(d.time_sec, d.freq_hz) for d in card] == \
+            [(d.time_sec, d.freq_hz) for d in host]
+        np.testing.assert_allclose([d.z for d in card], [d.z for d in host],
+                                   rtol=1e-5)
+    card = track_known_payload(waves[0], 2000.0, BEACON, 0.27, 400.4,
+                               device=cuda)
+    host = track_known_payload(waves[0], 2000.0, BEACON, 0.27, 400.4,
+                               device="cpu")
+    assert card.detected == host.detected
+    assert abs(card.stat - host.stat) <= 0.02
+    assert abs(card.time_sec - host.time_sec) <= 1e-4
+    assert abs(card.freq_hz - host.freq_hz) <= 0.01
+
+
+def test_drift_corrector_card_matches_cpu(cuda):
+    """A 12-kHz cycle drifting 3 Hz/s at 0 dB, made analytic: the same
+    stage-1 track, the model within 1e-9 relative, the corrected samples
+    within 1e-4 of the peak."""
+    import scipy.signal
+
+    from ft8_demodulator_tpu_torch.beacon import drift as tdrift
+
+    fs = 12000.0
+    z = scipy.signal.hilbert(
+        _beacon_repeats(4, 0.0, 1, fs, drift_hz_s=3.0)[0].astype(np.float64))
+    zt = torch.as_tensor(z.astype(np.complex64))
+    assert np.array_equal(tdrift._argmax_track(zt.to(cuda), fs, 2, 2)[0],
+                          tdrift._argmax_track(zt, fs, 2, 2)[0])
+    card = tdrift.correct_frequency_drift(z, fs, return_model=True,
+                                          device=cuda)
+    host = tdrift.correct_frequency_drift(z, fs, return_model=True,
+                                          device="cpu")
+    assert card[2]["rate_hz_per_s"] == pytest.approx(3.0, abs=0.5)
+    for key, value in host[2].items():
+        assert card[2][key] == pytest.approx(value, rel=1e-9, abs=0)
+    np.testing.assert_allclose(card[0], host[0], rtol=0,
+                               atol=1e-4 * np.abs(z).max())
+
+
+def test_beacon_session_card_matches_cpu(cuda, tmp_path):
+    """A 2-kHz session (R = 3, coherent, OSD, refined fixes) over 3 cycles
+    at -19 dB and a flushed tail: the CPU's rows; a checkpoint written
+    mid-stream resumes on the card with the same rows."""
+    from ft8_demodulator_tpu_torch.demod import BeaconSession
+
+    fs = 2000.0
+    sig = np.concatenate([_beacon_repeats(5, -19.0, 3).reshape(-1),
+                          _beacon_repeats(6, -3.0, 1)[0, : int(13.5 * fs)]])
+    kw = dict(max_repeats=3, refine_fixes=True, min_score=1.0)
+
+    def run(session, samples):
+        rows = []
+        for i in range(0, len(samples), 7001):
+            rows += session.feed(samples[i: i + 7001])
+        return rows
+
+    card_s = BeaconSession(fs, device=cuda, **kw)
+    card = run(card_s, sig) + card_s.flush()
+    _rows_close(card, run(host := BeaconSession(fs, device="cpu", **kw), sig)
+                + host.flush())
+    assert BEACON.tobytes() in {r.message.payload for r in card}
+    first = BeaconSession(fs, device=cuda, **kw)
+    cut = int(22.5 * fs)
+    rows = run(first, sig[:cut])
+    first.save(str(tmp_path / "s.npz"))
+    resumed = BeaconSession.load(str(tmp_path / "s.npz"), device=cuda)
+    rows += run(resumed, sig[cut:]) + resumed.flush()
+    _rows_close(rows, card)

@@ -168,19 +168,28 @@ def test_decode_slot_equals_decode_slots(slots, port_result):
 
 
 def test_decode_slots_rejects_ragged_chunk_and_unported_options(slots):
-    waves, _ = slots
+    """A ragged chunk raises; 3 steps per symbol (no block geometry) and
+    complex input, which once raised, decode: decode_slots slot by slot
+    as decode_slot, and a real slot given as [re, 0] with is_complex the
+    planted payload."""
+    waves, payloads = slots
     p = waterfall_params(FS, 2, 2)
     nf = p.num_frames(N)
     w = torch.as_tensor(waves[:3])
     with pytest.raises(ValueError, match="multiple of chunk"):
         tdec.decode_slots(w, p, nf, chunk=2)
-    # 3 steps per symbol: no block geometry
     p3 = waterfall_params(FS, 2, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdec.decode_slots(w, p3, p3.num_frames(N), chunk=1)
-    for opt in ("is_complex",):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tdec.decode_slot(w[0], p, nf, **{opt: True})
+    kw = dict(max_candidates=K, min_score=MIN_SCORE)
+    got = tdec.decode_slots(w[:2], p3, p3.num_frames(N), chunk=1, **kw)
+    for b in range(2):
+        one = tdec.decode_slot(w[b], p3, p3.num_frames(N), **kw)
+        for name, a, c in zip(one._fields, got, one):
+            torch.testing.assert_close(a[b], c, rtol=0, atol=0, msg=name)
+    pair = torch.stack([w[0], torch.zeros_like(w[0])], -1)
+    res = tdec.decode_slot(pair, p, nf, is_complex=True, **kw)
+    found = {bytes(pl) for pl, ok in zip(res.payload.numpy(),
+                                         res.success.numpy()) if ok}
+    assert bytes(payloads[0]) in found
 
 
 def test_decode_slots_beyond_the_kernels_tile_matches_jax(slots):

@@ -15,9 +15,16 @@ def test_torch_import_without_jax():
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "import ft8_demodulator_tpu_torch.beacon\n"
+        "import ft8_demodulator_tpu_torch.beacon.detect\n"
+        "import ft8_demodulator_tpu_torch.beacon.drift\n"
         "import ft8_demodulator_tpu_torch.config\n"
         "import ft8_demodulator_tpu_torch.demod\n"
+        "import ft8_demodulator_tpu_torch.demod.beacon_session\n"
         "import ft8_demodulator_tpu_torch.demod.decode\n"
+        "import ft8_demodulator_tpu_torch.demod.stack\n"
+        "import ft8_demodulator_tpu_torch.ops.gfsk\n"
+        "import ft8_demodulator_tpu_torch.ops.llr\n"
         "import ft8_demodulator_tpu_torch.ops.osd\n"
         "import ft8_demodulator_tpu_torch.ops.osd_cuda\n"
         "import ft8_demodulator_tpu_torch.ops.subtract\n"
@@ -44,6 +51,10 @@ def test_torch_port_imports_from_a_copy_of_its_package_alone(tmp_path):
         "sys.modules['jax'] = None\n"
         "import ft8_demodulator_tpu_torch.protocol.constants as C\n"
         "import ft8_demodulator_tpu_torch.ops.sync_cuda\n"
+        "from ft8_demodulator_tpu_torch.beacon import correct_frequency_drift"
+        ", track_known_payload\n"
+        "from ft8_demodulator_tpu_torch.demod import BeaconSession, "
+        "decode_ft8_stacked\n"
         "from ft8_demodulator_tpu_torch.protocol import message\n"
         "assert C.LDPC_GENERATOR.shape == (83, 91)\n"
         "assert message.unpack_message(message.pack_message("

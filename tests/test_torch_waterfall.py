@@ -103,12 +103,23 @@ def test_fused_wrapper_rejects_bad_input(rng):
         twc.block_waterfall_tf_fused_batch(torch.zeros(2, N // 2), p, nf)
 
 
-def test_non_block_geometry_not_ported():
-    # 3 steps per symbol: hop * time_osr != nperseg, no block geometry
+def test_non_block_geometry_not_ported(rng):
+    """3 steps per symbol (hop * time_osr != nperseg, no block geometry)
+    takes the matmul backend: the rows of a 3-step float64 DFT of every
+    frame, within 1e-3 dB where above -100 dB."""
     p = twf.waterfall_params(FS, 2, 3)
     assert twf._pick_backend(p, None) == "matmul"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        twf.waterfall_real(torch.zeros(N), p, p.num_frames(N))
+    wave = _noisy(rng, 1)[0]
+    nf = p.num_frames(N)
+    got = twf.waterfall_real(torch.as_tensor(wave), p, nf)
+    frames = np.lib.stride_tricks.sliding_window_view(
+        wave.astype(np.float64), p.nperseg)[:: p.hop][:nf]
+    spec = np.fft.rfft(frames * twf._hann_periodic(p.nperseg), p.nfft)
+    want = 10.0 * np.log10(1e-12 + np.abs(spec[:, : p.num_freq_bins]) ** 2
+                           * twf._db_scale(p)).T
+    assert got.shape == want.shape
+    keep = want > -100.0
+    assert np.abs(got.numpy() - want)[keep].max() <= 1e-3
 
 
 def test_block_constants_copied_once_per_geometry(rng):
