@@ -1,5 +1,6 @@
 """Chip smoke test of the PyTorch port: the STANDARD and DEEP slot decodes,
-the host decode API and the beacon receiver on one card.
+the host decode API, the beacon receiver, the satellite channel, the
+streaming session and the command line on one card.
 
     python3 chip_smoke.py
 
@@ -120,7 +121,39 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    ft8.detect and ft8.drift): a feed that completes a cycle,
    correct_frequency_drift per cycle, decode_ft8_stacked at R = 1, 4, 8
    and at 2 kHz R = 8, detect_known_payload at R = 8, the complex and
-   48-kHz decodes; peak device memory of each.
+   48-kHz decodes; peak device memory of each;
+15. the satellite channel: the Doppler ops (apply_doppler[_physical],
+   compensate_linear_doppler[_physical]) on the card against the CPU
+   within 2e-5 over the demo's predicted pass (4 cycles at 10 kHz);
+   add_complex_awgn's noise power within 2 % of its target at 10 and
+   -14 dB; the satellite demo's flow at its full size (4 cycles, Es/N0 -14
+   dB, the demo's seed 0, decimated to 2 kHz): one capture made on the
+   card (its noise from a seeded torch.Generator), decoded by the demo's
+   RX on the card and on the CPU: path A's decode_ft8_message and path
+   B's decode_ft8_stacked (R 4, coherent, OSD, the known-call AP) give the
+   CPU's rows, path B decodes 'CQ PI4THD JO22', detect_known_payload finds
+   the track at 0 s / 500 Hz, the sync and OSD kernels launch; times of
+   the ops, the TX + channel, and the RX with its stage split;
+16. StreamSession at 12 kHz on 2 minutes (8 blocks) of audio with six
+   planted signals at -6 dB (one clipped at capture start, one across the
+   first block edge, two 60 Hz apart in one slot, one in the final
+   partial block), fed 50,001 samples at a time, at STANDARD and
+   DEEP_SEARCH, pipeline_depth 0 and 2: each planted signal reported once
+   (time within 0.2 s, frequency within 4 Hz) and nothing else, the CPU's
+   rows (score within 1e-4, SNR within 0.1 dB), depth 2 == depth 0, the
+   sync kernel launched once a block and the OSD kernel under OSD only; a
+   checkpoint saved after 3.5 blocks with blocks in flight (depth 2)
+   resumes with the same rows; times: a feed that completes a block
+   (median of 5), its device busy and stage split, peak memory;
+17. the command line, python -m ft8_demodulator_tpu_torch.cli in processes
+   of its own: --tx writes a 12-kHz WAV (--tx-snr -10) on the card and on
+   the CPU (the same printed lines, WAVs within 1e-3); the card's WAV
+   decoded with the default flags, --deep, --stream and --format json,
+   and a 4-cycle 12-kHz beacon WAV at -20 dB with --stack 4 --osd: each
+   stdout equal to the same command's with FT8_PLATFORM=cpu, but for a
+   printed score or SNR one unit of its last digit apart (counted); the
+   message decoded; each process's wall time; --deep once in this process
+   with the launch counters (sync and OSD kernels).
 
 Then one JSON line with the kernels (each with its launches on the main
 path, device ms, plain ms, bound ms and what bounds it, and the library
@@ -1865,6 +1898,473 @@ def _beacon_times(dev, smi: str, cycles, corrected, analytic, w48,
                + ", ".join(f"{k} {v:.1f} MiB" for k, v in peaks.items()))
 
 
+# the satellite channel (phase 15): the demo's flow at its full size, 4
+# cycles at 10 kHz through the predicted pass's Doppler at Es/N0 -14 dB,
+# decimated to 2 kHz; the noise from a torch.Generator seeded by DEMO_SEED
+# (the demo's default seed, not chosen)
+DEMO_CYCLES = 4
+DEMO_ESN0 = -14.0
+DEMO_SEED = 0
+DEMO_MESSAGE = "CQ PI4THD JO22"
+DOPPLER_ATOL = 2e-5
+AWGN_RTOL = 0.02
+DEMO_REPS = 3
+
+
+def _demo_rows_text(rows) -> list:
+    return [(r.message.payload.hex(), r.time_sec, r.freq_hz, r.snr_db)
+            for r in rows]
+
+
+def _channel_phase(dev, smi: str) -> tuple[int, int]:
+    """Phase 15: the Doppler ops and the noise on the card, then the demo's
+    RX on one capture, card against CPU.  Returns the OSD and the
+    frequency-major sync kernels' launches in the card's RX."""
+    from ft8_demodulator_tpu_torch import channel as tch
+    from ft8_demodulator_tpu_torch.examples import \
+        satellite_beacon_demo as demo
+    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
+    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
+    from ft8_demodulator_tpu_torch.protocol.message import unpack_message
+
+    fs = demo.FS_RF
+    doppler, info = demo.predict_pass_doppler(DEMO_CYCLES, fs)
+    n = len(doppler)
+    slope, intercept = np.polyfit(np.arange(n), doppler, 1)
+    w = np.random.default_rng(15).standard_normal((n, 2)).astype(np.float32)
+    errs, op_ms = {}, {}
+    for name, args in (("apply_doppler", (doppler, fs)),
+                       ("apply_doppler_physical", (doppler, fs)),
+                       ("compensate_linear_doppler", (slope, intercept, fs)),
+                       ("compensate_linear_doppler_physical",
+                        (slope, intercept, fs))):
+        fn = getattr(tch, name)
+        card = fn(w, *args, device=dev)
+        host = fn(w, *args, device="cpu")
+        errs[name] = float((card.cpu() - host).abs().max())
+        if card.shape != (n, 2) or not bool(torch.isfinite(card).all()) \
+                or not errs[name] <= DOPPLER_ATOL:
+            raise RuntimeError(f"{name} on the card: {errs[name]} off the "
+                               f"CPU (bound {DOPPLER_ATOL})")
+        wd = torch.as_tensor(w, device=dev)
+        op_ms[name] = _median_ms(lambda: fn(wd, *args), DEMO_REPS)
+    ratios = {}
+    x = torch.as_tensor(w, device=dev)
+    for snr in (10.0, DEMO_ESN0):
+        noisy = tch.add_complex_awgn(x, torch.Generator().manual_seed(15),
+                                     snr)
+        p_sig = float((x ** 2).sum(-1).mean())
+        p_noise = float(((noisy - x) ** 2).sum(-1).mean())
+        ratios[snr] = p_noise / (2.0 * p_sig / 10.0 ** (snr / 10.0))
+        if not abs(ratios[snr] - 1.0) <= AWGN_RTOL:
+            raise RuntimeError(f"add_complex_awgn at {snr} dB: noise power "
+                               f"{ratios[snr]} of its target")
+    _phase(15, f"satellite channel on the predicted pass ({info}; "
+               f"{doppler[0]:+.0f} -> {doppler[-1]:+.0f} Hz over {n} samples "
+               f"at {fs / 1000:g} kHz): Doppler ops card vs CPU max |diff| "
+               + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+               + f" (bound {DOPPLER_ATOL}); add_complex_awgn noise power / "
+               "target " + ", ".join(f"{k:g} dB {v:.4f}"
+                                     for k, v in ratios.items())
+               + f" (bound {AWGN_RTOL})")
+
+    # the demo: one capture (the card's), decoded by the card and the CPU
+    noisy = demo.transmit(DEMO_CYCLES, DEMO_ESN0, DEMO_SEED, doppler,
+                          device=dev)
+    host_noisy = noisy.cpu()
+    card_lines, host_lines = [], []
+    torch.cuda.synchronize()
+    oc.reduce_basis_from_order.launches = 0
+    sc.sync_scores_kernel.launches = 0
+    t0 = time.perf_counter()
+    card = demo.receive(noisy, doppler, DEMO_CYCLES, device=dev,
+                        out=card_lines.append)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    k4 = oc.reduce_basis_from_order.launches
+    k6 = sc.sync_scores_kernel.launches
+    t0 = time.perf_counter()
+    host = demo.receive(host_noisy, doppler, DEMO_CYCLES, device="cpu",
+                        out=host_lines.append)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    _check_beacon_rows("demo path A decode_ft8_message", card["single"],
+                       host["single"])
+    _check_beacon_rows("demo path B decode_ft8_stacked", card["rows"],
+                       host["rows"])
+    texts = [unpack_message(r.message.payload) for r in card["rows"]]
+    det = card["dets"][0] if card["dets"] else None
+    if DEMO_MESSAGE not in texts or det is None \
+            or abs(det.time_sec) > 0.5 or abs(det.freq_hz - demo.F0_HZ) > 5.0:
+        raise RuntimeError(f"demo: stacked decode {texts} (CPU "
+                           f"{[unpack_message(r.message.payload) for r in host['rows']]}"
+                           f"), detection {det} (CPU "
+                           f"{host['dets'][:1]})")
+    if k6 < 1 or k4 < 1:
+        raise RuntimeError(f"demo RX: sync kernel {k6}, OSD kernel {k4} "
+                           "launches")
+    _phase(15, f"demo at full size ({DEMO_CYCLES} cycles at {fs / 1000:g} "
+               f"kHz, Es/N0 {DEMO_ESN0:g} dB, seed {DEMO_SEED}, decimated "
+               f"x{demo.DECIM}): card == CPU rows, path A "
+               f"{_demo_rows_text(card['single'])}, path B "
+               f"{_demo_rows_text(card['rows'])}; card prints: "
+               + " | ".join(card_lines) + f"; sync kernel launches {k6}, "
+               f"OSD kernel launches {k4}; RX card {card_ms:.0f} ms (first "
+               f"call), CPU {host_ms:.0f} ms")
+
+    tx_ms = _median_ms(lambda: demo.transmit(DEMO_CYCLES, DEMO_ESN0,
+                                             DEMO_SEED, doppler, device=dev),
+                       DEMO_REPS)
+    rx = lambda: demo.receive(noisy, doppler, DEMO_CYCLES, device=dev,
+                              out=lambda s: None)
+    torch.cuda.reset_peak_memory_stats()
+    rx_ms = _median_ms(rx, DEMO_REPS)
+    rx_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    split = _median_split(rx, DEMO_REPS)
+    _phase(15, f"[{smi}] times, median of {DEMO_REPS} (host ms to a "
+               "synchronize): Doppler ops on the pass "
+               + ", ".join(f"{k} {v:.2f} ms" for k, v in op_ms.items())
+               + f"; TX + channel + noise {tx_ms:.1f} ms; RX (paths A and B,"
+               f" detection, tracking) {rx_ms:.1f} ms ({_split_text(split)})"
+               f"; RX peak memory {rx_peak:.1f} MiB")
+    return k4, k6
+
+
+# the streaming session (phase 16): 2 minutes of 12-kHz audio (unit white
+# noise from default_rng(STREAM_SEED)) holding six transmissions at
+# STREAM_SNR_DB (2500-Hz convention): one clipped at capture start, one
+# across the first block edge, two in one slot 60 Hz apart, one more, and
+# one in the final partial block (the flush's)
+STREAM_FS = 12000.0
+STREAM_SECONDS = 120
+STREAM_SEED = 16
+STREAM_SNR_DB = -6.0
+STREAM_FEED = 50001              # samples a feed: blocks end mid-feed
+STREAM_EVENTS = (("CQ K1ABC FN42", -1.0, 800.0),
+                 ("CQ W9XYZ EN37", 13.5, 1500.0),
+                 ("CQ DL1ABC JO62", 46.0, 1200.0),
+                 ("CQ PI4THD JO22", 46.0, 1260.0),
+                 ("CQ G4ABC IO91", 75.5, 2100.0),
+                 ("CQ JA1XYZ PM95", 106.5, 600.0))
+STREAM_BLOCKS = 8
+STREAM_CUT_BLOCKS = 3.5
+STREAM_TIME_ATOL = 0.2
+STREAM_FREQ_ATOL = 4.0
+STREAM_REPS = 5
+
+
+def _stream_audio():
+    """(audio float32, {payload: (text, start s, f0 Hz)})."""
+    from ft8_demodulator_tpu_torch.ops.gfsk import _baseband_complex
+    from ft8_demodulator_tpu_torch.protocol import constants as C
+    from ft8_demodulator_tpu_torch.protocol.encode import encode_tones
+    from ft8_demodulator_tpu_torch.protocol.message import pack_message
+
+    fs = STREAM_FS
+    n = int(STREAM_SECONDS * fs)
+    sps = int(C.SYMBOL_PERIOD_S * fs)
+    audio = np.random.default_rng(STREAM_SEED).standard_normal(n)
+    planted = {}
+    for text, t, f0 in STREAM_EVENTS:
+        payload = pack_message(text)
+        w = _baseband_complex(encode_tones(torch.as_tensor(payload)), sps,
+                              fs, f0).real.numpy()
+        i = int(round(t * fs))
+        if i < 0:
+            w, i = w[-i:], 0
+        w = w[: n - i]
+        audio[i: i + len(w)] += _amplitude(STREAM_SNR_DB, fs) * w
+        planted[bytes(payload)] = (text, t, f0)
+    return audio.astype(np.float32), planted
+
+
+def _stream_feed(session, samples) -> list:
+    rows = []
+    for i in range(0, len(samples), STREAM_FEED):
+        rows += session.feed(samples[i: i + STREAM_FEED])
+    return rows
+
+
+def _stream_phase(dev, smi: str) -> tuple[int, int]:
+    """Phase 16: StreamSession on the card against the CPU.  Returns the
+    OSD and the frequency-major sync kernels' launches in the card's
+    sessions."""
+    from ft8_demodulator_tpu_torch.config import DEEP_SEARCH, STANDARD
+    from ft8_demodulator_tpu_torch.demod.stream_session import StreamSession
+    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
+    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
+
+    fs = STREAM_FS
+    audio, planted = _stream_audio()
+    k4_total = k6_total = 0
+    texts, times = [], []
+    for name, cfg in (("STANDARD", STANDARD), ("DEEP", DEEP_SEARCH)):
+        runs = {}
+        for depth in (0, 2):
+            torch.cuda.synchronize()
+            oc.reduce_basis_from_order.launches = 0
+            sc.sync_scores_kernel.launches = 0
+            t0 = time.perf_counter()
+            s = StreamSession(fs, cfg, pipeline_depth=depth, device=dev)
+            rows = _stream_feed(s, audio) + s.flush()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            k4 = oc.reduce_basis_from_order.launches
+            k6 = sc.sync_scores_kernel.launches
+            k4_total += k4
+            k6_total += k6
+            if k6 != STREAM_BLOCKS or (k4 > 0) != cfg.use_osd:
+                raise RuntimeError(f"StreamSession {name} depth {depth}: "
+                                   f"sync kernel {k6} launches (want one a "
+                                   f"block, {STREAM_BLOCKS}), OSD kernel "
+                                   f"{k4}")
+            runs[depth] = (rows, ms, k4, k6)
+        card = runs[0][0]
+        t0 = time.perf_counter()
+        hs = StreamSession(fs, cfg, device="cpu")
+        host = _stream_feed(hs, audio) + hs.flush()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        _check_api_rows(f"StreamSession {name}", card, host)
+        key = lambda rs: [(r.message.payload, r.time_sec, r.freq_hz, r.score,
+                           r.snr_db) for r in rs]
+        if key(runs[2][0]) != key(card):
+            raise RuntimeError(f"StreamSession {name}: pipeline_depth 2 rows"
+                               f" {key(runs[2][0])} != depth 0 {key(card)}")
+        got = [r.message.payload for r in card]
+        for payload, (text, t, f0) in planted.items():
+            hit = [r for r in card if r.message.payload == payload]
+            if len(hit) != 1 \
+                    or abs(hit[0].time_sec - t) > STREAM_TIME_ATOL \
+                    or abs(hit[0].freq_hz - f0) > STREAM_FREQ_ATOL:
+                raise RuntimeError(f"StreamSession {name}: {text!r} at {t} s"
+                                   f" {f0} Hz reported {len(hit)} times: "
+                                   f"{_demo_rows_text(hit)}")
+        if set(got) - set(planted):
+            raise RuntimeError(f"StreamSession {name}: unplanted rows "
+                               f"{set(got) - set(planted)}")
+        # save after 3.5 blocks, with a block in flight at depth 2
+        cut = int(STREAM_CUT_BLOCKS * SLOT_S * fs)
+        first = StreamSession(fs, cfg, pipeline_depth=2, device=dev)
+        rows = _stream_feed(first, audio[:cut])
+        in_flight = len(first._pending)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "stream.npz")
+            first.save(path)
+            resumed = StreamSession.load(path, device=dev)
+        rows += _stream_feed(resumed, audio[cut:]) + resumed.flush()
+        if in_flight < 1 or key(rows) != key(card):
+            raise RuntimeError(f"StreamSession {name}: {in_flight} blocks in "
+                               f"flight at the save; resumed rows "
+                               f"{key(rows)} != {key(card)}")
+        texts.append(
+            f"{name}: {len(card)} rows, each planted signal once, card == "
+            f"CPU, depth 2 == depth 0, sync kernel launches "
+            f"{runs[0][3]}/{runs[2][3]} (depth 0/2), OSD kernel launches "
+            f"{runs[0][2]}/{runs[2][2]}; save after {STREAM_CUT_BLOCKS:g} "
+            f"blocks ({in_flight} in flight) resumes with the same rows; "
+            f"whole stream card {runs[0][1]:.0f}/{runs[2][1]:.0f} ms (first"
+            f" calls), CPU {host_ms:.0f} ms; rows "
+            + ", ".join(f"{planted[r.message.payload][0]!r} {r.time_sec:.2f}"
+                        f" s {r.freq_hz:.2f} Hz {r.snr_db:+.1f} dB"
+                        for r in card))
+
+        # a warm session, fed one block's samples at a time: each feed
+        # completes a block
+        s = StreamSession(fs, cfg, device=dev)
+        s.feed(audio[: s.lookahead])
+        turn = iter(range(10 ** 6))
+
+        def feed(s=s, turn=turn):
+            j = next(turn) % 6
+            return s.feed(audio[j * s.block_len: (j + 1) * s.block_len])
+
+        torch.cuda.reset_peak_memory_stats()
+        feed_ms = _median_ms(feed, STREAM_REPS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        split = _median_split(feed, 3)
+        busy = split["call"][1]
+        times.append(f"{name} {feed_ms:.1f} ms a feed, device busy "
+                     f"{busy:.2f} ms ({100 * (1 - busy / feed_ms):.0f} % "
+                     f"idle), peak {peak:.1f} MiB ({_split_text(split)})")
+    _phase(16, f"StreamSession at {fs / 1000:g} kHz on {STREAM_SECONDS} s "
+               f"({STREAM_BLOCKS} blocks) of audio with "
+               f"{len(STREAM_EVENTS)} signals at {STREAM_SNR_DB:g} dB, fed "
+               f"{STREAM_FEED} samples at a time: " + "; ".join(texts))
+    _phase(16, f"[{smi}] a feed that completes a block, median of "
+               f"{STREAM_REPS} (host ms to a synchronize; device busy and "
+               "stages from profiler traces, host/device ms, median of 3): "
+               + "; ".join(times))
+    return k4_total, k6_total
+
+
+# the CLI (phase 17): python -m ft8_demodulator_tpu_torch.cli in processes
+# of its own, on the card and with FT8_PLATFORM=cpu
+CLI_TX = "CQ K1ABC FN42"
+CLI_TX_SNR = "-10"
+CLI_TX_SEED = "17"
+CLI_BEACON_SNR_DB = -20.0
+CLI_BEACON_F0 = 1400.0
+CLI_TIMEOUT_S = 300
+
+
+def _cli_run(args: list[str], cpu: bool) -> tuple[str, float]:
+    """(stdout, wall seconds) of one CLI process; a non-zero exit
+    raises."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("FT8_PLATFORM", None)
+    if cpu:
+        env["FT8_PLATFORM"] = "cpu"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ft8_demodulator_tpu_torch.cli", *args],
+        cwd=root, env=env, capture_output=True, text=True,
+        timeout=CLI_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"cli {args} ({'CPU' if cpu else 'card'}) exit "
+                           f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout, secs
+
+
+def _one_unit_apart(a, b, unit: float) -> bool:
+    """Two printed numbers at most one unit of their last printed digit
+    apart."""
+    try:
+        return abs(float(a) - float(b)) <= unit * (1 + 1e-6)
+    except (TypeError, ValueError):
+        return False
+
+
+# the last printed digit of each number the CLI prints with a score or SNR
+CLI_UNITS = {"Score: ": 0.1, "SNR: ": 0.1, "score": 0.01, "snr_db": 0.1}
+
+
+def _cli_same(name: str, card: str, host: str) -> int:
+    """The card's stdout against the CPU's: equal line for line, but for a
+    printed score or SNR one unit of its last digit apart, the rest of the
+    line equal (``--format json`` rows parsed).  Returns how many lines
+    differ so."""
+    a, b = card.splitlines(), host.splitlines()
+    if len(a) != len(b):
+        raise RuntimeError(f"cli {name}: card stdout {a} != CPU {b}")
+    edges = 0
+    for x, y in zip(a, b):
+        if x == y:
+            continue
+        ok = False
+        for label in ("Score: ", "SNR: "):
+            if x.startswith(label) and y.startswith(label):
+                u, v = x[len(label):].split(), y[len(label):].split()
+                ok = u[1:] == v[1:] and _one_unit_apart(u[0], v[0],
+                                                        CLI_UNITS[label])
+        if x.startswith("{") and y.startswith("{"):
+            p, q = json.loads(x), json.loads(y)
+            rest = lambda r: {k: v for k, v in r.items()
+                              if k not in ("score", "snr_db")}
+            ok = rest(p) == rest(q) and all(
+                _one_unit_apart(p[k], q[k], CLI_UNITS[k])
+                for k in ("score", "snr_db"))
+        if not ok:
+            raise RuntimeError(f"cli {name}: card line {x!r} != CPU {y!r}")
+        edges += 1
+    return edges
+
+
+def _cli_phase(dev, smi: str) -> tuple[int, int]:
+    """Phase 17: the CLI in processes of its own, card against CPU, and
+    its --deep decode once in this process with the launch counters.
+    Returns the OSD and the frequency-major sync kernels' launches there."""
+    import contextlib
+    import io
+
+    from ft8_demodulator_tpu_torch import cli
+    from ft8_demodulator_tpu_torch.io import read_wave_file, write_wave_file
+    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
+    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
+    from ft8_demodulator_tpu_torch.ops.gfsk import _baseband_complex
+    from ft8_demodulator_tpu_torch.protocol import constants as C
+    from ft8_demodulator_tpu_torch.protocol.encode import encode_tones
+    from ft8_demodulator_tpu_torch.protocol.message import pack_message
+
+    lines, edges, host_out = [], 0, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = {k: os.path.join(tmp, f"tx_{k}.wav") for k in ("card", "cpu")}
+        tx = ["--tx", CLI_TX, "--tx-snr", CLI_TX_SNR, "--tx-seed",
+              CLI_TX_SEED]
+        out_card, s_card = _cli_run(tx + [wav["card"]], cpu=False)
+        out_cpu, s_cpu = _cli_run(tx + [wav["cpu"]], cpu=True)
+        if out_card.replace(wav["card"], "W") != \
+                out_cpu.replace(wav["cpu"], "W"):
+            raise RuntimeError(f"cli --tx: card {out_card!r}, CPU "
+                               f"{out_cpu!r}")
+        a, fa = read_wave_file(wav["card"])
+        b, fb = read_wave_file(wav["cpu"])
+        tx_err = float(np.abs(a - b).max())
+        if fa != fb or a.shape != b.shape or tx_err > 1e-3:
+            raise RuntimeError(f"cli --tx: the card's WAV {tx_err} off the "
+                               "CPU's")
+        lines.append(f"--tx {s_card:.1f} s (CPU {s_cpu:.1f} s, WAVs "
+                     f"{tx_err:.1e} apart)")
+
+        # a 4-cycle beacon at 12 kHz for --stack
+        fs = 12000.0
+        n = int(SLOT_S * fs)
+        w = _baseband_complex(encode_tones(torch.as_tensor(pack_message(
+            DEMO_MESSAGE))), int(C.SYMBOL_PERIOD_S * fs), fs,
+            CLI_BEACON_F0).real.numpy()
+        cyc = np.random.default_rng(17).standard_normal((4, n))
+        cyc[:, 6000: 6000 + len(w)] += _amplitude(CLI_BEACON_SNR_DB, fs) * w
+        flat = cyc.reshape(-1)
+        beacon = os.path.join(tmp, "beacon.wav")
+        write_wave_file(beacon, flat / np.abs(flat).max() * 0.8, fs)
+
+        for name, args in (("default", [wav["card"]]),
+                           ("--deep", [wav["card"], "--deep"]),
+                           ("--stream", [wav["card"], "--stream"]),
+                           ("--format json", [wav["card"], "--format",
+                                              "json"]),
+                           ("--stack 4 --osd", [beacon, "--stack", "4",
+                                                "--osd"])):
+            out_card, s_card = _cli_run(args, cpu=False)
+            out_cpu, s_cpu = _cli_run(args, cpu=True)
+            host_out[name] = out_cpu
+            edges += _cli_same(name, out_card, out_cpu)
+            want = DEMO_MESSAGE if name.startswith("--stack") else CLI_TX
+            if name == "--format json":
+                rows = [json.loads(ln) for ln in out_card.splitlines()]
+                found = [r["message"] for r in rows]
+            else:
+                found = [ln[len("Message: "):] for ln in
+                         out_card.splitlines() if ln.startswith("Message: ")]
+            if want not in found:
+                raise RuntimeError(f"cli {name}: {want!r} not decoded: "
+                                   f"{found}")
+            lines.append(f"{name} {s_card:.1f} s (CPU {s_cpu:.1f} s, "
+                         f"{len(found)} rows)")
+
+        # the CLI's --deep in this process: the kernels it launches
+        torch.cuda.synchronize()
+        oc.reduce_basis_from_order.launches = 0
+        sc.sync_scores_kernel.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([wav["card"], "--deep"])
+        torch.cuda.synchronize()
+        k4 = oc.reduce_basis_from_order.launches
+        k6 = sc.sync_scores_kernel.launches
+        _cli_same("--deep in process", buf.getvalue(), host_out["--deep"])
+    if rc != 0 or k6 < 1 or k4 < 1:
+        raise RuntimeError(f"cli --deep in process: exit {rc}, sync kernel "
+                           f"{k6}, OSD kernel {k4} launches")
+    _phase(17, f"[{smi}] python -m ft8_demodulator_tpu_torch.cli, stdout on "
+               "the card == stdout with FT8_PLATFORM=cpu (score / SNR one "
+               f"last digit apart: {edges} lines); wall time per process "
+               "(start, import, kernel load and decode): " + "; ".join(lines)
+               + f"; --deep in this process: sync kernel launches {k6}, OSD "
+               f"kernel launches {k4}")
+    return k4, k6
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2049,6 +2549,10 @@ def main() -> int:
     k4_beacon, k6_beacon = _beacon_phase(dev, smi)
     deep_kernels[1]["launches"] += k4_beacon
     k6_launches += k6_beacon
+    for phase in (_channel_phase, _stream_phase, _cli_phase):
+        k4_new, k6_new = phase(dev, smi)
+        deep_kernels[1]["launches"] += k4_new
+        k6_launches += k6_new
     k5_err = max(v for k, v in sync_diffs.items() if k.startswith("K5"))
     k6_err = max(v for k, v in sync_diffs.items() if k.startswith("K6"))
 

@@ -1,2 +1,2 @@
 """Utilities: building and loading the CUDA kernels, the entry points'
-device, the slot metrics."""
+device, the slot metrics, NaN debugging and profiling."""

@@ -9,7 +9,9 @@ chip_smoke.py's library yardstick (torch.stft) against the float32 plain
 waterfall; the beacon path on the card against the CPU: the waterfall
 backends (block complex, matmul, fft), the z statistics, the stacked
 decode, known-payload detection and tracking, the drift corrector and
-the beacon session.
+the beacon session; the satellite channel's Doppler ops and noise, and
+the streaming session (rows, kernel launches, a checkpoint) on the card
+against the CPU.
 
 Needs a CUDA card: every test takes the ``cuda`` fixture, which skips when
 there is none.  The file imports neither JAX nor the JAX package, and uses
@@ -720,3 +722,87 @@ def test_beacon_session_card_matches_cpu(cuda, tmp_path):
     resumed = BeaconSession.load(str(tmp_path / "s.npz"), device=cuda)
     rows += run(resumed, sig[cut:]) + resumed.flush()
     _rows_close(rows, card)
+
+
+@pytest.mark.parametrize("op", ["apply_doppler", "apply_doppler_physical",
+                                "compensate_linear_doppler",
+                                "compensate_linear_doppler_physical"])
+def test_doppler_ops_card_match_cpu(cuda, op):
+    """The channel's rotations on the card against the CPU (float64 host
+    phase, float32 rotate) within 2e-5, over a 4-cycle 10-kHz capture."""
+    from ft8_demodulator_tpu_torch import channel as tch
+
+    fs, n = 10000.0, 600000
+    w = np.random.default_rng(9).standard_normal((n, 2)).astype(np.float32)
+    k = np.arange(n)
+    args = ((3774.0 - 0.0126 * k + 1e-9 * k * k, fs) if
+            op.startswith("apply") else (-0.0126, 3774.0, fs))
+    card = getattr(tch, op)(w, *args, device=cuda)
+    assert card.device.type == "cuda" and card.shape == (n, 2)
+    host = getattr(tch, op)(w, *args, device="cpu")
+    torch.testing.assert_close(card.cpu(), host, rtol=0, atol=2e-5)
+
+
+def test_add_complex_awgn_card_equals_cpu(cuda):
+    """A CPU generator gives the card the CPU's noise."""
+    from ft8_demodulator_tpu_torch import channel as tch
+
+    w = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (50000, 2)).astype(np.float32))
+    card = tch.add_complex_awgn(w.to(cuda), torch.Generator()
+                                .manual_seed(1), -14.0)
+    host = tch.add_complex_awgn(w, torch.Generator().manual_seed(1), -14.0)
+    torch.testing.assert_close(card.cpu(), host, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("kw,depth", [(dict(min_score=4.0), 0),
+                                      (dict(min_score=4.0), 2),
+                                      (dict(min_score=1.0, use_osd=True,
+                                            mf_first=True), 0)])
+def test_stream_session_card_matches_cpu(cuda, kw, depth, tmp_path):
+    """A 2-kHz StreamSession over 45 s in uneven feeds: the CPU's rows
+    (payload, time, frequency; score within 1e-4, SNR within 0.1 dB); the
+    frequency-major sync kernel once per block, the OSD kernel under OSD;
+    a checkpoint saved mid-stream resumes on the card with the same rows."""
+    from ft8_demodulator_tpu_torch.config import DecoderConfig
+    from ft8_demodulator_tpu_torch.demod.stream_session import StreamSession
+
+    fs = 2000.0
+    rng = np.random.default_rng(4)
+    audio = (rng.standard_normal(int(fs * 45)) * 0.1).astype(np.float32)
+    for payload, t, f0 in ((BEACON, 2.0, 400.0), (BEACON, 13.0, 700.0),
+                           (BEACON, 31.0, 550.0)):
+        w = ft8_passband(payload, fs, f0, 0.0, device="cpu").numpy()
+        i = int(t * fs)
+        audio[i: i + len(w)] += w[: len(audio) - i]
+
+    def run(sess, samples):
+        rows = []
+        for c in np.array_split(samples, 11):
+            rows += sess.feed(c)
+        return rows
+
+    cfg = DecoderConfig(**kw)
+    tsc.sync_scores_kernel.launches = 0
+    tosc.reduce_basis_from_order.launches = 0
+    card_s = StreamSession(fs, cfg, pipeline_depth=depth, device=cuda)
+    card = run(card_s, audio) + card_s.flush()
+    torch.cuda.synchronize()
+    assert tsc.sync_scores_kernel.launches == 3       # two blocks + flush
+    assert (tosc.reduce_basis_from_order.launches > 0) == cfg.use_osd
+    host = run(s := StreamSession(fs, cfg, device="cpu"), audio) + s.flush()
+    assert [(r.message.payload, r.time_sec, r.freq_hz) for r in card] == \
+        [(r.message.payload, r.time_sec, r.freq_hz) for r in host]
+    for a, b in zip(card, host):
+        assert abs(a.score - b.score) <= 1e-4
+        assert abs(a.snr_db - b.snr_db) <= 0.1
+    assert len(card) == 3
+    first = StreamSession(fs, cfg, pipeline_depth=depth, device=cuda)
+    cut = int(24.3 * fs)
+    rows = run(first, audio[:cut])
+    first.save(str(tmp_path / "s.npz"))
+    resumed = StreamSession.load(str(tmp_path / "s.npz"), device=cuda)
+    rows += run(resumed, audio[cut:]) + resumed.flush()
+    assert [(r.message.payload, r.time_sec, r.freq_hz, r.snr_db)
+            for r in rows] == [(r.message.payload, r.time_sec, r.freq_hz,
+                                r.snr_db) for r in card]

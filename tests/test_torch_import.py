@@ -32,6 +32,22 @@ def test_torch_import_without_jax():
         "import ft8_demodulator_tpu_torch.ops.waterfall_cuda\n"
         "import ft8_demodulator_tpu_torch.protocol.message\n"
         "import ft8_demodulator_tpu_torch.utils.metrics\n"
+        "import ft8_demodulator_tpu_torch.channel\n"
+        "import ft8_demodulator_tpu_torch.channel.channel\n"
+        "import ft8_demodulator_tpu_torch.channel.doppler\n"
+        "import ft8_demodulator_tpu_torch.channel.geodesy\n"
+        "import ft8_demodulator_tpu_torch.channel.geomodel\n"
+        "import ft8_demodulator_tpu_torch.channel.sgp4\n"
+        "import ft8_demodulator_tpu_torch.io\n"
+        "import ft8_demodulator_tpu_torch.io.sdr\n"
+        "import ft8_demodulator_tpu_torch.io.wav\n"
+        "import ft8_demodulator_tpu_torch.demod.stream_session\n"
+        "import ft8_demodulator_tpu_torch.compat\n"
+        "import ft8_demodulator_tpu_torch.cli\n"
+        "import ft8_demodulator_tpu_torch.plotting\n"
+        "import ft8_demodulator_tpu_torch.utils.debug\n"
+        "import ft8_demodulator_tpu_torch.utils.profiling\n"
+        "import ft8_demodulator_tpu_torch.examples.satellite_beacon_demo\n"
         "assert 'ft8_demodulator_tpu' not in sys.modules\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -56,6 +72,15 @@ def test_torch_port_imports_from_a_copy_of_its_package_alone(tmp_path):
         "from ft8_demodulator_tpu_torch.demod import BeaconSession, "
         "decode_ft8_stacked\n"
         "from ft8_demodulator_tpu_torch.protocol import message\n"
+        "from ft8_demodulator_tpu_torch import cli, compat, plotting\n"
+        "from ft8_demodulator_tpu_torch.channel import Channel, "
+        "apply_doppler_physical\n"
+        "from ft8_demodulator_tpu_torch.demod.stream_session import "
+        "StreamSession\n"
+        "from ft8_demodulator_tpu_torch.examples import "
+        "satellite_beacon_demo\n"
+        "from ft8_demodulator_tpu_torch.io import read_wave_file, sdr\n"
+        "from ft8_demodulator_tpu_torch.utils import debug, profiling\n"
         "assert C.LDPC_GENERATOR.shape == (83, 91)\n"
         "assert message.unpack_message(message.pack_message("
         "'CQ K1ABC FN42')) == 'CQ K1ABC FN42'\n"
