@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch port: the STANDARD and DEEP slot decodes,
 the host decode API, the beacon receiver, the satellite channel, the
-streaming session and the command line on one card.
+streaming session, the command line and the parallel decodes on one card.
 
     python3 chip_smoke.py
 
@@ -153,7 +153,28 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    stdout equal to the same command's with FT8_PLATFORM=cpu, but for a
    printed score or SNR one unit of its last digit apart (counted); the
    message decoded; each process's wall time; --deep once in this process
-   with the launch counters (sync and OSD kernels).
+   with the launch counters (sync and OSD kernels);
+18. parallel/ over torch.distributed ranks (parallel.launch.run_ranks, one
+   process a rank).  The machine has one card and NCCL takes one rank a
+   card, so: (a) NCCL at world size 1: decode_stream on phase 16's stream
+   (STANDARD, and use_osd + mf_first) and decode_slot_tp on phase 12's
+   crowded capture over a one-rank freq mesh, rows equal to the same rank
+   function's on a CPU rank (gloo), each planted signal once; (b) four gloo
+   ranks sharing cuda:0 (their collectives cross the host: four ranks on
+   one card measure the collectives' overhead and correctness, not
+   scaling): dryrun_multichip(4, "gloo", "cuda"), then at 12 kHz DP x SP
+   2 x 2 on a 2-channel 60-s capture (three CQs at -6 dB, one across the
+   30-s block edge), TP over 4 ranks at osr 2x2 and at 4x4 with OSD and
+   the MF retry, PP over 2 stages on 4 slots (OSD) and composed 1 x 2 x 2
+   on the capture: every rank's rows equal the same ranks' on the CPU and
+   the port's one-rank path on the card (decode_stream / decode_slot_tp
+   with mesh None, a per-slot decode for PP), each planted signal once;
+   every rank that runs a front launches the sync kernel, and the OSD
+   kernel runs where OSD does (each rank of TP 4x4, PP's stage 1); each
+   rank's counts (from 0 before the regime's first call) are printed and
+   added to the kernels line; host ms of a warm call of each regime to a
+   synchronize (the slowest rank), and ms per 2-minute stream at world
+   size 1.
 
 Then one JSON line with the kernels (each with its launches on the main
 path, device ms, plain ms, bound ms and what bounds it, and the library
@@ -2365,6 +2386,296 @@ def _cli_phase(dev, smi: str) -> tuple[int, int]:
     return k4, k6
 
 
+# parallel/ (phase 18): torch.distributed ranks.  The machine has one card,
+# and NCCL takes one rank a card: NCCL runs at world size 1, and four gloo
+# ranks share cuda:0 (their collectives cross the host).  Four ranks on one
+# card measure the collectives' overhead and correctness, not scaling.
+PAR_FS = 12000.0
+PAR_SECONDS = 60
+PAR_SEED = 18
+PAR_SNR_DB = -6.0
+# (channel, message, start s, f0 Hz): the last one straddles the 30-s edge
+# of the two stream blocks
+PAR_EVENTS = ((0, "CQ K1ABC FN42", 2.0, 1500.0),
+              (1, "CQ W9XYZ EN37", 46.0, 2600.0),
+              (1, "CQ DL1ABC JO62", 24.0, 800.0))
+PAR_RANKS = 4
+PAR_PP_SLOTS = 4
+PAR_TIMEOUT_S = 300.0
+# the launches each rank counts: the frequency-major sync kernel (K6) and
+# the OSD kernel (K4), as the profiler names them
+LAUNCH_NAMES = "sync_kernel<false,...> / osd_eliminate_kernel"
+# the regimes on PAR_RANKS ranks: (name, what the parent checks)
+PAR_REGIMES = ("DP x SP 2x2", "TP 4 osr 2x2", "TP 4 osr 4x4 OSD MF",
+               "PP 2 stages OSD", "composed 1x2x2")
+
+
+def _parallel_capture():
+    """(2, 60 s) float32 numpy at 12 kHz from default_rng(PAR_SEED) with
+    PAR_EVENTS at PAR_SNR_DB, and {payload: (channel, text, t, f0)}."""
+    from ft8_demodulator_tpu_torch.ops.gfsk import _baseband_complex
+    from ft8_demodulator_tpu_torch.protocol import constants as C
+    from ft8_demodulator_tpu_torch.protocol.encode import encode_tones
+    from ft8_demodulator_tpu_torch.protocol.message import pack_message
+
+    fs = PAR_FS
+    n = int(PAR_SECONDS * fs)
+    sps = int(C.SYMBOL_PERIOD_S * fs)
+    audio = np.random.default_rng(PAR_SEED).standard_normal((2, n))
+    planted = {}
+    for ch, text, t, f0 in PAR_EVENTS:
+        payload = pack_message(text)
+        w = _baseband_complex(encode_tones(torch.as_tensor(payload)), sps,
+                              fs, f0).real.numpy()
+        i = int(round(t * fs))
+        audio[ch, i: i + len(w)] += _amplitude(PAR_SNR_DB, fs) * w
+        planted[bytes(payload)] = (ch, text, t, f0)
+    return audio.astype(np.float32), planted
+
+
+def _host_result(result):
+    """Rows (or None) as they are; a SlotDecodeResult's tensors as numpy
+    (what a rank sends back)."""
+    if result is None or isinstance(result, list):
+        return result
+    return type(result)(*(f.cpu().numpy() for f in result))
+
+
+def _rows_text(result) -> str:
+    return str(len(result) if isinstance(result, list)
+               else int(result.success.sum()))
+
+
+def _ms_text(ms) -> str:
+    """A rank's ms; "not measured" for CPU ranks (a rehearsal on the CPU
+    maps the card's ranks to CPU ones)."""
+    return "not measured" if ms is None else f"{ms:.1f} ms"
+
+
+def _rank_ms(call, device) -> float | None:
+    """Host ms of one call on the card, every rank starting together and
+    ending at a synchronize (None on CPU ranks: no device time)."""
+    import torch.distributed as dist
+
+    if device.type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    if dist.get_world_size() > 1:
+        dist.barrier()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _counted(calls: dict, device) -> dict:
+    """Each call once with the K6 / K4 counts from 0 (the phase's main
+    path), then once more timed on the card: name -> (result,
+    (K6, K4) launches of this rank, ms)."""
+    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
+    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
+
+    out = {}
+    for name, call in calls.items():
+        sc.sync_scores_kernel.launches = 0
+        oc.reduce_basis_from_order.launches = 0
+        result = call()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = (sc.sync_scores_kernel.launches,
+                    oc.reduce_basis_from_order.launches)
+        out[name] = (_host_result(result), launches, _rank_ms(call, device))
+    return out
+
+
+def _nccl_rank(device, audio, slot) -> dict:
+    """Phase 18 (a), on one rank: decode_stream on phase 16's stream
+    (STANDARD and use_osd + mf_first) and decode_slot_tp on one slot over
+    a one-rank freq mesh."""
+    from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
+    from ft8_demodulator_tpu_torch.parallel import (decode_slot_tp,
+                                                    decode_stream,
+                                                    make_freq_mesh)
+
+    p = waterfall_params(STREAM_FS, 2, 2)
+    freq = make_freq_mesh(1, device=device)
+    return _counted({
+        "stream STANDARD": lambda: decode_stream(audio, STREAM_FS,
+                                                 device=device),
+        "stream OSD mf_first": lambda: decode_stream(
+            audio, STREAM_FS, use_osd=True, mf_first=True, device=device),
+        "TP 1": lambda: decode_slot_tp(slot, p, p.num_frames(len(slot)),
+                                       freq, device=device),
+    }, device)
+
+
+def _regime_rank(device, capture, slot, waves) -> dict:
+    """Phase 18 (b), on each of PAR_RANKS ranks: the four regimes at the
+    production geometry."""
+    from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
+    from ft8_demodulator_tpu_torch.parallel import (
+        decode_slot_tp, decode_slots_pipelined, decode_stream,
+        decode_stream_composed, make_composed_mesh, make_freq_mesh,
+        make_mesh, make_stage_mesh)
+
+    fs = PAR_FS
+    p2, p4 = waterfall_params(fs, 2, 2), waterfall_params(fs, 4, 4)
+    nf2, nf4 = p2.num_frames(len(slot)), p4.num_frames(len(slot))
+    mesh = make_mesh(stream=2, channel=2, device=device)
+    freq = make_freq_mesh(PAR_RANKS, device=device)
+    stages = make_stage_mesh(2, device=device)
+    composed = make_composed_mesh(1, 2, 2, device=device)
+    calls = dict(zip(PAR_REGIMES, (
+        lambda: decode_stream(capture, fs, mesh=mesh, device=device),
+        lambda: decode_slot_tp(slot, p2, nf2, freq, device=device),
+        lambda: decode_slot_tp(slot, p4, nf4, freq, max_candidates=40,
+                               min_score=1.0, use_osd=True, use_mf=True,
+                               device=device),
+        lambda: decode_slots_pipelined(waves, p2, nf2, stages, use_osd=True,
+                                       device=device),
+        lambda: decode_stream_composed(capture, fs, composed,
+                                       device=device))))
+    return _counted(calls, device)
+
+
+def _same_result(name: str, got, want) -> None:
+    """Rows: payload, time and frequency equal, score within
+    API_SCORE_ATOL; a SlotDecodeResult: every field equal but the score,
+    within API_SCORE_ATOL on the valid candidates."""
+    if isinstance(got, list):
+        key = lambda rows: [(r.message.payload, r.time_sec, r.freq_hz)
+                            for r in rows]
+        ok = key(got) == key(want) and all(
+            abs(a.score - b.score) <= API_SCORE_ATOL
+            for a, b in zip(got, want))
+    else:
+        valid = want.candidate_valid
+        ok = all(np.array_equal(a, b) for f, a, b in
+                 zip(got._fields, got, want) if f != "score") and bool(
+            (np.abs(got.score[valid] - want.score[valid])
+             <= API_SCORE_ATOL).all())
+    if not ok:
+        raise RuntimeError(f"{name}: {got} != {want}")
+
+
+def _planted_once(name: str, rows, planted: dict) -> None:
+    """Each planted payload reported once near its time and frequency, and
+    nothing else."""
+    for payload, (*_, text, t, f0) in planted.items():
+        hit = [r for r in rows if r.message.payload == payload]
+        if len(hit) != 1 or abs(hit[0].time_sec - t) > STREAM_TIME_ATOL \
+                or abs(hit[0].freq_hz - f0) > STREAM_FREQ_ATOL:
+            raise RuntimeError(f"{name}: {text!r} at {t} s {f0} Hz reported "
+                               f"{len(hit)} times: {_demo_rows_text(hit)}")
+    extra = {r.message.payload for r in rows} - set(planted)
+    if extra:
+        raise RuntimeError(f"{name}: unplanted rows {extra}")
+
+
+def _parallel_phase(dev, smi: str) -> tuple[int, int]:
+    """Phase 18: parallel/ on ranks of torch.distributed.  Returns the OSD
+    and the frequency-major sync kernels' launches of the card's ranks."""
+    from ft8_demodulator_tpu_torch.demod.decode import decode_waterfall
+    from ft8_demodulator_tpu_torch.demod.types import SlotDecodeResult
+    from ft8_demodulator_tpu_torch.ops.sync import search_grid
+    from ft8_demodulator_tpu_torch.ops.waterfall import (waterfall_params,
+                                                         waterfall_real)
+    from ft8_demodulator_tpu_torch.parallel import (decode_slot_tp,
+                                                    decode_stream)
+    from ft8_demodulator_tpu_torch.parallel.dryrun import dryrun_multichip
+    from ft8_demodulator_tpu_torch.parallel.launch import run_ranks
+
+    k4_total = k6_total = 0
+    t0 = time.perf_counter()
+
+    # (a) NCCL at world size 1
+    audio, planted = _stream_audio()
+    slot = _crowded_capture()[0]
+    args = (audio, slot)
+    card = run_ranks(_nccl_rank, 1, "nccl", dev, args, PAR_TIMEOUT_S)[0]
+    host = run_ranks(_nccl_rank, 1, "gloo", "cpu", args, PAR_TIMEOUT_S)[0]
+    texts = []
+    for name, (result, (k6, k4), ms) in card.items():
+        _same_result(f"NCCL {name}", result, host[name][0])
+        if name.startswith("stream"):
+            _planted_once(f"NCCL {name}", result, planted)
+        if k6 < 1 or (k4 > 0) != ("OSD" in name):
+            raise RuntimeError(f"NCCL {name}: K6 {k6}, K4 {k4} launches")
+        k6_total += k6
+        k4_total += k4
+        texts.append(f"{name} {_rows_text(result)} rows == CPU, "
+                     f"{LAUNCH_NAMES} {k6}/{k4}, {_ms_text(ms)}")
+    _phase(18, f"[{smi}] NCCL world size 1 (run_ranks, one rank on "
+               f"{dev}): phase 16's {STREAM_SECONDS}-s {STREAM_FS / 1000:g} "
+               "kHz stream, each planted signal once; " + "; ".join(texts)
+               + " (host ms of a warm call to a synchronize)")
+
+    # (b) PAR_RANKS gloo ranks sharing the card
+    dry = dryrun_multichip(PAR_RANKS, "gloo", dev)
+    for r in dry:
+        k6_total += r["launches"]["K6"]
+        k4_total += r["launches"]["K4"]
+    capture, par_planted = _parallel_capture()
+    waves = _synth_slots("cpu", PAR_FS, PAR_PP_SLOTS, seed=PAR_SEED)[0] \
+        .numpy()
+    args = (capture, slot, waves)
+    card = run_ranks(_regime_rank, PAR_RANKS, "gloo", dev, args,
+                     PAR_TIMEOUT_S)
+    host = run_ranks(_regime_rank, PAR_RANKS, "gloo", "cpu", args,
+                     PAR_TIMEOUT_S)
+    # the port's one-rank path, on the card in this process
+    p2, p4 = waterfall_params(PAR_FS, 2, 2), waterfall_params(PAR_FS, 4, 4)
+    nf2, nf4 = p2.num_frames(len(slot)), p4.num_frames(len(slot))
+    one_stream = decode_stream(capture, PAR_FS, device=dev)
+    g = search_grid(p2.num_freq_bins, nf2, p2.time_osr, p2.freq_osr)
+    per_slot = [decode_waterfall(waterfall_real(
+        torch.as_tensor(w, device=dev), p2, nf2), g, 20, 10.0, use_osd=True)
+        for w in waves]
+    single = dict(zip(PAR_REGIMES, (
+        one_stream,
+        _host_result(decode_slot_tp(slot, p2, nf2, None, device=dev)),
+        _host_result(decode_slot_tp(slot, p4, nf4, None, max_candidates=40,
+                                    min_score=1.0, use_osd=True, use_mf=True,
+                                    device=dev)),
+        _host_result(SlotDecodeResult(*(torch.stack(f)
+                                        for f in zip(*per_slot)))),
+        one_stream)))
+    _planted_once("one-rank stream", one_stream, par_planted)
+    texts = []
+    for name in PAR_REGIMES:
+        ranks_in = [r for r in range(PAR_RANKS)
+                    if card[r][name][0] is not None]
+        for r in ranks_in:
+            _same_result(f"{name} rank {r} card vs CPU", card[r][name][0],
+                         host[r][name][0])
+            _same_result(f"{name} rank {r} vs one rank", card[r][name][0],
+                         single[name])
+        launches = [card[r][name][1] for r in ranks_in]
+        fronts = launches[:1] if name.startswith("PP") else launches
+        backs = launches[1:] if name.startswith("PP") else launches
+        if any(k6 < 1 for k6, _ in fronts) or (
+                "OSD" in name and any(k4 < 1 for _, k4 in backs)):
+            raise RuntimeError(f"{name}: K6/K4 launches per rank {launches}")
+        k6_total += sum(k6 for k6, _ in launches)
+        k4_total += sum(k4 for _, k4 in launches)
+        ms = [card[r][name][2] for r in range(PAR_RANKS)]
+        texts.append(f"{name}: {_rows_text(card[ranks_in[0]][name][0])} "
+                     f"rows on ranks {ranks_in} == CPU == one rank, "
+                     f"{LAUNCH_NAMES} per rank {launches}, "
+                     f"{_ms_text(None if None in ms else max(ms))}")
+    _planted_once("DP x SP", card[0]["DP x SP 2x2"][0], par_planted)
+    _planted_once("composed", card[0]["composed 1x2x2"][0], par_planted)
+    _phase(18, f"[{smi}] {PAR_RANKS} gloo ranks on {dev} (collectives' "
+               "overhead and correctness, not scaling): dryrun_multichip "
+               f"launches per rank {[r['launches'] for r in dry]}; "
+               f"{PAR_SECONDS}-s 2-channel capture, {len(PAR_EVENTS)} "
+               f"signals at {PAR_SNR_DB:g} dB, each once; "
+               + "; ".join(texts) + " (host ms of a warm call to a "
+               "synchronize, the slowest rank); phase "
+               f"{time.perf_counter() - t0:.1f} s")
+    return k4_total, k6_total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2549,7 +2860,8 @@ def main() -> int:
     k4_beacon, k6_beacon = _beacon_phase(dev, smi)
     deep_kernels[1]["launches"] += k4_beacon
     k6_launches += k6_beacon
-    for phase in (_channel_phase, _stream_phase, _cli_phase):
+    for phase in (_channel_phase, _stream_phase, _cli_phase,
+                  _parallel_phase):
         k4_new, k6_new = phase(dev, smi)
         deep_kernels[1]["launches"] += k4_new
         k6_launches += k6_new

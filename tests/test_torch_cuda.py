@@ -9,9 +9,10 @@ chip_smoke.py's library yardstick (torch.stft) against the float32 plain
 waterfall; the beacon path on the card against the CPU: the waterfall
 backends (block complex, matmul, fft), the z statistics, the stacked
 decode, known-payload detection and tracking, the drift corrector and
-the beacon session; the satellite channel's Doppler ops and noise, and
-the streaming session (rows, kernel launches, a checkpoint) on the card
-against the CPU.
+the beacon session; the satellite channel's Doppler ops and noise, the
+streaming session (rows, kernel launches, a checkpoint), and parallel/'s
+stream and tensor-parallel decodes on two gloo ranks sharing the card,
+on the card against the CPU.
 
 Needs a CUDA card: every test takes the ``cuda`` fixture, which skips when
 there is none.  The file imports neither JAX nor the JAX package, and uses
@@ -806,3 +807,41 @@ def test_stream_session_card_matches_cpu(cuda, kw, depth, tmp_path):
     assert [(r.message.payload, r.time_sec, r.freq_hz, r.snr_db)
             for r in rows] == [(r.message.payload, r.time_sec, r.freq_hz,
                                 r.snr_db) for r in card]
+
+
+def test_parallel_ranks_on_one_card_match_cpu(cuda):
+    """parallel/: two gloo ranks sharing cuda:0 run decode_stream (a
+    45-s 2-kHz stream, one signal across the block edge) and decode_slot_tp
+    (two bands, OSD); their rows and fields equal the same two ranks' on
+    the CPU, and each card rank launches the sync kernel (and the OSD
+    kernel) itself."""
+    import _torch_parallel_ranks as ranks
+    from ft8_demodulator_tpu_torch.parallel.launch import run_ranks
+
+    fs = 2000.0
+    rng = np.random.default_rng(5)
+    stream = (rng.standard_normal(int(fs * 45)) * 0.1).astype(np.float32)
+    slot = stream[: int(fs * 15)].copy()
+    for payload, t, f0, audio in ((BEACON, 2.0, 400.0, stream),
+                                  (BEACON, 16.0, 700.0, stream),
+                                  (BEACON, 1.0, 550.0, slot)):
+        w = ft8_passband(payload, fs, f0, 0.0, device="cpu").numpy()
+        i = int(t * fs)
+        audio[i: i + len(w)] += w[: len(audio) - i]
+    inp = {"stream": stream, "slot": slot}
+    card = run_ranks(ranks.card_cases, 2, "gloo", cuda, (inp,), 300.0)
+    host = run_ranks(ranks.card_cases, 2, "gloo", "cpu", (inp,), 300.0)
+    for (rows, tp, k6, k4), (h_rows, h_tp, _, _) in zip(card, host):
+        assert [(r.message.payload, r.time_sec, r.freq_hz) for r in rows] \
+            == [(r.message.payload, r.time_sec, r.freq_hz) for r in h_rows]
+        for a, b in zip(rows, h_rows):
+            assert abs(a.score - b.score) <= 1e-4
+        for name, a, b in zip(tp._fields, tp, h_tp):
+            if name == "score":
+                np.testing.assert_allclose(a[tp.candidate_valid],
+                                           b[tp.candidate_valid], atol=1e-4)
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=name)
+        # a stream block, its pre-roll and a band: one sync launch each
+        assert k6 == 3 and k4 >= 1
+    assert len(card[0][0]) == 2 and card[0][1].success.any()

@@ -48,6 +48,15 @@ def test_torch_import_without_jax():
         "import ft8_demodulator_tpu_torch.utils.debug\n"
         "import ft8_demodulator_tpu_torch.utils.profiling\n"
         "import ft8_demodulator_tpu_torch.examples.satellite_beacon_demo\n"
+        "import ft8_demodulator_tpu_torch.parallel\n"
+        "import ft8_demodulator_tpu_torch.parallel.collectives\n"
+        "import ft8_demodulator_tpu_torch.parallel.composed\n"
+        "import ft8_demodulator_tpu_torch.parallel.dryrun\n"
+        "import ft8_demodulator_tpu_torch.parallel.launch\n"
+        "import ft8_demodulator_tpu_torch.parallel.mesh\n"
+        "import ft8_demodulator_tpu_torch.parallel.pipeline\n"
+        "import ft8_demodulator_tpu_torch.parallel.streaming\n"
+        "import ft8_demodulator_tpu_torch.parallel.tensor\n"
         "assert 'ft8_demodulator_tpu' not in sys.modules\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -81,6 +90,10 @@ def test_torch_port_imports_from_a_copy_of_its_package_alone(tmp_path):
         "satellite_beacon_demo\n"
         "from ft8_demodulator_tpu_torch.io import read_wave_file, sdr\n"
         "from ft8_demodulator_tpu_torch.utils import debug, profiling\n"
+        "from ft8_demodulator_tpu_torch.parallel import (collectives, "
+        "composed, dryrun, launch, mesh, pipeline, streaming, tensor)\n"
+        "from ft8_demodulator_tpu_torch.parallel import __all__ as names\n"
+        "assert len(names) == 10\n"
         "assert C.LDPC_GENERATOR.shape == (83, 91)\n"
         "assert message.unpack_message(message.pack_message("
         "'CQ K1ABC FN42')) == 'CQ K1ABC FN42'\n"
