@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch port: the STANDARD and DEEP slot decodes,
 the host decode API, the beacon receiver, the satellite channel, the
-streaming session, the command line and the parallel decodes on one card.
+streaming session, the command line, the parallel decodes and the reference
+soak's random draws on one card.
 
     python3 chip_smoke.py
 
@@ -174,7 +175,27 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    rank's counts (from 0 before the regime's first call) are printed and
    added to the kernels line; host ms of a warm call of each regime to a
    synchronize (the slowest rank), and ms per 2-minute stream at world
-   size 1.
+   size 1;
+19. the reference soak's random coverage (benchmarks/soak.py's draws,
+   tests/_torch_soak_cases.py), the card against the CPU: (a) 64 trials
+   of decode_ft8_message (seeds 1 and 2 at -10 and -19 dB: random
+   payload, rate 2-12 kHz, off-grid f0, start, amplitude 1e-2..1e2, 13.6-
+   or 15-s slot, osr 4x4 every 8th trial, osr {3, 5, 10} at 2 or 3 kHz at
+   trial 3 of 10, complex baseband at trial 1 of 5, OSD every other;
+   mf_first, min_score 1): the card's rows equal the CPU's in every
+   trial, every -10-dB trial decodes its payload within soak.py's time,
+   frequency and SNR tolerances, and the frequency-major sync kernel's
+   launches are counted by (tau, phi) and template instance (the generic
+   <false, 0, 0> must launch); (b) decode_slots at batch 4 on 12 drawn
+   geometries (rate from soak.py's, time_osr and freq_osr each from {2, 3,
+   4}, 13.6- or 15-s slots, STANDARD or DEEP; three signals a slot at -16
+   dB and one at -8): the launches of the route's kernels, the card's
+   decode sets equal to the CPU's, and at each geometry the waterfall
+   kernel (K1 or K3) against its plain version within phase 3's bounds
+   (and K3's boxcar as in phase 7), the time-major sync kernel (or, on a
+   geometry the block backend does not take, the frequency-major one) and
+   the OSD kernel, on the orders the decode passed it, bit for bit; any
+   failure raises with its reproduction tuple; the phase's seconds.
 
 Then one JSON line with the kernels (each with its launches on the main
 path, device ms, plain ms, bound ms and what bounds it, and the library
@@ -527,6 +548,17 @@ def _check_db(label: str, got, want, exact) -> str:
     return text
 
 
+def _check_box(label: str, got, want) -> float:
+    """The dual-output kernel's boxcar grid against the plain one's:
+    |diff| / (|cell| + the grid's mean) <= BOX_RTOL, else raises.  Returns
+    that ratio's max."""
+    err = float(((got - want).abs() / (want.abs() + want.mean())).max())
+    if not err <= BOX_RTOL:
+        raise RuntimeError(f"dual-output kernel vs plain at {label}: boxcar "
+                           f"{err} (bound {BOX_RTOL})")
+    return err
+
+
 def _decode_sets(res, slots):
     """Per slot: {(payload bytes, abs_time, abs_freq)} of its successes."""
     ok = res.success.cpu().numpy()
@@ -777,13 +809,7 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
         db_errs[fs] = float((db - want_db).abs().max())
         db_text[fs] = _check_db(f"{fs / 1000:g} kHz", db, want_db,
                                 _exact_db(w8, p, nf))
-        # |diff| / (|want| + mean(want)): <= BOX_RTOL is the bound
-        box_errs[fs] = float(((box - want_box).abs()
-                              / (want_box.abs() + want_box.mean())).max())
-        if not box_errs[fs] <= BOX_RTOL:
-            raise RuntimeError(
-                f"dual-output kernel vs plain at {fs} Hz: boxcar "
-                f"{box_errs[fs]} (bound {BOX_RTOL})")
+        box_errs[fs] = _check_box(f"{fs} Hz", box, want_box)
         if fs == 12000.0:
             single = wc.block_waterfall_tf_fused_batch(w8, p, nf)
             torch.cuda.synchronize()
@@ -953,6 +979,22 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     ]
 
 
+def _check_sync(label: str, got, want) -> float:
+    """A sync kernel's scores against its plain version's: bit for bit
+    (torch.equal, identical -inf masks), else raises.  Returns the max
+    |difference| over the finite scores."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or bool(torch.isnan(got).any()):
+        raise RuntimeError(f"{label}: malformed scores {tuple(got.shape)}")
+    if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
+        raise RuntimeError(f"{label}: -inf masks differ")
+    fin = torch.isfinite(want)
+    diff = float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
+    if not torch.equal(got, want):
+        raise RuntimeError(f"{label}: not bit for bit, max |diff| {diff}")
+    return diff
+
+
 def _sync_phase(dev, log: str):
     """Phase 11: both sync kernels against their plain versions, bit for
     bit.  Returns ({label: max |diff|}, the time-major (STANDARD, DEEP)
@@ -965,17 +1007,7 @@ def _sync_phase(dev, log: str):
     diffs = {}
 
     def check(label, got, want):
-        torch.cuda.synchronize()
-        if got.shape != want.shape or bool(torch.isnan(got).any()):
-            raise RuntimeError(f"{label}: malformed scores {tuple(got.shape)}")
-        if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
-            raise RuntimeError(f"{label}: -inf masks differ")
-        fin = torch.isfinite(want)
-        diffs[label] = float((got - want)[fin].abs().max()) \
-            if bool(fin.any()) else 0.0
-        if not torch.equal(got, want):
-            raise RuntimeError(f"{label}: not bit for bit, max |diff| "
-                               f"{diffs[label]}")
+        diffs[label] = _check_sync(label, got, want)
 
     chunks, captures = [], []
     # (time_osr, freq_osr); 3x1 and 10x10 run the generic instance
@@ -2676,6 +2708,222 @@ def _parallel_phase(dev, smi: str) -> tuple[int, int]:
     return k4_total, k6_total
 
 
+# the soak on the card (phase 19): the draws of benchmarks/soak.py
+# (tests/_torch_soak_cases.py: the port's TX on the CPU and numpy noise),
+# decoded on the card and on the CPU
+SOAK_HALVES = ((-10.0, 1), (-19.0, 2))   # (SNR dB, seed) of each half
+SOAK_TRIALS = 32                          # a half
+SOAK_SLOT_SEED = 19
+SOAK_SLOT_DRAWS = 12
+SOAK_SLOT_BATCH = 4
+# three signals a slot at -16 dB and one at -8 (over the noise in fs/2)
+SOAK_SLOT_SNR_DB = (-16.0, -16.0, -16.0, -8.0)
+SOAK_OSR = (2, 3, 4)
+SOAK_RUNS = {
+    "STANDARD": dict(max_candidates=MAX_CANDIDATES, min_score=MIN_SCORE),
+    "DEEP": dict(max_candidates=DEEP_CANDIDATES, min_score=DEEP_MIN_SCORE,
+                 use_osd=True, mf_first=True)}
+GENERIC_K6 = "<false, 0, 0>"
+
+
+def _soak_cases():
+    """tests/_torch_soak_cases.py (imports no JAX)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import _torch_soak_cases
+
+    return _torch_soak_cases
+
+
+def _k6_instance(tau: int, phi: int) -> str:
+    """The frequency-major sync kernel's template instance at osr tau x
+    phi (csrc/sync_stencil.cu launch_osr)."""
+    if (tau, phi) in ((2, 2), (4, 4)):
+        return f"<false, {tau}, {phi}>"
+    return GENERIC_K6
+
+
+def _soak_api(dev, soak) -> tuple[int, dict, str]:
+    """Phase 19 (a): decode_ft8_message on every soak trial, card vs CPU.
+    Returns (OSD kernel launches, frequency-major sync kernel launches by
+    (tau, phi), a report)."""
+    from collections import Counter
+
+    from ft8_demodulator_tpu_torch.demod.decode import decode_ft8_message
+    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
+    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
+
+    k6 = Counter()
+    k4_total = rows = 0
+    decoded = {}
+    for snr, seed in SOAK_HALVES:
+        trials = soak.soak_trials(seed, SOAK_TRIALS, snr)
+        for t in trials:
+            name = f"soak trial {json.dumps(t.repro)}"
+            sc.sync_scores_kernel.launches = 0
+            oc.reduce_basis_from_order.launches = 0
+            card = decode_ft8_message(t.audio, t.fs, device=dev,
+                                      **t.decode_kwargs)
+            torch.cuda.synchronize()
+            launches = (sc.sync_scores_kernel.launches,
+                        oc.reduce_basis_from_order.launches)
+            host = decode_ft8_message(t.audio, t.fs, device="cpu",
+                                      **t.decode_kwargs)
+            _check_api_rows(name, card, host)
+            if launches[0] < 1 or (launches[1] > 0 and not t.use_osd):
+                raise RuntimeError(f"{name}: K6 / K4 launches {launches}")
+            if snr == SOAK_HALVES[0][0]:
+                why = soak.planted_fault(t, card)
+                if why is not None:
+                    raise RuntimeError(f"{name}: {why}")
+            k6[(t.osr, t.osr)] += launches[0]
+            k4_total += launches[1]
+            rows += len(card)
+            decoded[snr] = decoded.get(snr, 0) + any(
+                r.message.payload == t.payload for r in card)
+    by_instance = Counter()
+    for (tau, phi), n in k6.items():
+        by_instance[_k6_instance(tau, phi)] += n
+    if by_instance[GENERIC_K6] < 1:
+        raise RuntimeError(f"the generic sync instance {GENERIC_K6} never "
+                           f"launched: {dict(by_instance)}")
+    text = (f"{len(SOAK_HALVES) * SOAK_TRIALS} decode_ft8_message trials "
+            "(mf_first, min_score 1, osr = the trial's, OSD every other), "
+            f"{rows} rows, card rows == CPU rows in every trial; planted "
+            "payload decoded on the card: " + ", ".join(
+                f"{decoded[snr]}/{SOAK_TRIALS} at {snr:g} dB (seed {seed})"
+                for snr, seed in SOAK_HALVES)
+            + f", every {SOAK_HALVES[0][0]:g}-dB trial within soak.py's "
+            "time / frequency / SNR tolerances; sync_kernel launches by "
+            "(tau, phi) " + ", ".join(f"{k[0]}x{k[1]} {n}"
+                                      for k, n in sorted(k6.items()))
+            + ", by instance " + ", ".join(
+                f"{k} {n}" for k, n in sorted(by_instance.items()))
+            + f"; osd_eliminate_kernel launches {k4_total}")
+    return k4_total, k6, text
+
+
+def _soak_slots(dev, soak) -> tuple[int, int, list[str]]:
+    """Phase 19 (b): decode_slots at drawn geometries, the card's kernels
+    against their plain versions at each and the card's decode sets
+    against the CPU's.  Returns (OSD kernel launches, frequency-major sync
+    kernel launches, a report a draw)."""
+    from ft8_demodulator_tpu_torch.demod.decode import decode_slots
+    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
+    from ft8_demodulator_tpu_torch.ops import sync as so
+    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
+    from ft8_demodulator_tpu_torch.ops import waterfall_cuda as wc
+    from ft8_demodulator_tpu_torch.ops.waterfall import (_pick_backend,
+                                                         waterfall_params,
+                                                         waterfall_real)
+
+    k1, k3 = wc.block_waterfall_tf_fused_batch, \
+        wc.block_waterfall_mf_tf_fused_batch
+    rng = np.random.default_rng(SOAK_SLOT_SEED)
+    k4_total = k6_total = 0
+    texts = []
+    for i in range(SOAK_SLOT_DRAWS):
+        fs = float(rng.choice(soak.RATES))
+        tau, phi = (int(v) for v in rng.choice(SOAK_OSR, 2))
+        slot_s = float(rng.choice(soak.SLOT_SECONDS))
+        run = "DEEP" if rng.integers(2) else "STANDARD"
+        seed = int(rng.integers(2 ** 31))
+        repro = {"draw": i, "seed": seed, "fs": fs, "time_osr": tau,
+                 "freq_osr": phi, "slot_s": slot_s, "run": run}
+        name = f"soak slots {json.dumps(repro)}"
+        waves, planted = soak.slot_batch(seed, fs, slot_s, SOAK_SLOT_BATCH,
+                                         SOAK_SLOT_SNR_DB)
+        p = waterfall_params(fs, phi, tau)
+        nf = p.num_frames(waves.shape[1])
+        kw = SOAK_RUNS[run]
+        w = torch.as_tensor(waves, device=dev)
+        block = _pick_backend(p, None) == "block"
+        for counted in (k1, k3, sc.sync_scores_tf_kernel,
+                        sc.sync_scores_kernel, oc.reduce_basis_from_order):
+            counted.launches = 0
+        out = []
+        orders = _capture_osd_orders(lambda: out.append(decode_slots(
+            w, p, nf, chunk=SOAK_SLOT_BATCH, **kw)))
+        torch.cuda.synchronize()
+        launches = {"K1": k1.launches, "K3": k3.launches,
+                    "K5": sc.sync_scores_tf_kernel.launches,
+                    "K6": sc.sync_scores_kernel.launches,
+                    "K4": oc.reduce_basis_from_order.launches}
+        front = ("K3" if run == "DEEP" else "K1", "K5") if block else ("K6",)
+        want = {k: (SOAK_SLOT_BATCH if k == "K6" else 1) for k in front}
+        want["K4"] = len(orders)
+        if {k: n for k, n in launches.items() if n} != \
+                {k: n for k, n in want.items() if n} \
+                or (run == "DEEP") != bool(orders):
+            raise RuntimeError(f"{name}: launches {launches}, want {want} "
+                               f"({len(orders)} OSD calls)")
+        k4_total += launches["K4"]
+        k6_total += launches["K6"]
+        card_sets = _decode_sets(out[0], SOAK_SLOT_BATCH)
+        host_sets = _decode_sets(decode_slots(
+            torch.as_tensor(waves), p, nf, chunk=SOAK_SLOT_BATCH, **kw),
+            SOAK_SLOT_BATCH)
+        if card_sets != host_sets:
+            raise RuntimeError(f"{name}: card decodes {card_sets}, CPU "
+                               f"decodes {host_sets}")
+        checks = []
+        g = so.search_grid(p.num_freq_bins, nf, tau, phi)
+        if block:
+            if run == "DEEP":
+                db, box = k3(w, p, nf)
+                torch.cuda.synchronize()
+                want_db, want_box = \
+                    wc.block_waterfall_mf_tf_fused_batch_plain(w, p, nf)
+                box_err = _check_box(name, box, want_box)
+            else:
+                db = k1(w, p, nf)
+                torch.cuda.synchronize()
+                want_db = wc.block_waterfall_tf_fused_batch_plain(w, p, nf)
+            checks.append(f"{front[0]} " + _check_db(
+                "dB", db, want_db, _exact_db(w, p, nf)))
+            if run == "DEEP":
+                checks.append(f"boxcar {box_err:.3e}")
+            _check_sync(f"{name} K5", sc.sync_scores_tf_kernel(db, g),
+                        so.sync_scores_tf(db, g))
+            checks.append("K5 == plain")
+        else:
+            for b in range(SOAK_SLOT_BATCH):
+                mag = waterfall_real(w[b], p, nf)
+                _check_sync(f"{name} K6 slot {b}", sc.sync_scores_kernel(
+                    mag, g), so.sync_scores(mag, g))
+            checks.append(f"non-block geometry: K6 == plain on "
+                          f"{SOAK_SLOT_BATCH} slots")
+        for j, (order, tables) in enumerate(orders):
+            _check_osd(order, tables, f"{name} OSD call {j}")
+        if orders:
+            rows = sum(order.shape[0] for order, _ in orders)
+            checks.append(f"K4 == plain on {rows} rows")
+        found = sum(len(set(pl) & {d[0] for d in card_sets[b]})
+                    for b, pl in enumerate(planted))
+        texts.append(f"{fs / 1000:g} kHz {tau}x{phi} {slot_s:g} s {run}: "
+                     f"{sum(map(len, card_sets))} decodes == CPU ({found}/"
+                     f"{SOAK_SLOT_BATCH * len(SOAK_SLOT_SNR_DB)} planted), "
+                     f"launches {launches}; " + ", ".join(checks))
+    return k4_total, k6_total, texts
+
+
+def _soak_phase(dev, smi: str) -> tuple[int, int]:
+    """Phase 19: the reference soak's random coverage on the card.
+    Returns the OSD and the frequency-major sync kernels' launches."""
+    soak = _soak_cases()
+    t0 = time.perf_counter()
+    k4_api, k6_api, text = _soak_api(dev, soak)
+    _phase(19, text)
+    k4_slots, k6_slots, texts = _soak_slots(dev, soak)
+    _phase(19, f"decode_slots batch {SOAK_SLOT_BATCH} at "
+               f"{SOAK_SLOT_DRAWS} drawn geometries (seed {SOAK_SLOT_SEED}; "
+               f"signals at {SOAK_SLOT_SNR_DB} dB): " + "; ".join(texts)
+               + f" (dB bounds {ATOL_DB} / {NULL_ATOL_DB}, boxcar {BOX_RTOL},"
+               " K4 / K5 / K6 bit for bit)")
+    _phase(19, f"[{smi}] phase {time.perf_counter() - t0:.1f} s")
+    return k4_api + k4_slots, sum(k6_api.values()) + k6_slots
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2861,7 +3109,7 @@ def main() -> int:
     deep_kernels[1]["launches"] += k4_beacon
     k6_launches += k6_beacon
     for phase in (_channel_phase, _stream_phase, _cli_phase,
-                  _parallel_phase):
+                  _parallel_phase, _soak_phase):
         k4_new, k6_new = phase(dev, smi)
         deep_kernels[1]["launches"] += k4_new
         k6_launches += k6_new

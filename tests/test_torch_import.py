@@ -1,5 +1,7 @@
 """The PyTorch port imports without JAX and names no JAX-package import."""
 
+import importlib
+import json
 import os
 import re
 import shutil
@@ -9,6 +11,10 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "ft8_demodulator_tpu_torch"
+JAX_PACKAGE = REPO / "ft8_demodulator_tpu"
+# names a port subpackage exports beyond the JAX package's: the decoder's
+# constants module and the BP + CRC tail it feeds
+PORT_ONLY = {"demod": {"SlotDecoder", "finish_decode"}}
 
 
 def test_torch_import_without_jax():
@@ -122,3 +128,42 @@ def test_torch_port_names_no_jax_package_import():
                  if pattern.search(path.read_text())
                  or by_path.search(path.read_text())]
     assert offenders == []
+
+
+def test_torch_subpackage_exports_match_jax():
+    """Every subpackage of the JAX package (and the package itself): the
+    port's ``__all__`` holds the same names (plus PORT_ONLY), and each of
+    JAX's names imports from the port's subpackage with jax blocked."""
+    subs = [""] + sorted(d.name for d in JAX_PACKAGE.iterdir()
+                         if (d / "__init__.py").exists())
+    want = {}
+    for sub in subs:
+        mod = importlib.import_module(
+            ".".join(filter(None, ("ft8_demodulator_tpu", sub))))
+        want[sub] = getattr(mod, "__all__", None)
+    code = (
+        "import importlib, json, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"want = json.loads({json.dumps(json.dumps(want))})\n"
+        "out = {}\n"
+        "for sub, names in want.items():\n"
+        "    mod = '.'.join(filter(None, ('ft8_demodulator_tpu_torch', "
+        "sub)))\n"
+        "    if names:\n"
+        "        exec(f'from {mod} import {\", \".join(names)}')\n"
+        "    out[sub] = getattr(importlib.import_module(mod), '__all__', "
+        "None)\n"
+        "assert 'ft8_demodulator_tpu' not in sys.modules\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout)
+    for sub in subs:
+        if want[sub] is None:
+            assert got[sub] is None, sub
+        else:
+            assert len(got[sub]) == len(set(got[sub])), sub
+            assert set(got[sub]) - PORT_ONLY.get(sub, set()) \
+                == set(want[sub]), sub

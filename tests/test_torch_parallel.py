@@ -6,8 +6,9 @@ test_pipeline.py, test_composed.py and the two-process scenario of
 test_multihost.py run through both packages on the same audio (made with
 numpy's default_rng(1234) and the JAX TX, as the JAX tests make it): the
 port on 8 gloo ranks on the CPU (``parallel.launch.run_ranks``; one rank
-set runs every non-slow case, started once for the module and run while
-the JAX side computes), JAX in this process over the same mesh shapes.
+set runs the 2-kHz cases, started once for the module and run while
+the JAX side computes; a second set the two 12-kHz production cases),
+JAX in this process over the same mesh shapes.
 
 * SlotDecodeResult fields success, payload, abs_time, abs_freq, crc,
   ldpc_errors and candidate_valid equal exactly; scores within 1e-4;
@@ -228,7 +229,7 @@ def inputs():
 
 @pytest.fixture(scope="module")
 def port(inputs):
-    """The port's results of every non-slow case, one dict per rank: the
+    """The port's results of every 2-kHz case, one dict per rank: the
     rank set runs in the background while the tests compute JAX's."""
     with ThreadPoolExecutor(1) as pool:
         future = pool.submit(run_ranks, ranks.cpu_cases, WORLD, "gloo",
@@ -455,7 +456,7 @@ def test_every_rank_prints_the_multihost_rows(port):
     assert "TPROW 1c3f8a6ae207a1e39450" in tp_sets[0]
 
 
-# ---- the 12-kHz production geometry (slow, as in JAX) -------------------
+# ---- the 12-kHz production geometry ------------------------------------
 
 @pytest.fixture(scope="module")
 def production():
@@ -468,7 +469,6 @@ def production():
                           (inp,), RANKS_TIMEOUT_S)[0]
 
 
-@pytest.mark.slow
 def test_composed_production_geometry(production):
     """test_composed.py:71 at 12 kHz: the (2 x 2 x 2) composed mesh equals
     JAX's and the port's (2 x 2) stream."""
@@ -481,7 +481,6 @@ def test_composed_production_geometry(production):
     assert len(got["composed"]) == 3
 
 
-@pytest.mark.slow
 def test_stream_production_geometry(production):
     """test_composed.py:98 at 12 kHz: a (1 x 2) stream mesh equals JAX's and
     decodes the slot decoder's payloads."""
