@@ -291,6 +291,21 @@ def _phase(n: int, text: str) -> None:
     print(f"[{n}] {text}", flush=True)
 
 
+def _reset_counts() -> None:
+    """Zero the program's counters (``utils/profiling.py``)."""
+    from ft8_demodulator_tpu_torch.utils.profiling import reset_counters
+
+    reset_counters()
+
+
+def _counter(name: str) -> int:
+    """The program's counter ``name`` since the last :func:`_reset_counts`
+    (``k1.launches`` ... ``k6.launches``, ``osd.rows``)."""
+    from ft8_demodulator_tpu_torch.utils.profiling import counters
+
+    return counters().get(name, 0)
+
+
 def _nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -780,7 +795,6 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     from ft8_demodulator_tpu_torch.demod.decode import decode_slots
     from ft8_demodulator_tpu_torch.ops import osd
     from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
-    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
     from ft8_demodulator_tpu_torch.ops import waterfall_cuda as wc
     from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
 
@@ -843,18 +857,15 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
               bp_chunk=BP_CHUNK)
     torch.cuda.synchronize()
     k4 = oc.reduce_basis_from_order
-    mf.launches = 0
-    sc.sync_scores_tf_kernel.launches = 0
-    k4.launches = 0
-    k4.rows = 0
+    _reset_counts()
     t0 = time.perf_counter()
     res = decode_slots(waves, p, nf, use_osd=True, **kw)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    mf_launches = mf.launches
-    k5_launches = sc.sync_scores_tf_kernel.launches
-    osd_launches = k4.launches
-    osd_rows = k4.rows
+    mf_launches = _counter("k3.launches")
+    k5_launches = _counter("k5.launches")
+    osd_launches = _counter("k4.launches")
+    osd_rows = _counter("osd.rows")
     if mf_launches != BATCH // DEEP_CHUNK \
             or k5_launches != BATCH // DEEP_CHUNK:
         raise RuntimeError(f"dual-output / sync kernels launched "
@@ -1165,8 +1176,6 @@ def _api_phase(dev) -> tuple[int, dict]:
     """Phase 12: decode_ft8_message on the crowded capture, card vs CPU.
     Returns (frequency-major sync kernel launches, card rows per run)."""
     from ft8_demodulator_tpu_torch.demod.decode import decode_ft8_message
-    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
-    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
 
     wave, payloads, snr, f0 = _crowded_capture()
     planted = {bytes(pl): float(s) for pl, s in zip(payloads, snr)}
@@ -1174,14 +1183,13 @@ def _api_phase(dev) -> tuple[int, dict]:
     k6_total, out, lines = 0, {}, []
     for name, (kw, min_snr) in API_RUNS.items():
         torch.cuda.synchronize()
-        sc.sync_scores_kernel.launches = 0
-        oc.reduce_basis_from_order.launches = 0
+        _reset_counts()
         t0 = time.perf_counter()
         card = decode_ft8_message(wave, FS, device=dev, **kw)
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
-        k6 = sc.sync_scores_kernel.launches
-        k4 = oc.reduce_basis_from_order.launches
+        k6 = _counter("k6.launches")
+        k4 = _counter("k4.launches")
         k6_total += k6
         host = decode_ft8_message(wave, FS, device="cpu", **kw)
         got = [r.message.payload for r in card]
@@ -1216,12 +1224,12 @@ def _api_phase(dev) -> tuple[int, dict]:
                 freq_min=float(f0[strong]) - HIGH_OSR_BAND_HZ / 2,
                 freq_max=float(f0[strong]) + HIGH_OSR_BAND_HZ / 2)
     torch.cuda.synchronize()
-    sc.sync_scores_kernel.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     card = decode_ft8_message(wave, FS, device=dev, **band)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    k6 = sc.sync_scores_kernel.launches
+    k6 = _counter("k6.launches")
     k6_total += k6
     t0 = time.perf_counter()
     host = decode_ft8_message(wave, FS, device="cpu", **band)
@@ -1283,9 +1291,6 @@ def _weak_phase(dev) -> int:
     CPU).  Returns the frequency-major sync kernel's launches."""
     from ft8_demodulator_tpu_torch.demod.decode import (decode_ft8_message,
                                                         decode_slot)
-    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
-    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
-    from ft8_demodulator_tpu_torch.ops import waterfall_cuda as wc
     from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
 
     wave, payloads, snr = _weak_capture()
@@ -1294,12 +1299,11 @@ def _weak_phase(dev) -> int:
     for name, extra in WEAK_RUNS.items():
         kw = dict(DEEP_API, **extra)
         torch.cuda.synchronize()
-        sc.sync_scores_kernel.launches = 0
-        oc.reduce_basis_from_order.launches = 0
+        _reset_counts()
         card = decode_ft8_message(wave, FS, device=dev, **kw)
         torch.cuda.synchronize()
-        k6, k4 = sc.sync_scores_kernel.launches, \
-            oc.reduce_basis_from_order.launches
+        k6, k4 = _counter("k6.launches"), \
+            _counter("k4.launches")
         k6_total += k6
         if k6 < 1 or k4 < 1:
             raise RuntimeError(f"weak capture, {name}: sync kernel {k6}, "
@@ -1330,10 +1334,6 @@ def _weak_phase(dev) -> int:
     nf = p.num_frames(wave.shape[0])
     slot_kw = dict(max_candidates=DEEP_CANDIDATES, min_score=DEEP_MIN_SCORE,
                    max_iterations=BP_ITERATIONS, use_osd=True)
-    counters = {"K1": wc.block_waterfall_tf_fused_batch,
-                "K3": wc.block_waterfall_mf_tf_fused_batch,
-                "K5": sc.sync_scores_tf_kernel, "K6": sc.sync_scores_kernel,
-                "K4": oc.reduce_basis_from_order}
     slot_lines = []
     for name, extra, used in (
             ("use_mf + mf_refine", dict(use_mf=True, mf_refine=True),
@@ -1343,12 +1343,12 @@ def _weak_phase(dev) -> int:
             ("mf_first + coherent", dict(mf_first=True, coherent=True),
              ("K3", "K5", "K4"))):
         torch.cuda.synchronize()
-        for fn in counters.values():
-            fn.launches = 0
+        _reset_counts()
         card = decode_slot(torch.as_tensor(wave, device=dev), p, nf,
                            **slot_kw, **extra)
         torch.cuda.synchronize()
-        launched = {k: fn.launches for k, fn in counters.items()}
+        launched = {k: _counter(f"{k.lower()}.launches")
+                    for k in ("K1", "K3", "K5", "K6", "K4")}
         k6_total += launched["K6"]
         if not all(launched[k] >= 1 for k in used):
             raise RuntimeError(f"decode_slot {name}: launches {launched}")
@@ -1697,8 +1697,6 @@ def _beacon_phase(dev, smi: str) -> tuple[int, int]:
     from ft8_demodulator_tpu_torch.demod import (BeaconSession,
                                                  decode_ft8_message,
                                                  decode_ft8_stacked)
-    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
-    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
 
     fs = BEACON_FS
     n = int(fs * SLOT_S)
@@ -1718,19 +1716,18 @@ def _beacon_phase(dev, smi: str) -> tuple[int, int]:
 
     # the session on the card: the counts from 0 just before, read after
     torch.cuda.synchronize()
-    oc.reduce_basis_from_order.launches = 0
-    sc.sync_scores_kernel.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     card_s = BeaconSession(fs, device=dev, **BEACON_SESSION)
     card, first_at = _feed_all(card_s, stream)
     torch.cuda.synchronize()
-    k4_feed = oc.reduce_basis_from_order.launches
-    k6_feed = sc.sync_scores_kernel.launches
-    sc.sync_scores_kernel.launches = 0
+    k4_feed = _counter("k4.launches")
+    k6_feed = _counter("k6.launches")
+    _reset_counts()
     flushed = card_s.flush()
     torch.cuda.synchronize()
     card_ms = (time.perf_counter() - t0) * 1e3
-    k6_flush = sc.sync_scores_kernel.launches
+    k6_flush = _counter("k6.launches")
     card += flushed
     t0 = time.perf_counter()
     host_s = BeaconSession(fs, device="cpu", **BEACON_SESSION)
@@ -1833,10 +1830,10 @@ def _beacon_phase(dev, smi: str) -> tuple[int, int]:
     for name, w, rate in (("analytic", analytic, FS), ("48 kHz", w48,
                                                        48000.0)):
         torch.cuda.synchronize()
-        sc.sync_scores_kernel.launches = 0
+        _reset_counts()
         got = decode_ft8_message(w, rate, device=dev)
         torch.cuda.synchronize()
-        k6 = sc.sync_scores_kernel.launches
+        k6 = _counter("k6.launches")
         k6_api += k6
         _check_api_rows(f"decode_ft8_message {name}", got,
                         decode_ft8_message(w, rate, device="cpu"))
@@ -1851,10 +1848,10 @@ def _beacon_phase(dev, smi: str) -> tuple[int, int]:
     w2k = np.stack([scipy.signal.resample_poly(c.astype(np.float64), 1, 6)
                     for c in _stack2k_cycles()]).astype(np.float32)
     torch.cuda.synchronize()
-    oc.reduce_basis_from_order.launches = 0
+    _reset_counts()
     got = decode_ft8_stacked(w2k, 2000.0, device=dev, **BEACON_DECODE)
     torch.cuda.synchronize()
-    k4_2k = oc.reduce_basis_from_order.launches
+    k4_2k = _counter("k4.launches")
     _check_beacon_rows("decode_ft8_stacked 2 kHz R 8", got,
                        decode_ft8_stacked(w2k, 2000.0, device="cpu",
                                           **BEACON_DECODE))
@@ -1976,8 +1973,6 @@ def _channel_phase(dev, smi: str) -> tuple[int, int]:
     from ft8_demodulator_tpu_torch import channel as tch
     from ft8_demodulator_tpu_torch.examples import \
         satellite_beacon_demo as demo
-    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
-    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
     from ft8_demodulator_tpu_torch.protocol.message import unpack_message
 
     fs = demo.FS_RF
@@ -2027,15 +2022,14 @@ def _channel_phase(dev, smi: str) -> tuple[int, int]:
     host_noisy = noisy.cpu()
     card_lines, host_lines = [], []
     torch.cuda.synchronize()
-    oc.reduce_basis_from_order.launches = 0
-    sc.sync_scores_kernel.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     card = demo.receive(noisy, doppler, DEMO_CYCLES, device=dev,
                         out=card_lines.append)
     torch.cuda.synchronize()
     card_ms = (time.perf_counter() - t0) * 1e3
-    k4 = oc.reduce_basis_from_order.launches
-    k6 = sc.sync_scores_kernel.launches
+    k4 = _counter("k4.launches")
+    k6 = _counter("k6.launches")
     t0 = time.perf_counter()
     host = demo.receive(host_noisy, doppler, DEMO_CYCLES, device="cpu",
                         out=host_lines.append)
@@ -2143,8 +2137,6 @@ def _stream_phase(dev, smi: str) -> tuple[int, int]:
     sessions."""
     from ft8_demodulator_tpu_torch.config import DEEP_SEARCH, STANDARD
     from ft8_demodulator_tpu_torch.demod.stream_session import StreamSession
-    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
-    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
 
     fs = STREAM_FS
     audio, planted = _stream_audio()
@@ -2154,15 +2146,14 @@ def _stream_phase(dev, smi: str) -> tuple[int, int]:
         runs = {}
         for depth in (0, 2):
             torch.cuda.synchronize()
-            oc.reduce_basis_from_order.launches = 0
-            sc.sync_scores_kernel.launches = 0
+            _reset_counts()
             t0 = time.perf_counter()
             s = StreamSession(fs, cfg, pipeline_depth=depth, device=dev)
             rows = _stream_feed(s, audio) + s.flush()
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            k4 = oc.reduce_basis_from_order.launches
-            k6 = sc.sync_scores_kernel.launches
+            k4 = _counter("k4.launches")
+            k6 = _counter("k6.launches")
             k4_total += k4
             k6_total += k6
             if k6 != STREAM_BLOCKS or (k4 > 0) != cfg.use_osd:
@@ -2332,8 +2323,6 @@ def _cli_phase(dev, smi: str) -> tuple[int, int]:
 
     from ft8_demodulator_tpu_torch import cli
     from ft8_demodulator_tpu_torch.io import read_wave_file, write_wave_file
-    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
-    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
     from ft8_demodulator_tpu_torch.ops.gfsk import _baseband_complex
     from ft8_demodulator_tpu_torch.protocol import constants as C
     from ft8_demodulator_tpu_torch.protocol.encode import encode_tones
@@ -2397,14 +2386,13 @@ def _cli_phase(dev, smi: str) -> tuple[int, int]:
 
         # the CLI's --deep in this process: the kernels it launches
         torch.cuda.synchronize()
-        oc.reduce_basis_from_order.launches = 0
-        sc.sync_scores_kernel.launches = 0
+        _reset_counts()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = cli.main([wav["card"], "--deep"])
         torch.cuda.synchronize()
-        k4 = oc.reduce_basis_from_order.launches
-        k6 = sc.sync_scores_kernel.launches
+        k4 = _counter("k4.launches")
+        k6 = _counter("k6.launches")
         _cli_same("--deep in process", buf.getvalue(), host_out["--deep"])
     if rc != 0 or k6 < 1 or k4 < 1:
         raise RuntimeError(f"cli --deep in process: exit {rc}, sync kernel "
@@ -2504,18 +2492,15 @@ def _counted(calls: dict, device) -> dict:
     """Each call once with the K6 / K4 counts from 0 (the phase's main
     path), then once more timed on the card: name -> (result,
     (K6, K4) launches of this rank, ms)."""
-    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
-    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
 
     out = {}
     for name, call in calls.items():
-        sc.sync_scores_kernel.launches = 0
-        oc.reduce_basis_from_order.launches = 0
+        _reset_counts()
         result = call()
         if device.type == "cuda":
             torch.cuda.synchronize()
-        launches = (sc.sync_scores_kernel.launches,
-                    oc.reduce_basis_from_order.launches)
+        launches = (_counter("k6.launches"),
+                    _counter("k4.launches"))
         out[name] = (_host_result(result), launches, _rank_ms(call, device))
     return out
 
@@ -2750,8 +2735,6 @@ def _soak_api(dev, soak) -> tuple[int, dict, str]:
     from collections import Counter
 
     from ft8_demodulator_tpu_torch.demod.decode import decode_ft8_message
-    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
-    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
 
     k6 = Counter()
     k4_total = rows = 0
@@ -2760,13 +2743,12 @@ def _soak_api(dev, soak) -> tuple[int, dict, str]:
         trials = soak.soak_trials(seed, SOAK_TRIALS, snr)
         for t in trials:
             name = f"soak trial {json.dumps(t.repro)}"
-            sc.sync_scores_kernel.launches = 0
-            oc.reduce_basis_from_order.launches = 0
+            _reset_counts()
             card = decode_ft8_message(t.audio, t.fs, device=dev,
                                       **t.decode_kwargs)
             torch.cuda.synchronize()
-            launches = (sc.sync_scores_kernel.launches,
-                        oc.reduce_basis_from_order.launches)
+            launches = (_counter("k6.launches"),
+                        _counter("k4.launches"))
             host = decode_ft8_message(t.audio, t.fs, device="cpu",
                                       **t.decode_kwargs)
             _check_api_rows(name, card, host)
@@ -2809,7 +2791,6 @@ def _soak_slots(dev, soak) -> tuple[int, int, list[str]]:
     against the CPU's.  Returns (OSD kernel launches, frequency-major sync
     kernel launches, a report a draw)."""
     from ft8_demodulator_tpu_torch.demod.decode import decode_slots
-    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
     from ft8_demodulator_tpu_torch.ops import sync as so
     from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
     from ft8_demodulator_tpu_torch.ops import waterfall_cuda as wc
@@ -2838,17 +2819,13 @@ def _soak_slots(dev, soak) -> tuple[int, int, list[str]]:
         kw = SOAK_RUNS[run]
         w = torch.as_tensor(waves, device=dev)
         block = _pick_backend(p, None) == "block"
-        for counted in (k1, k3, sc.sync_scores_tf_kernel,
-                        sc.sync_scores_kernel, oc.reduce_basis_from_order):
-            counted.launches = 0
+        _reset_counts()
         out = []
         orders = _capture_osd_orders(lambda: out.append(decode_slots(
             w, p, nf, chunk=SOAK_SLOT_BATCH, **kw)))
         torch.cuda.synchronize()
-        launches = {"K1": k1.launches, "K3": k3.launches,
-                    "K5": sc.sync_scores_tf_kernel.launches,
-                    "K6": sc.sync_scores_kernel.launches,
-                    "K4": oc.reduce_basis_from_order.launches}
+        launches = {k: _counter(f"{k.lower()}.launches")
+                    for k in ("K1", "K3", "K5", "K6", "K4")}
         front = ("K3" if run == "DEEP" else "K1", "K5") if block else ("K6",)
         want = {k: (SOAK_SLOT_BATCH if k == "K6" else 1) for k in front}
         want["K4"] = len(orders)
@@ -2931,7 +2908,6 @@ def main() -> int:
         return 1
 
     from ft8_demodulator_tpu_torch.demod.decode import decode_slots
-    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
     from ft8_demodulator_tpu_torch.ops import waterfall_cuda as wc
     from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
     from ft8_demodulator_tpu_torch.utils.build import kernel_library
@@ -2993,14 +2969,13 @@ def main() -> int:
     kw = dict(max_candidates=MAX_CANDIDATES, min_score=MIN_SCORE,
               max_iterations=BP_ITERATIONS)
     torch.cuda.synchronize()
-    wc.block_waterfall_tf_fused_batch.launches = 0
-    sc.sync_scores_tf_kernel.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     res = decode_slots(waves, p, nf, chunk=CHUNK, bp_chunk=BP_CHUNK, **kw)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = wc.block_waterfall_tf_fused_batch.launches
-    k5_std_launches = sc.sync_scores_tf_kernel.launches
+    launches = _counter("k1.launches")
+    k5_std_launches = _counter("k5.launches")
     if launches != BATCH // CHUNK or k5_std_launches != BATCH // CHUNK:
         raise RuntimeError(f"waterfall / sync kernels launched {launches} "
                            f"/ {k5_std_launches} times, want "
@@ -3047,10 +3022,10 @@ def main() -> int:
     w20, payloads20 = _synth_slots(dev, 20000.0, 4, 20)
     nf20 = p20.num_frames(w20.shape[1])
     torch.cuda.synchronize()
-    wc.block_waterfall_tf_fused_batch.launches = 0
+    _reset_counts()
     res20 = decode_slots(w20, p20, nf20, chunk=4, bp_chunk=BP_CHUNK, **kw)
     torch.cuda.synchronize()
-    k2_launches = wc.block_waterfall_tf_fused_batch.launches
+    k2_launches = _counter("k1.launches")
     sets20 = _decode_sets(res20, 4)
     decoded20 = sum(bytes(payloads20[b]) in {s[0] for s in sets20[b]}
                     for b in range(4))

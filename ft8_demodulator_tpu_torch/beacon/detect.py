@@ -28,7 +28,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops.gfsk import _payload_tones
 from ..ops.llr import _analytic
@@ -37,6 +36,7 @@ from ..ops.sync import SearchGrid, _cells, _pad_and_tone_sum, _top_k_stable, \
 from ..ops.waterfall import WaterfallParams, waterfall_params
 from ..protocol import constants as C
 from ..utils.device import entry_device
+from ..utils.profiling import span
 
 __all__ = ["KnownDetection", "TrackFix", "known_track_scores",
            "detect_known_payload", "track_known_payload"]
@@ -120,7 +120,7 @@ def detect_known_payload(waves, sample_rate: float, payload,
     g = search_grid(p.num_freq_bins, num_frames, p.time_osr, p.freq_osr)
     if g.num_times <= 0 or g.num_freqs <= 0:
         return []
-    with record_function("ft8.detect"):
+    with span("ft8.detect"):
         track = _payload_tones(payload, device)
         top_k = min(top_k, g.num_times * g.num_freqs)
         zs, ts, fs_ = (a.cpu().numpy() for a in _detect_grid(
@@ -245,7 +245,7 @@ def track_known_payload(wave, sample_rate: float, payload,
     wave_d = torch.as_tensor(wave.astype(np.float32), device=device)
     sps = waterfall_params(sample_rate, 2, 2).nperseg
     start0 = int(round(time_hint_s * sample_rate))
-    with record_function("ft8.detect"):
+    with span("ft8.detect"):
         stat, dt, df = _track_stat(
             wave_d, _payload_tones(payload, device), start0,
             float(np.float32(float(freq_hint_hz) / sample_rate)), sps,

@@ -25,12 +25,12 @@ import logging
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops.gfsk import gauss_window
 from ..ops.waterfall import waterfall_complex, waterfall_params
 from ..protocol import constants as C
 from ..utils.device import entry_device
+from ..utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -135,7 +135,7 @@ def apply_polynomial_drift(wave_ri, rate_hz_per_s: float,
              + float(acc_hz_per_s2) * t * t * t / 3.0)
     cyc = torch.as_tensor((phase - np.floor(phase)).astype(np.float32),
                           device=device)
-    with record_function("ft8.drift"):
+    with span("ft8.drift"):
         out = _apply_phase_cycles(z, cyc)
     return torch.view_as_real(out) if as_pair else out
 
@@ -147,7 +147,7 @@ def _argmax_track(wave: torch.Tensor, fs: float, bins_per_tone: int,
     geometry)."""
     p = waterfall_params(fs, bins_per_tone, steps_per_symbol)
     num_frames = p.num_frames(wave.shape[-1])
-    with record_function("ft8.drift"):
+    with span("ft8.drift"):
         mag = waterfall_complex(wave, p, num_frames)
         track = torch.argmax(mag, dim=0).cpu().numpy()
     return track, mag.shape[0], p

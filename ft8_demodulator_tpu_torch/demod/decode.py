@@ -45,12 +45,15 @@ moves them.
 ``SlotDecoder.from_arrays`` loads them from numpy arrays, for instance the
 ones the JAX package builds.
 
-Each stage runs inside a ``torch.profiler.record_function`` range named
+Each stage runs inside a span (``utils/profiling.py`` ``span``) named
 ``ft8.<stage>`` (waterfall, sync, top_k, llrs, decode, osd inside decode,
 snr, rows, subtract; the retries' mf_refine, coherent and ap, with their
-decodes in decode), so a profiler trace of a decode splits its host and
-device time by stage; without a profiler a range is one dispatcher call on
-entry and one on exit.
+decodes in decode), and each place where the host waits for the card
+inside a ``ft8.<stage>.wait`` span, so a profiler trace of a decode splits
+its host and device time by stage and names the waits; the counters
+(``utils/profiling.py`` ``counters``) count slots, candidate rows, BP and
+OSD rows and iterations, and waits.  While no profiler records, a span is a
+shared null context and no counter reads a card value.
 """
 
 from __future__ import annotations
@@ -61,7 +64,6 @@ import functools
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ..beacon.detect import track_known_payload
 from ..ops.ldpc_decode import BPTables, _build_routing, bp_decode_batch, \
@@ -88,6 +90,7 @@ from ..protocol.encode import encode_tones
 from ..protocol.message import ap_hypotheses
 from ..utils.device import entry_device
 from ..utils.metrics import SlotMetrics, summarize_slot
+from ..utils.profiling import count, count_on_card, host_wait, span
 from .types import FT8Decode, FT8DecodeStatus, FT8Message, SlotDecodeResult
 
 __all__ = ["SlotDecoder", "decoder_arrays", "slot_decoder", "decode_slot",
@@ -214,8 +217,9 @@ def _crc_of_plain(plain: torch.Tensor, crc_t: torch.Tensor | None = None
     The float32 product is exact: 0/1 operands, integer sums <= 77.
     """
     if crc_t is None:
-        crc_t = torch.as_tensor(C.CRC_MATRIX_77.T, dtype=torch.float32,
-                                device=plain.device)
+        with host_wait("ft8.decode.wait"):
+            crc_t = torch.as_tensor(C.CRC_MATRIX_77.T, dtype=torch.float32,
+                                    device=plain.device)
     weights = 2 ** torch.arange(C.CRC_BITS - 1, -1, -1, device=plain.device,
                                 dtype=torch.int32)
     bits77 = plain[..., : C.PAYLOAD_BITS].to(torch.float32)
@@ -226,7 +230,7 @@ def _crc_of_plain(plain: torch.Tensor, crc_t: torch.Tensor | None = None
     return crc_calc, crc_extracted
 
 
-@record_function("ft8.decode")
+@span("ft8.decode")
 def finish_decode(llrs: torch.Tensor, abs_time: torch.Tensor,
                   abs_freq: torch.Tensor, score: torch.Tensor,
                   cand_valid: torch.Tensor, max_iterations: int = 20,
@@ -302,11 +306,11 @@ def _mf_llrs(wave: torch.Tensor, p: WaterfallParams, abs_time: torch.Tensor,
     (llrs_base, llrs_refined).
     """
     if refine:
-        with record_function("ft8.mf_refine"):
+        with span("ft8.mf_refine"):
             return extract_llrs_matched_refined(wave, abs_time, abs_freq,
                                                 p.nperseg, p.hop, p.freq_osr,
                                                 is_complex)
-    with record_function("ft8.llrs"):
+    with span("ft8.llrs"):
         if _pick_backend(p, None) != "block":
             return extract_llrs_matched(wave, abs_time, abs_freq, p.nperseg,
                                         p.hop, p.freq_osr, is_complex)
@@ -346,9 +350,9 @@ def _candidates(mag_tf: torch.Tensor, g: SearchGrid, max_candidates: int,
                 min_score: float, decoder: SlotDecoder | None):
     """Time-major dB grid(s) (..., T, F) -> sync (the stencil kernel on the
     card) -> top-K."""
-    with record_function("ft8.sync"):
+    with span("ft8.sync"):
         scores = sync_scores_tf_kernel(mag_tf, g)
-    with record_function("ft8.top_k"):
+    with span("ft8.top_k"):
         return find_candidates_tf(scores, g, max_candidates, min_score)
 
 
@@ -360,7 +364,7 @@ def _front_from_mag_tf(mag_tf: torch.Tensor, g: SearchGrid,
     gray = decoder.gray_map if decoder is not None else None
     abs_time, abs_freq, score, cand_valid = _candidates(
         mag_tf, g, max_candidates, min_score, decoder)
-    with record_function("ft8.llrs"):
+    with span("ft8.llrs"):
         llrs = extract_llrs_tf(mag_tf, abs_time, abs_freq, g.time_osr,
                                g.freq_osr, g.num_blocks, gray)
     return llrs, abs_time, abs_freq, score, cand_valid
@@ -374,7 +378,7 @@ def _front_mf_grid(mag_tf: torch.Tensor, box_tf: torch.Tensor,
     gray = decoder.gray_map if decoder is not None else None
     abs_time, abs_freq, score, cand_valid = _candidates(
         mag_tf, g, max_candidates, min_score, decoder)
-    with record_function("ft8.llrs"):
+    with span("ft8.llrs"):
         llrs = extract_llrs_matched_grid(box_tf, abs_time, abs_freq,
                                          g.time_osr, g.freq_osr, gray)
     return llrs, abs_time, abs_freq, score, cand_valid
@@ -416,6 +420,7 @@ def decode_slots(waves: torch.Tensor, p: WaterfallParams, num_frames: int,
     b = waves.shape[0]
     if b % chunk:
         raise ValueError(f"batch {b} not a multiple of chunk {chunk}")
+    count("slots", b)
     if decoder is None:
         decoder = slot_decoder(p, num_frames, waves.device)
     _check_decoder(decoder, p, num_frames, waves.device)
@@ -431,19 +436,21 @@ def decode_slots(waves: torch.Tensor, p: WaterfallParams, num_frames: int,
     consts = decoder.waterfall_consts()
     for w in waves.split(chunk):
         if mf_first:
-            with record_function("ft8.waterfall"):
+            with span("ft8.waterfall"):
                 mags, boxes = block_waterfall_mf_tf_fused_batch(
                     w, p, num_frames, consts)
             fronts.append(_front_mf_grid(mags, boxes, g, max_candidates,
                                          min_score, decoder))
         else:
-            with record_function("ft8.waterfall"):
+            with span("ft8.waterfall"):
                 mags = block_waterfall_tf_fused_batch(w, p, num_frames,
                                                       consts)
             fronts.append(_front_from_mag_tf(mags, g, max_candidates,
                                              min_score, decoder))
     # (B*K, ...) candidate rows: llrs, abs_time, abs_freq, score, valid
     front = [torch.cat(parts).flatten(0, 1) for parts in zip(*fronts)]
+    count("candidates.rows", front[4].numel())
+    count_on_card("candidates.valid", front[4])
 
     bp_chunk = min(bp_chunk, b)
     while b % bp_chunk:
@@ -487,7 +494,7 @@ def decode_slot(wave: torch.Tensor, p: WaterfallParams, num_frames: int,
     _check_decoder(decoder, p, num_frames, wave.device)
     if is_complex or _pick_backend(p, None) != "block" \
             or (mf_first and mf_refine):
-        with record_function("ft8.waterfall"):
+        with span("ft8.waterfall"):
             mag = waterfall_complex(wave, p, num_frames) if is_complex \
                 else waterfall_real(wave, p, num_frames)
         if mf_first:
@@ -503,14 +510,14 @@ def decode_slot(wave: torch.Tensor, p: WaterfallParams, num_frames: int,
                 res = mf_retry(wave, p, res, 0, 0, max_iterations, use_osd,
                                is_complex, mf_refine, decoder)
     elif mf_first:
-        with record_function("ft8.waterfall"):
+        with span("ft8.waterfall"):
             mags, boxes = block_waterfall_mf_tf_fused_batch(
                 wave[None], p, num_frames, decoder.waterfall_consts())
         outs = _front_mf_grid(mags[0], boxes[0], decoder.g, max_candidates,
                               min_score, decoder)
         res = finish_decode(*outs, max_iterations, use_osd, decoder)
     else:
-        with record_function("ft8.waterfall"):
+        with span("ft8.waterfall"):
             mag_tf = block_waterfall_tf_fused_batch(
                 wave[None], p, num_frames, decoder.waterfall_consts())[0]
         outs = _front_from_mag_tf(mag_tf, decoder.g, max_candidates,
@@ -559,7 +566,7 @@ def variant_retry(llrs: torch.Tensor, res: SlotDecodeResult,
 def _coherent_llrs(wave: torch.Tensor, p: WaterfallParams,
                    res: SlotDecodeResult, t0_hops: int, f0_rows: int,
                    num_branches: int, is_complex: bool) -> torch.Tensor:
-    with record_function("ft8.coherent"):
+    with span("ft8.coherent"):
         return extract_llrs_coherent(
             wave, res.abs_time + t0_hops, res.abs_freq + f0_rows, p.nperseg,
             p.hop, p.freq_osr, is_complex, num_branches)
@@ -617,7 +624,7 @@ def ap_retry_llrs(llrs: torch.Tensor, res: SlotDecodeResult,
                          max_iterations, use_osd, decoder)
 
 
-@record_function("ft8.ap")
+@span("ft8.ap")
 def ap_retry(wave: torch.Tensor, p: WaterfallParams, res: SlotDecodeResult,
              t0_hops: int, f0_rows: int, ap_values: torch.Tensor,
              ap_mask: torch.Tensor, max_iterations: int = 20,
@@ -634,7 +641,7 @@ def ap_retry(wave: torch.Tensor, p: WaterfallParams, res: SlotDecodeResult,
                                              max_iterations, use_osd))
 
 
-@record_function("ft8.ap")
+@span("ft8.ap")
 def ap_coherent_retry(wave: torch.Tensor, p: WaterfallParams,
                       res: SlotDecodeResult, t0_hops: int, f0_rows: int,
                       ap_values: torch.Tensor, ap_mask: torch.Tensor,
@@ -667,15 +674,15 @@ def decode_waterfall(mag: torch.Tensor, g: SearchGrid, max_candidates: int,
     optional) masks out candidate start times below it.  ``decoder``
     supplies the BP, CRC and OSD tables (None builds them).
     """
-    with record_function("ft8.sync"):
+    with span("ft8.sync"):
         scores = sync_scores_kernel(mag, g)
         if min_abs_time is not None:
             t_idx = g.t_start + torch.arange(g.num_times, device=mag.device)
             scores = torch.where(t_idx >= min_abs_time, scores, -torch.inf)
-    with record_function("ft8.top_k"):
+    with span("ft8.top_k"):
         abs_time, abs_freq, score, cand_valid = find_candidates(
             scores, g, max_candidates, min_score)
-    with record_function("ft8.llrs"):
+    with span("ft8.llrs"):
         llrs = extract_llrs(mag, abs_time, abs_freq, g.time_osr, g.freq_osr,
                             g.num_blocks)
     return finish_decode(llrs, abs_time, abs_freq, score, cand_valid,
@@ -702,16 +709,16 @@ def decode_waterfall_mf(mag: torch.Tensor, wave: torch.Tensor,
     adds the sub-grid offset search: the base LLRs decode first and the
     refined ones retry the failures.
     """
-    with record_function("ft8.sync"):
+    with span("ft8.sync"):
         scores = sync_scores_kernel(mag, g)
-    with record_function("ft8.top_k"):
+    with span("ft8.top_k"):
         abs_time, abs_freq, score, cand_valid = find_candidates(
             scores, g, max_candidates, min_score)
     if spec is None or mf_refine:
         llrs = _mf_llrs(wave, p, abs_time + t0_hops, abs_freq + f0_rows,
                         decoder, mf_refine, is_complex)
     else:
-        with record_function("ft8.llrs"):
+        with span("ft8.llrs"):
             llrs = extract_llrs_matched_blocks(spec, abs_time + t0_hops,
                                                abs_freq + f0_rows,
                                                p.time_osr, p.freq_osr)
@@ -743,7 +750,7 @@ def _median(x: torch.Tensor) -> torch.Tensor:
     return (s[(n - 1) // 2] + s[n // 2]) * 0.5
 
 
-@record_function("ft8.snr")
+@span("ft8.snr")
 def estimate_snr(mag: torch.Tensor, payload: torch.Tensor,
                  abs_time: torch.Tensor, abs_freq: torch.Tensor,
                  time_osr: int, freq_osr: int, stack_r: int = 1,
@@ -783,7 +790,7 @@ def estimate_snr(mag: torch.Tensor, payload: torch.Tensor,
     return 10.0 * torch.log10(torch.clamp(r - 1.0, min=1e-6) * 3.75e-3)
 
 
-@record_function("ft8.rows")
+@span("ft8.rows")
 def _format_results(res: SlotDecodeResult, hop_seconds: float,
                     freq_step_hz: float, time_base: float, freq_base: float,
                     deduplicate: bool, snr_db=None,
@@ -795,9 +802,10 @@ def _format_results(res: SlotDecodeResult, hop_seconds: float,
     dropped (a CRC-lucky false accept, not a weak signal); the reported SNR
     clamped to [-30, +30] dB and rounded to 0.1.
     """
-    res = SlotDecodeResult(*(a.cpu().numpy() for a in res))
-    if snr_db is not None:
-        snr_db = snr_db.cpu().numpy()
+    with host_wait("ft8.rows.wait", len(res) + (snr_db is not None)):
+        res = SlotDecodeResult(*(a.cpu().numpy() for a in res))
+        if snr_db is not None:
+            snr_db = snr_db.cpu().numpy()
     out: list[FT8Decode] = []
     seen: set[bytes] = set()
     for k in np.flatnonzero(res.success):
@@ -917,6 +925,7 @@ def decode_ft8_message(wave_data, sample_rate: float,
     """
     wave = np.asarray(wave_data)
     device = entry_device(device)
+    count("slots")
 
     def _empty():
         if not return_metrics:
@@ -952,7 +961,7 @@ def decode_ft8_message(wave_data, sample_rate: float,
     first_res = None
     for pass_idx in range(max(1, passes)):
         spec = None
-        with record_function("ft8.waterfall"):
+        with span("ft8.waterfall"):
             if block_spec:
                 # the block spectra feed both the dB waterfall and the
                 # boxcar matched-filter DFTs
@@ -1011,9 +1020,11 @@ def decode_ft8_message(wave_data, sample_rate: float,
             rows.append(r)
 
         if pass_idx + 1 < max(1, passes):
-            if not bool(res.success.any()):
+            with host_wait("ft8.api.wait"):
+                decoded = bool(res.success.any())
+            if not decoded:
                 break
-            with record_function("ft8.subtract"):
+            with span("ft8.subtract"):
                 wave_d = subtract_decoded(wave_d, p, res.payload,
                                           res.abs_time + t_lo,
                                           res.abs_freq + f_lo, res.success)

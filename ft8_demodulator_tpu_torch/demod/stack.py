@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops.llr import (extract_llrs, extract_llrs_coherent_stacked,
                        extract_llrs_matched_blocks_stacked,
@@ -38,6 +37,7 @@ from ..ops.waterfall import (_DB_FLOOR, WaterfallParams, _as_complex,
                              waterfall_params)
 from ..protocol import constants as C
 from ..utils.device import entry_device
+from ..utils.profiling import span
 from .decode import (SlotDecoder, _format_results, _merge_results,
                      _refine_rows, ap_arrays, ap_retry_llrs, estimate_snr,
                      finish_decode, slot_decoder, variant_retry)
@@ -112,7 +112,7 @@ def _decode_slot_stacked_with_mag(waves: torch.Tensor, p: WaterfallParams,
     if decoder is None:
         decoder = slot_decoder(p, num_frames, waves.device)
     g = decoder.g
-    with record_function("ft8.stack"):
+    with span("ft8.stack"):
         power, spec, weights = _stacked_power_and_spec(
             waves, p, num_frames, is_complex, equalize=r > 1)
         if weights is not None:
@@ -120,17 +120,17 @@ def _decode_slot_stacked_with_mag(waves: torch.Tensor, p: WaterfallParams,
                 (r,) + (1,) * (waves.ndim - 1))
         mag = 10.0 * torch.log10(_DB_FLOOR + power)
     if r > 1:
-        with record_function("ft8.sync_z"):
+        with span("ft8.sync_z"):
             scores = sync_scores_z(power, g)
         thresh = min_z
     else:
-        with record_function("ft8.sync"):
+        with span("ft8.sync"):
             scores = sync_scores_kernel(mag, g)
         thresh = min_score
-    with record_function("ft8.top_k"):
+    with span("ft8.top_k"):
         abs_time, abs_freq, score, cand_valid = find_candidates(
             scores, g, max_candidates, thresh)
-    with record_function("ft8.llrs"):
+    with span("ft8.llrs"):
         if not use_mf:
             llrs = extract_llrs(mag, abs_time, abs_freq, p.time_osr,
                                 p.freq_osr, g.num_blocks, decoder.gray_map)
@@ -147,14 +147,14 @@ def _decode_slot_stacked_with_mag(waves: torch.Tensor, p: WaterfallParams,
     if coherent:
         # per-repeat carrier phases, one (dt, df) search over the repeats,
         # the projected powers summed noncoherently
-        with record_function("ft8.coherent"):
+        with span("ft8.coherent"):
             cllrs = extract_llrs_coherent_stacked(
                 waves, abs_time, abs_freq, p.nperseg, p.hop, p.freq_osr,
                 is_complex)
         res = _merge_results(res, variant_retry(cllrs, res, max_iterations,
                                                 use_osd, decoder))
     if ap_values is not None:
-        with record_function("ft8.ap"):
+        with span("ft8.ap"):
             res = _merge_results(res, ap_retry_llrs(
                 llrs, res, ap_values, ap_mask, max_iterations, use_osd,
                 decoder))

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..protocol import constants as C
+from ..utils.profiling import count, host_wait
 
 __all__ = ["fast_tanh", "fast_atanh", "ldpc_check", "bp_decode",
            "bp_decode_batch", "BPTables", "bp_tables", "make_bp_tables"]
@@ -175,6 +176,8 @@ def bp_decode_batch(llrs: torch.Tensor, max_iterations: int = 20,
     freezes each row's state once the reference would have left its loop,
     and the loop ends when every row has halted.  ``tables``: routing
     tables on the device of ``llrs``; None takes :func:`bp_tables`.
+    Counters (``utils/profiling.py``): ``bp.calls``, ``bp.rows``,
+    ``bp.iterations`` (iterations run) and ``bp.all_halted`` (early exits).
     """
     if tables is None:
         tables = bp_tables(llrs.device)
@@ -187,9 +190,16 @@ def bp_decode_batch(llrs: torch.Tensor, max_iterations: int = 20,
     halted = torch.zeros(batch_shape, dtype=torch.bool, device=dev)
 
     llr_routed = llrs[..., tables.var_of_mi]   # loop-invariant
+    count("bp.calls")
+    count("bp.rows", halted.numel())
+    iterations = 0
     for _ in range(max_iterations):
-        if bool(halted.all()):
+        with host_wait("ft8.decode.wait"):
+            done = bool(halted.all())
+        if done:
+            count("bp.all_halted")
             break
+        iterations += 1
         plain = (_tov_sum(llrs, tov) > 0).to(torch.int32)
         zero_cw = plain.sum(-1) == 0
         errors = ldpc_check(plain, tables)
@@ -204,6 +214,7 @@ def bp_decode_batch(llrs: torch.Tensor, max_iterations: int = 20,
 
         tov_next = _bp_iteration(llr_routed, tov, tables)
         tov = torch.where(halted[..., None], tov, tov_next)
+    count("bp.iterations", iterations)
     return plain_out, min_err
 
 

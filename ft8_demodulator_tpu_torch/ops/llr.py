@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..protocol import constants as C
+from ..utils.profiling import host_wait
 from .subtract import _linspace_f32
 
 __all__ = ["extract_llrs", "extract_llrs_tf", "extract_llrs_matched",
@@ -60,9 +61,13 @@ def _llr_from_powers(s2: torch.Tensor) -> torch.Tensor:
     """(..., 8) Gray-ordered powers -> (..., 3) bit LLRs (max-of-4 contrast)."""
     out = []
     for b in range(3):
-        pos = s2[..., np.flatnonzero(_BIT_SET[b])].amax(dim=-1)
-        neg = s2[..., np.flatnonzero(~_BIT_SET[b])].amax(dim=-1)
-        out.append(pos - neg)
+        # the index sets, copied from host memory on every call
+        with host_wait("ft8.llrs.wait", 2):
+            pos_i = torch.as_tensor(np.flatnonzero(_BIT_SET[b]),
+                                    device=s2.device)
+            neg_i = torch.as_tensor(np.flatnonzero(~_BIT_SET[b]),
+                                    device=s2.device)
+        out.append(s2[..., pos_i].amax(dim=-1) - s2[..., neg_i].amax(dim=-1))
     return torch.stack(out, dim=-1)
 
 
@@ -80,9 +85,11 @@ def extract_llrs_tf(mag_tf: torch.Tensor, abs_time: torch.Tensor,
     lead = mag_tf.shape[:-2]
     dev = mag_tf.device
     if gray_map is None:
-        gray_map = torch.as_tensor(C.GRAY_MAP, device=dev)
-    sym = torch.as_tensor(C.DATA_SYMBOL_POSITIONS, dtype=torch.int64,
-                          device=dev)
+        with host_wait("ft8.llrs.wait"):
+            gray_map = torch.as_tensor(C.GRAY_MAP, device=dev)
+    with host_wait("ft8.llrs.wait"):
+        sym = torch.as_tensor(C.DATA_SYMBOL_POSITIONS, dtype=torch.int64,
+                              device=dev)
     abs_time = abs_time.to(torch.int64)
     abs_freq = abs_freq.to(torch.int64)
     k = abs_time.shape[-1]
@@ -129,7 +136,8 @@ def _powers_to_llrs(powers: torch.Tensor, gray_map=None) -> torch.Tensor:
     """(..., K, 58, 8) linear symbol powers in tone order -> (..., K, 174)
     normalised LLRs."""
     if gray_map is None:
-        gray_map = torch.as_tensor(C.GRAY_MAP, device=powers.device)
+        with host_wait("ft8.llrs.wait"):
+            gray_map = torch.as_tensor(C.GRAY_MAP, device=powers.device)
     s2 = (10.0 * torch.log10(1e-12 + powers))[..., gray_map.to(torch.int64)]
     llr = _llr_from_powers(s2)
     return normalize_llrs(llr.reshape(*powers.shape[:-2], C.LDPC_N))
@@ -151,8 +159,9 @@ def extract_llrs_matched_grid(box_tf: torch.Tensor, abs_time: torch.Tensor,
     nbrows, num_freqs = box_tf.shape[-2:]
     lead = box_tf.shape[:-2]
     dev = box_tf.device
-    sym = torch.as_tensor(C.DATA_SYMBOL_POSITIONS, dtype=torch.int64,
-                          device=dev)
+    with host_wait("ft8.llrs.wait"):
+        sym = torch.as_tensor(C.DATA_SYMBOL_POSITIONS, dtype=torch.int64,
+                              device=dev)
     tone = torch.arange(8, device=dev)
     k = abs_time.shape[-1]
     t_idx = abs_time.to(torch.int64)[..., None] + sym * tau + (tau - 1)
@@ -186,8 +195,9 @@ def _mf_block_powers(spec: torch.Tensor, abs_time: torch.Tensor,
     nb, kx = spec.shape[-2:]
     lead = spec.shape[:-2]
     dev = spec.device
-    sym = torch.as_tensor(C.DATA_SYMBOL_POSITIONS, dtype=torch.int64,
-                          device=dev)
+    with host_wait("ft8.llrs.wait"):
+        sym = torch.as_tensor(C.DATA_SYMBOL_POSITIONS, dtype=torch.int64,
+                              device=dev)
     s = torch.arange(tau, device=dev)
     tone = torch.arange(8, device=dev)
 

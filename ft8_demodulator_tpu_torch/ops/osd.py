@@ -36,9 +36,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..protocol import constants as C
+from ..utils.profiling import count, count_on_card, host_wait, span
 from .osd_cuda import _pack, reduce_basis_from_order
 
 __all__ = ["OSDTables", "make_osd_tables", "osd_tables", "osd_decode_batch",
@@ -305,7 +305,7 @@ def osd_decode_batch(llrs: torch.Tensor, lam: float = DEFAULT_LAMBDA,
     return plain.reshape(llrs.shape), ok.reshape(llrs.shape[:-1])
 
 
-@record_function("ft8.osd")
+@span("ft8.osd")
 def osd_decode_masked(llrs: torch.Tensor, need: torch.Tensor,
                       lam: float = DEFAULT_LAMBDA,
                       order2: int = DEFAULT_ORDER2,
@@ -320,16 +320,20 @@ def osd_decode_masked(llrs: torch.Tensor, need: torch.Tensor,
     the others return (zeros, False) and cost nothing: the needed rows are
     compacted by a boolean index, their bases reduced in one kernel launch,
     searched in passes of ``chunk`` rows, and scattered back.  Runs in a
-    ``ft8.osd`` ``record_function`` range.
+    ``ft8.osd`` span; counts the rows searched (``osd.rows``) and, while a
+    profiler records, the rows accepted (``osd.accepted``, on the card).
     """
     order3 = _check_orders(order2, order3)
     flat = llrs.reshape(-1, _N)
     needf = need.reshape(-1)
     plain = torch.zeros(flat.shape, dtype=torch.int32, device=llrs.device)
     ok = torch.zeros(needf.shape, dtype=torch.bool, device=llrs.device)
-    idx = needf.nonzero()[:, 0]
+    with host_wait("ft8.osd.wait"):
+        idx = needf.nonzero()[:, 0]
+    count("osd.rows", idx.numel())
     if idx.numel():
         plain[idx], ok[idx] = _osd_rows(flat[idx], lam, order2, order3,
                                         tables or osd_tables(llrs.device),
                                         chunk)
+        count_on_card("osd.accepted", ok)
     return plain.reshape(llrs.shape), ok.reshape(need.shape)

@@ -22,9 +22,8 @@ arithmetic (the JAX package's ``_reduce_basis_packed``, batched over
 candidates); :func:`reduce_basis_from_order_plain`, the two composed, is
 the kernel's plain version, and the kernel equals it bit for bit.
 :func:`reduce_basis_from_order` takes the plain version for a CPU tensor;
-for a CUDA tensor it launches the kernel or raises.  Its ``launches``
-attribute counts kernel launches and ``rows`` the candidates those
-launches reduced.
+for a CUDA tensor it launches the kernel or raises, and counts the launch
+in the counter ``k4.launches`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ import functools
 import torch
 
 from ..protocol import constants as C
+from ..utils.profiling import count
 
 __all__ = ["reduce_basis_from_order", "reduce_basis_from_order_plain",
            "reduce_basis_batch_plain"]
@@ -174,10 +174,5 @@ def reduce_basis_from_order(order: torch.Tensor, tables
     if err != 0:
         raise RuntimeError("osd_eliminate launch failed: "
                            + lib.ft8_cuda_error_string(err).decode())
-    reduce_basis_from_order.launches += 1
-    reduce_basis_from_order.rows += rows
+    count("k4.launches")
     return out, pcol
-
-
-reduce_basis_from_order.launches = 0
-reduce_basis_from_order.rows = 0

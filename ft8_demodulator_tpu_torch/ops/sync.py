@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..protocol import constants as C
+from ..utils.profiling import host_wait
 
 __all__ = ["SearchGrid", "search_grid", "sync_scores", "sync_scores_tf",
            "sync_scores_z", "find_candidates", "find_candidates_tf",
@@ -238,7 +239,8 @@ def _z_normalise(total: torch.Tensor, linpow: torch.Tensor,
     (``jnp.var`` divides by N: ``correction=0``).  ``count``: valid
     contrasts per time column (host)."""
     cell_var = torch.var(linpow, correction=0)
-    cnt = torch.as_tensor(count, device=linpow.device)
+    with host_wait("ft8.sync_z.wait"):
+        cnt = torch.as_tensor(count, device=linpow.device)
     sigma = torch.sqrt(cell_var * 0.875 * torch.clamp(cnt, min=1.0))
     return torch.where(cnt > 0, total / sigma, -torch.inf)
 

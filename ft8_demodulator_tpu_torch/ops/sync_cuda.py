@@ -33,8 +33,9 @@ frequency-major from n = 18, time-major from n = 20; :func:`sync_tile`
 says) raises a ValueError before any launch.
 
 Each wrapper takes its plain version for a CPU tensor; for a CUDA tensor
-it launches the kernel or raises.  Its ``launches`` attribute counts
-kernel launches.
+it launches the kernel or raises, and counts the launch in the counter
+``k5.launches`` (time-major) or ``k6.launches`` (frequency-major;
+``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ..protocol import constants as C
+from ..utils.profiling import count
 from .sync import SearchGrid, cell_mask_tensors, sync_scores, sync_scores_tf
 
 __all__ = ["sync_scores_tf_kernel", "sync_scores_kernel",
@@ -156,7 +158,7 @@ def sync_scores_tf_kernel(mag_tf: torch.Tensor,
     if mag_tf.device.type != "cuda":
         raise ValueError(f"no kernel for device {mag_tf.device}")
     out = _launch(mag_tf, g, time_major=True)
-    sync_scores_tf_kernel.launches += 1
+    count("k5.launches")
     return out
 
 
@@ -174,7 +176,7 @@ def sync_scores_kernel(mag: torch.Tensor, g: SearchGrid) -> torch.Tensor:
     if mag.device.type != "cuda":
         raise ValueError(f"no kernel for device {mag.device}")
     out = _launch(mag, g, time_major=False)
-    sync_scores_kernel.launches += 1
+    count("k6.launches")
     return out
 
 
@@ -231,9 +233,6 @@ def sync_scores_tf_planes(mag_tf: torch.Tensor,
     inv = 1.0 / torch.clamp(count, min=1.0)
     return torch.where(count > 0, total * inv, -torch.inf)
 
-
-sync_scores_tf_kernel.launches = 0
-sync_scores_kernel.launches = 0
 
 # the kernel hard-codes the Costas geometry
 assert (C.NUM_COSTAS_SEQS, C.COSTAS_LEN, C.SYNC_SEQ_STRIDE) == (3, 7, 36)

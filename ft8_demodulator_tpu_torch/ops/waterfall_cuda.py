@@ -43,8 +43,9 @@ the same bf16-cast operands, an f32 matmul, then the ``_block_power`` / dB
 and ``_block_boxcar_tf`` epilogues.
 
 Each wrapper takes its plain version for a CPU tensor; for a CUDA tensor it
-launches its kernel or raises.  Its ``launches`` attribute counts launches
-(each one runs the pre-pass and the kernel).
+launches its kernel or raises, and counts the launch (the pre-pass and the
+kernel) in the counter ``k1.launches`` (dB only) or ``k3.launches``
+(dual-output; ``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import count
 from .waterfall import (WaterfallParams, _block_boxcar_tf,
                         _block_combine_phases, _block_dft_matrices,
                         _block_geometry_ok, _block_waterfall_tf, _blocks,
@@ -288,7 +290,7 @@ def block_waterfall_tf_fused_batch(waves: torch.Tensor, p: WaterfallParams,
     out = torch.empty((waves.shape[0], num_frames, p.num_freq_bins),
                       dtype=torch.float32, device=waves.device)
     _launch("ft8_waterfall_tf", waves, p, num_frames, consts, 0, (out,))
-    block_waterfall_tf_fused_batch.launches += 1
+    count("k1.launches")
     return out
 
 
@@ -320,7 +322,7 @@ def block_waterfall_mf_tf_fused_batch(waves: torch.Tensor,
                       device=waves.device)
     _launch("ft8_waterfall_mf_tf", waves, p, num_frames, consts, lead,
             (db, box))
-    block_waterfall_mf_tf_fused_batch.launches += 1
+    count("k3.launches")
     return db, box
 
 
@@ -347,6 +349,3 @@ def _launch(name: str, waves, p: WaterfallParams, num_frames: int, consts,
         raise RuntimeError(f"{name} launch failed: "
                            + lib.ft8_cuda_error_string(err).decode())
 
-
-block_waterfall_tf_fused_batch.launches = 0
-block_waterfall_mf_tf_fused_batch.launches = 0

@@ -14,8 +14,8 @@ import sys
 import numpy as np
 import torch
 
-from ..ops import osd_cuda, sync_cuda
 from ..utils.device import entry_device
+from ..utils.profiling import counters, reset_counters
 
 __all__ = ["entry", "dryrun_multichip"]
 
@@ -49,8 +49,8 @@ def _check(ok: bool, what: str) -> None:
 
 
 def _launches() -> dict[str, int]:
-    return {"K6": sync_cuda.sync_scores_kernel.launches,
-            "K4": osd_cuda.reduce_basis_from_order.launches}
+    return {"K6": counters().get("k6.launches", 0),
+            "K4": counters().get("k4.launches", 0)}
 
 
 def _stream_checks(res, n_success, shape: tuple[int, ...],
@@ -75,8 +75,7 @@ def _dryrun_rank(device: torch.device, n: int) -> dict:
     from .streaming import decode_stream_sharded
     from .tensor import decode_slot_tp
 
-    sync_cuda.sync_scores_kernel.launches = 0
-    osd_cuda.reduce_basis_from_order.launches = 0
+    reset_counters()
     n_channel = 2 if n % 2 == 0 and n > 1 else 1
     n_stream = n // n_channel
     mesh = make_mesh(stream=n_stream, channel=n_channel, device=device)

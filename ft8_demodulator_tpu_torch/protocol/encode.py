@@ -13,6 +13,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.profiling import host_wait
 from . import constants as C
 
 __all__ = [
@@ -95,9 +96,12 @@ def codeword_to_tones(codeword: torch.Tensor) -> torch.Tensor:
 def frame_tones(data_tones: torch.Tensor) -> torch.Tensor:
     """(..., 58) data tones -> (..., 79) frame with 3 Costas blocks."""
     dev = data_tones.device
-    data_idx = torch.as_tensor(np.maximum(C.FRAME_DATA_INDEX, 0),
-                               dtype=torch.int64, device=dev)
-    is_costas = torch.as_tensor(C.FRAME_IS_COSTAS, device=dev)
+    # copied from host memory on every call; on the host API's path inside
+    # the SNR estimate
+    with host_wait("ft8.snr.wait", 2):
+        data_idx = torch.as_tensor(np.maximum(C.FRAME_DATA_INDEX, 0),
+                                   dtype=torch.int64, device=dev)
+        is_costas = torch.as_tensor(C.FRAME_IS_COSTAS, device=dev)
     gathered = data_tones[..., data_idx]
     return torch.where(is_costas, _table("FRAME_COSTAS_TONE", dev), gathered)
 

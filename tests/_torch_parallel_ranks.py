@@ -14,7 +14,6 @@ import torch
 import torch.distributed as dist
 
 from ft8_demodulator_tpu_torch.demod.types import SlotDecodeResult
-from ft8_demodulator_tpu_torch.ops import osd_cuda, sync_cuda
 from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
 from ft8_demodulator_tpu_torch.parallel import (decode_slot_tp,
                                                 decode_slots_pipelined,
@@ -23,6 +22,7 @@ from ft8_demodulator_tpu_torch.parallel import (decode_slot_tp,
                                                 make_composed_mesh,
                                                 make_freq_mesh, make_mesh,
                                                 make_stage_mesh)
+from ft8_demodulator_tpu_torch.utils.profiling import counters, reset_counters
 
 FS = 2000.0
 
@@ -138,8 +138,7 @@ def production_cases(device, inp):
 def card_cases(device, inp):
     """decode_stream and decode_slot_tp on 2 ranks of one card (gloo), with
     the ranks' K6 launches (tests/test_torch_cuda.py)."""
-    sync_cuda.sync_scores_kernel.launches = 0
-    osd_cuda.reduce_basis_from_order.launches = 0
+    reset_counters()
     rows = decode_stream(inp["stream"], FS, min_score=4.0, device=device)
     p = waterfall_params(FS, 2, 2)
     tp = host(decode_slot_tp(inp["slot"], p, p.num_frames(len(inp["slot"])),
@@ -147,8 +146,8 @@ def card_cases(device, inp):
                              use_osd=True, device=device))
     if device.type == "cuda":
         torch.cuda.synchronize()
-    return rows, tp, sync_cuda.sync_scores_kernel.launches, \
-        osd_cuda.reduce_basis_from_order.launches
+    return rows, tp, counters().get("k6.launches", 0), \
+        counters().get("k4.launches", 0)
 
 
 def fail_on_rank_1(device):

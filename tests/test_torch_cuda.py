@@ -34,6 +34,7 @@ from ft8_demodulator_tpu_torch.ops import sync_cuda as tsc
 from ft8_demodulator_tpu_torch.ops import waterfall_cuda as twc
 from ft8_demodulator_tpu_torch.ops.gfsk import ft8_passband
 from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
+from ft8_demodulator_tpu_torch.utils.profiling import counters, reset_counters
 
 pytestmark = pytest.mark.cuda
 
@@ -112,9 +113,9 @@ def _tied_orders(rows, device, seed=0):
 def test_osd_kernel_matches_plain_bit_for_bit(cuda, rows):
     order = _tied_orders(rows, cuda, seed=rows)
     tables = tosd.osd_tables(cuda)
-    before = tosc.reduce_basis_from_order.launches
+    before = counters().get("k4.launches", 0)
     red, pcol = tosc.reduce_basis_from_order(order, tables)
-    assert tosc.reduce_basis_from_order.launches == before + 1
+    assert counters().get("k4.launches", 0) == before + 1
     want_red, want_pcol = tosc.reduce_basis_from_order_plain(order, tables)
     torch.cuda.synchronize()
     assert red.shape == (rows, 91, 6) and pcol.shape == (rows, 91)
@@ -130,15 +131,15 @@ def test_one_osd_launch_per_masked_call(cuda, rows, chunk):
     llr = (3.0 * rng.standard_normal((rows + 7, 174))).astype(np.float32)
     need = np.ones(rows + 7, bool)
     need[:7] = False
-    before = (tosc.reduce_basis_from_order.launches,
-              tosc.reduce_basis_from_order.rows)
+    before = (counters().get("k4.launches", 0),
+              counters().get("osd.rows", 0))
     plain, ok = tosd.osd_decode_masked(torch.as_tensor(llr, device=cuda),
                                        torch.as_tensor(need, device=cuda),
                                        chunk=chunk)
     torch.cuda.synchronize()
-    assert (tosc.reduce_basis_from_order.launches,
-            tosc.reduce_basis_from_order.rows) == (before[0] + (rows > 0),
-                                                   before[1] + rows)
+    assert (counters().get("k4.launches", 0),
+            counters().get("osd.rows", 0)) == (before[0] + (rows > 0),
+                                               before[1] + rows)
     want_plain, want_ok = tosd.osd_decode_masked(torch.as_tensor(llr),
                                                  torch.as_tensor(need),
                                                  chunk=chunk)
@@ -151,26 +152,24 @@ def test_launch_counter(cuda):
     n = 30000
     nf = p.num_frames(n)
     waves = _noisy(3, 2, n).to(cuda)
-    before = twc.block_waterfall_tf_fused_batch.launches
+    before = counters().get("k1.launches", 0)
     twc.block_waterfall_tf_fused_batch(waves, p, nf)
     twc.block_waterfall_tf_fused_batch(waves, p, nf)
     twc.block_waterfall_tf_fused_batch_plain(waves, p, nf)
     torch.cuda.synchronize()
-    assert twc.block_waterfall_tf_fused_batch.launches == before + 2
+    assert counters().get("k1.launches", 0) == before + 2
     p4 = waterfall_params(2000.0, 4, 4)
-    before = twc.block_waterfall_mf_tf_fused_batch.launches
+    before = counters().get("k3.launches", 0)
     twc.block_waterfall_mf_tf_fused_batch(waves, p4, p4.num_frames(n))
     twc.block_waterfall_mf_tf_fused_batch_plain(waves, p4, p4.num_frames(n))
     order = _tied_orders(5, cuda)
     tables = tosd.osd_tables(cuda)
-    before_osd = tosc.reduce_basis_from_order.launches
-    rows_osd = tosc.reduce_basis_from_order.rows
+    before_osd = counters().get("k4.launches", 0)
     tosc.reduce_basis_from_order(order, tables)
     tosc.reduce_basis_from_order_plain(order, tables)
     torch.cuda.synchronize()
-    assert twc.block_waterfall_mf_tf_fused_batch.launches == before + 1
-    assert tosc.reduce_basis_from_order.launches == before_osd + 1
-    assert tosc.reduce_basis_from_order.rows == rows_osd + 5
+    assert counters().get("k3.launches", 0) == before + 1
+    assert counters().get("k4.launches", 0) == before_osd + 1
 
 
 def _planted(seed, fs, n):
@@ -199,9 +198,9 @@ def test_decode_slots_card_matches_cpu(cuda):
     nf = p.num_frames(n)
     waves, payloads = _planted(11, fs, n)
     kw = dict(max_candidates=10, min_score=1.0, chunk=2)
-    before = twc.block_waterfall_tf_fused_batch.launches
+    before = counters().get("k1.launches", 0)
     card = tdec.decode_slots(waves.to(cuda), p, nf, **kw)
-    assert twc.block_waterfall_tf_fused_batch.launches == before + 2
+    assert counters().get("k1.launches", 0) == before + 2
     host = tdec.decode_slots(waves, p, nf, **kw)
     for b in range(4):
         card_set = _decode_sets(card, b)
@@ -219,12 +218,12 @@ def test_deep_decode_slots_card_matches_cpu(cuda):
     waves, payloads = _planted(12, fs, n)
     kw = dict(max_candidates=40, min_score=1.0, use_osd=True, mf_first=True,
               chunk=2)
-    mf_before = twc.block_waterfall_mf_tf_fused_batch.launches
-    osd_before = tosc.reduce_basis_from_order.launches
+    mf_before = counters().get("k3.launches", 0)
+    osd_before = counters().get("k4.launches", 0)
     card = tdec.decode_slots(waves.to(cuda), p, nf, **kw)
-    assert twc.block_waterfall_mf_tf_fused_batch.launches == mf_before + 2
+    assert counters().get("k3.launches", 0) == mf_before + 2
     # one BP group (bp_chunk clamps to the batch): one OSD launch
-    assert tosc.reduce_basis_from_order.launches == osd_before + 1
+    assert counters().get("k4.launches", 0) == osd_before + 1
     host = tdec.decode_slots(waves, p, nf, **kw)
     for b in range(4):
         card_set = _decode_sets(card, b)
@@ -298,16 +297,16 @@ def test_limits_left_on_the_card_raise_value_errors(cuda):
                        tsync.sync_scores_tf(mag19, g19))
     with pytest.raises(ValueError, match="227 KB"):
         tsc.sync_scores_kernel(mag19.transpose(-1, -2), g19)
-    before = (tsc.sync_scores_tf_kernel.launches,
-              tsc.sync_scores_kernel.launches)
+    before = (counters().get("k5.launches", 0),
+              counters().get("k6.launches", 0))
     with pytest.raises(ValueError, match="227 KB"):
         tsc.sync_scores_kernel(torch.zeros((200, 1500), device=cuda),
                                tsync.search_grid(200, 1500, 18, 18))
     with pytest.raises(ValueError, match="227 KB"):
         tsc.sync_scores_tf_kernel(torch.zeros((1700, 200), device=cuda),
                                   tsync.search_grid(200, 1700, 20, 20))
-    assert (tsc.sync_scores_tf_kernel.launches,
-            tsc.sync_scores_kernel.launches) == before
+    assert (counters().get("k5.launches", 0),
+            counters().get("k6.launches", 0)) == before
 
 
 def _db_grid(seed, shape, device, integer=False):
@@ -336,8 +335,8 @@ def test_sync_kernels_match_plain_bit_for_bit(cuda, fs, osr, b):
     nf = p.num_frames(int(fs * 15))
     g = tsync.search_grid(p.num_freq_bins, nf, *reversed(osr))
     mag_tf = _db_grid(int(fs) + osr[0], (b, nf, p.num_freq_bins), cuda)
-    before = (tsc.sync_scores_tf_kernel.launches,
-              tsc.sync_scores_kernel.launches)
+    before = (counters().get("k5.launches", 0),
+              counters().get("k6.launches", 0))
     got = tsc.sync_scores_tf_kernel(mag_tf, g)
     _assert_sync_equal(got, tsync.sync_scores_tf(mag_tf, g))
     mag = mag_tf.transpose(-1, -2).contiguous()
@@ -345,9 +344,9 @@ def test_sync_kernels_match_plain_bit_for_bit(cuda, fs, osr, b):
     _assert_sync_equal(got_fm, tsync.sync_scores(mag, g))
     torch.cuda.synchronize()
     assert torch.equal(got_fm, got.transpose(-1, -2))
-    assert (tsc.sync_scores_tf_kernel.launches,
-            tsc.sync_scores_kernel.launches) == (before[0] + 1,
-                                                 before[1] + 1)
+    assert (counters().get("k5.launches", 0),
+            counters().get("k6.launches", 0)) == (before[0] + 1,
+                                                  before[1] + 1)
 
 
 @pytest.mark.parametrize("frames,bins,osr,b", [
@@ -413,10 +412,10 @@ def test_decode_slots_runs_the_sync_kernel(cuda):
     n = int(fs * 15)
     p = waterfall_params(fs, 2, 2)
     waves, _ = _planted(14, fs, n)
-    before = tsc.sync_scores_tf_kernel.launches
+    before = counters().get("k5.launches", 0)
     tdec.decode_slots(waves.to(cuda), p, p.num_frames(n), max_candidates=10,
                       min_score=1.0, chunk=2)
-    assert tsc.sync_scores_tf_kernel.launches == before + 2
+    assert counters().get("k5.launches", 0) == before + 2
 
 
 @pytest.mark.parametrize("kw", [dict(min_score=5.0),
@@ -434,12 +433,12 @@ def test_decode_ft8_message_card_matches_cpu(cuda, kw):
     n = int(fs * 15)
     waves, payloads = _planted(15, fs, n)
     wave = waves.numpy().sum(0) / 2.0
-    before = (tsc.sync_scores_kernel.launches,
-              tosc.reduce_basis_from_order.launches)
+    before = (counters().get("k6.launches", 0),
+              counters().get("k4.launches", 0))
     card = tdec.decode_ft8_message(wave, fs, device=cuda, **kw)
-    assert tsc.sync_scores_kernel.launches > before[0]
+    assert counters().get("k6.launches", 0) > before[0]
     if kw.get("use_osd"):
-        assert tosc.reduce_basis_from_order.launches > before[1]
+        assert counters().get("k4.launches", 0) > before[1]
     host = tdec.decode_ft8_message(wave, fs, device="cpu", **kw)
     assert [(r.message.payload, r.time_sec, r.freq_hz) for r in card] == \
         [(r.message.payload, r.time_sec, r.freq_hz) for r in host]
@@ -618,11 +617,11 @@ def test_decode_ft8_stacked_card_matches_cpu(cuda, r, fs):
 
     waves = _beacon_repeats(2, -13.0 if r == 1 else -19.0, r, fs)
     kw = dict(min_score=1.0, use_osd=True, coherent=True, refine_fixes=True)
-    before = (tsc.sync_scores_kernel.launches,
-              tosc.reduce_basis_from_order.launches)
+    before = (counters().get("k6.launches", 0),
+              counters().get("k4.launches", 0))
     card = decode_ft8_stacked(waves, fs, device=cuda, **kw)
-    assert tosc.reduce_basis_from_order.launches > before[1]
-    assert (tsc.sync_scores_kernel.launches > before[0]) == (r == 1)
+    assert counters().get("k4.launches", 0) > before[1]
+    assert (counters().get("k6.launches", 0) > before[0]) == (r == 1)
     _rows_close(card, decode_ft8_stacked(waves, fs, device="cpu", **kw))
     assert BEACON.tobytes() in {row.message.payload for row in card}
 
@@ -784,13 +783,12 @@ def test_stream_session_card_matches_cpu(cuda, kw, depth, tmp_path):
         return rows
 
     cfg = DecoderConfig(**kw)
-    tsc.sync_scores_kernel.launches = 0
-    tosc.reduce_basis_from_order.launches = 0
+    reset_counters()
     card_s = StreamSession(fs, cfg, pipeline_depth=depth, device=cuda)
     card = run(card_s, audio) + card_s.flush()
     torch.cuda.synchronize()
-    assert tsc.sync_scores_kernel.launches == 3       # two blocks + flush
-    assert (tosc.reduce_basis_from_order.launches > 0) == cfg.use_osd
+    assert counters().get("k6.launches", 0) == 3       # two blocks + flush
+    assert (counters().get("k4.launches", 0) > 0) == cfg.use_osd
     host = run(s := StreamSession(fs, cfg, device="cpu"), audio) + s.flush()
     assert [(r.message.payload, r.time_sec, r.freq_hz) for r in card] == \
         [(r.message.payload, r.time_sec, r.freq_hz) for r in host]

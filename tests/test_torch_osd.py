@@ -18,6 +18,7 @@ from ft8_demodulator_tpu.ops import osd as josd
 from ft8_demodulator_tpu.protocol import constants as JC
 from ft8_demodulator_tpu_torch.ops import osd as tosd
 from ft8_demodulator_tpu_torch.ops import osd_cuda as tcuda
+from ft8_demodulator_tpu_torch.utils.profiling import counters
 
 torch.set_num_threads(2)
 
@@ -106,12 +107,12 @@ def test_plain_elimination_equals_jax_and_pallas_interpret(rng):
 
 def test_elimination_wrapper_checks_and_counts(rng):
     tables = tosd.osd_tables("cpu")
-    before = tcuda.reduce_basis_from_order.launches
+    before = counters().get("k4.launches", 0)
     empty_r, empty_p = tcuda.reduce_basis_from_order(
         torch.zeros((0, 174), dtype=torch.int64), tables)
     assert empty_r.shape == (0, 91, 6) and empty_p.shape == (0, 91)
     assert empty_r.dtype == empty_p.dtype == torch.int32
-    assert tcuda.reduce_basis_from_order.launches == before
+    assert counters().get("k4.launches", 0) == before
     with pytest.raises(ValueError, match="int64"):
         tcuda.reduce_basis_from_order(
             torch.zeros((2, 174), dtype=torch.int32), tables)

@@ -22,6 +22,7 @@ from ft8_demodulator_tpu.ops.sync_pallas_tf import sync_scores_tf_pallas
 from ft8_demodulator_tpu.ops.waterfall import waterfall_params, waterfall_real
 from ft8_demodulator_tpu_torch.ops import sync as tsync
 from ft8_demodulator_tpu_torch.ops import sync_cuda as tsc
+from ft8_demodulator_tpu_torch.utils.profiling import counters
 
 torch.set_num_threads(2)
 
@@ -213,16 +214,16 @@ def test_kernel_wrappers_on_cpu_take_plain_and_check_shapes():
     a grid narrower than num_freqs + 7 freq_osr is refused."""
     mag, p = _mag(10)
     _, tg = _grids(p, mag.shape[1])
-    before = (tsc.sync_scores_kernel.launches,
-              tsc.sync_scores_tf_kernel.launches)
+    before = (counters().get("k6.launches", 0),
+              counters().get("k5.launches", 0))
     mag_t = torch.as_tensor(mag)
     torch.testing.assert_close(tsc.sync_scores_kernel(mag_t, tg),
                                tsync.sync_scores(mag_t, tg), rtol=0, atol=0)
     torch.testing.assert_close(
         tsc.sync_scores_tf_kernel(mag_t.T, tg),
         tsync.sync_scores_tf(mag_t.T, tg), rtol=0, atol=0)
-    assert (tsc.sync_scores_kernel.launches,
-            tsc.sync_scores_tf_kernel.launches) == before
+    assert (counters().get("k6.launches", 0),
+            counters().get("k5.launches", 0)) == before
     with pytest.raises(ValueError, match="bins"):
         tsc.sync_scores_kernel(mag_t[:-1], tg)
     with pytest.raises(ValueError, match="float32"):

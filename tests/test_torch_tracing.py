@@ -1,0 +1,199 @@
+"""The port's spans and counters (``utils/profiling.py``): the wait spans
+nest in their stages, the BP / OSD / candidate counters count what the
+decode did, and with no profiler recording nothing is recorded and no
+counter touches a card value (CPU)."""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import pytest
+import torch
+from torch.autograd.profiler import record_function
+
+from ft8_demodulator_tpu_torch.demod import decode as tdec
+from ft8_demodulator_tpu_torch.ops import osd as tosd
+from ft8_demodulator_tpu_torch.ops.gfsk import ft8_passband
+from ft8_demodulator_tpu_torch.ops.ldpc_decode import bp_decode_batch
+from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
+from ft8_demodulator_tpu_torch.protocol.encode import (encode_codeword,
+                                                       payload_to_bits)
+from ft8_demodulator_tpu_torch.utils import profiling
+
+FS = 2000.0
+N = int(FS * 15)
+STANDARD = dict(max_candidates=20, min_score=10.0, chunk=2)
+# osr 4x4; seed 1 at this amplitude leaves one row to OSD that it accepts
+DEEP = dict(max_candidates=40, min_score=1.0, use_osd=True, mf_first=True,
+            chunk=2)
+
+
+def _profile():
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def _slots(seed: int = 1, amp: float = 0.3) -> torch.Tensor:
+    """Two 15-s slots of unit noise at 2 kHz, one planted signal each."""
+    rng = np.random.default_rng(seed)
+    payloads = rng.integers(0, 256, size=(2, 10), dtype=np.uint8)
+    payloads[:, 9] &= 0xF8
+    waves = rng.standard_normal((2, N)).astype(np.float32)
+    for i in range(2):
+        sig = ft8_passband(payloads[i], FS, 300.0 + 100.0 * i, 0.0,
+                           device="cpu").numpy()
+        waves[i, 300: 300 + len(sig)] += amp * sig
+    return torch.as_tensor(waves)
+
+
+def _decode(osr: int, **kw):
+    p = waterfall_params(FS, osr, osr)
+    return tdec.decode_slots(_slots(), p, p.num_frames(N), **kw)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_counters():
+    profiling.reset_counters()
+    yield
+    profiling.reset_counters()
+
+
+@pytest.mark.parametrize("wait,stage", [("ft8.decode.wait", "ft8.decode"),
+                                        ("ft8.llrs.wait", "ft8.llrs")])
+def test_wait_spans_nest_in_their_stage(wait, stage):
+    with _profile() as prof:
+        _decode(2, **STANDARD)
+    spans = [(e.time_range.start, e.time_range.end, e.name)
+             for e in prof.events() if e.name.startswith("ft8.")]
+    waits = [(a, b) for a, b, name in spans if name == wait]
+    outer = [(a, b) for a, b, name in spans if name == stage]
+    assert waits and outer
+    assert all(any(c <= a and b <= d for c, d in outer) for a, b in waits)
+
+
+def test_osd_counts_rows_bp_left_and_rows_accepted(monkeypatch):
+    """osd.rows: the valid candidates BP failed (from a second decode of
+    the same LLRs without OSD); osd.accepted (on the card, traced): the
+    rows whose OSD result the decode took."""
+    fronts, taken = [], []
+    finish, masked = tdec.finish_decode, tosd.osd_decode_masked
+
+    def keep_front(*args):
+        fronts.append(args)
+        return finish(*args)
+
+    def keep_ok(*args, **kwargs):
+        plain, ok = masked(*args, **kwargs)
+        taken.append(ok)
+        return plain, ok
+
+    monkeypatch.setattr(tdec, "finish_decode", keep_front)
+    monkeypatch.setattr(tosd, "osd_decode_masked", keep_ok)
+    with _profile():
+        _decode(4, **DEEP)
+    (llrs, t, f, score, valid, iters, use_osd, decoder), = fronts
+    assert use_osd
+    bp_only = finish(llrs, t, f, score, valid, iters, False, decoder)
+    failed = int((valid & ~bp_only.success).sum())
+    accepted = int(taken[0].sum())
+    assert failed > 0 and accepted > 0
+    total, traced = profiling.counters(), profiling.counters(traced=True)
+    assert total["osd.rows"] == traced["osd.rows"] == failed
+    assert traced["osd.accepted"] == accepted
+    assert "osd.accepted" not in total
+    assert traced["candidates.rows"] == valid.numel() == 2 * 40
+    assert traced["candidates.valid"] == int(valid.sum())
+    assert traced["slots"] == 2
+
+
+def _codeword_llrs(rows: int) -> torch.Tensor:
+    rng = np.random.default_rng(7)
+    payloads = torch.as_tensor(rng.integers(0, 256, (rows, 10),
+                                            dtype=np.uint8))
+    bits = encode_codeword(payload_to_bits(payloads))
+    return torch.where(bits > 0, 4.0, -4.0)
+
+
+@pytest.mark.parametrize("llrs,iterations,halted", [
+    (_codeword_llrs(5), 1, 1),                         # parity holds at once
+    (torch.zeros((5, 174)), 1, 1),                     # zero-codeword guard
+    (torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (5, 174)).astype(np.float32)), 20, 0),         # never converges
+], ids=["codewords", "zeros", "noise"])
+def test_bp_iterations_and_early_exit(llrs, iterations, halted):
+    """Rows that halt at the first check end the loop after one iteration
+    (the zero codeword leaves its min_errors at the 83 checks); noise rows
+    run all 20 with failed checks left."""
+    _, errors = bp_decode_batch(llrs, 20)
+    if halted:
+        assert bool((errors == 0).all() or (errors == 83).all())
+    else:
+        assert bool((errors > 0).all())
+    c = profiling.counters()
+    assert (c["bp.calls"], c["bp.rows"], c["bp.iterations"],
+            c.get("bp.all_halted", 0)) == (1, 5, iterations, halted)
+    # a wait for every all-halted check: each iteration's, and the exit's
+    assert c["waits"] == iterations + halted
+
+
+class _Untouchable:
+    """A stand-in for a card tensor: any use of it fails."""
+
+    def __getattr__(self, name):
+        raise AssertionError(f"touched .{name}")
+
+
+def test_nothing_recorded_or_read_without_a_profiler(monkeypatch):
+    def entered(self):
+        raise AssertionError(f"range {self.name} entered with no profiler")
+
+    monkeypatch.setattr(record_function, "__enter__", entered)
+    res = _decode(4, **DEEP)
+    profiling.count_on_card("candidates.valid", _Untouchable())
+    profiling.count("k4.launches")
+    assert profiling.counters(traced=True) == {}
+    total = profiling.counters()
+    assert total["slots"] == 2 and total["k4.launches"] == 1
+    assert total["bp.calls"] == 1 and total["waits"] > 0
+    # every valid row left undecoded went through OSD
+    assert total["osd.rows"] >= int((res.candidate_valid
+                                     & ~res.success).sum()) > 0
+    assert not profiling._ON_CARD
+    # the shared null context of an unrecorded span
+    assert profiling.span("ft8.decode") is profiling.span("ft8.decode")
+
+
+@pytest.mark.parametrize("decorate_traced", [False, True])
+def test_span_decorator_picks_at_each_call(decorate_traced):
+    """A function decorated by span records a range when called under a
+    profiler and none otherwise, whether or not a profiler recorded when
+    it was decorated."""
+    def body():
+        return 1
+
+    if decorate_traced:
+        with _profile():
+            fn = profiling.span("ft8.test_span")(body)
+    else:
+        fn = profiling.span("ft8.test_span")(body)
+    with _profile() as prof:
+        assert fn() == 1
+    assert [e.name for e in prof.events()].count("ft8.test_span") == 1
+    with _profile() as prof:
+        pass
+    fn()
+    assert "ft8.test_span" not in [e.name for e in prof.events()]
+
+
+def test_trace_writes_its_counters(tmp_path):
+    profiling.count("waits", 5)
+    with profiling.trace(str(tmp_path)):
+        _decode(2, **STANDARD)
+    assert (tmp_path / "trace.json").is_file()
+    got = json.loads((tmp_path / "counters.json").read_text())
+    assert got == profiling.counters(traced=True)
+    assert got["slots"] == 2 and got["candidates.rows"] == 2 * 20
+    # reset on entry: the count before the trace is not in it
+    assert got["waits"] == profiling.counters()["waits"]
+    assert got["bp.calls"] == 1 and 1 <= got["bp.iterations"] <= 20
