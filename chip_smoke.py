@@ -195,7 +195,18 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    (and K3's boxcar as in phase 7), the time-major sync kernel (or, on a
    geometry the block backend does not take, the frequency-major one) and
    the OSD kernel, on the orders the decode passed it, bit for bit; any
-   failure raises with its reproduction tuple; the phase's seconds.
+   failure raises with its reproduction tuple; the phase's seconds;
+20. BP + CRC (K7, csrc/ldpc_bp.cu) on the LLRs of phase 4's first BP
+   group (5,120 rows) and of phase 12's crowded capture (20 rows): K7 ==
+   the plain loop bit for bit (plain, min_errors, both CRCs, iterations),
+   device time of K7 and of the plain loop (as in phase 6) beside K7's
+   bound (ops/ldpc_cuda.py bp_bound, the rows' own iterations) and the
+   rows' iterations; ptxas's report of K7.  Every phase that decodes on
+   the card with the counters zeroed just before reads K7's launches there
+   and requires them: one a BP group where decode_slots' groups are known
+   (phases 4, 6, 9 and 19's slot batches, where a geometry off the block
+   route decodes each slot alone), at least one elsewhere; phases
+   10 and 13 time calls that phases 9 and 12 count.
 
 Then one JSON line with the kernels (each with its launches on the main
 path, device ms, plain ms, bound ms and what bounds it, and the library
@@ -344,9 +355,9 @@ def _synth_slots(device, fs: float = FS, batch: int = BATCH,
 def _kernel_name(fn: str) -> str:
     """A hand kernel's name from its mangled entry: waterfall_kernel<true>,
     sync_kernel<false,4,4> (layout, then the osr it is built for; 0: any),
-    osd_eliminate_kernel; other names as they are."""
+    osd_eliminate_kernel, ldpc_bp_kernel; other names as they are."""
     m = re.search(r"(waterfall_pack_kernel|osd_eliminate_kernel|"
-                  r"waterfall_kernel|sync_kernel)(?:ILb([01])E((?:Li\d+E)*))?",
+                  r"ldpc_bp_kernel|waterfall_kernel|sync_kernel)(?:ILb([01])E((?:Li\d+E)*))?",
                   fn)
     if not m:
         return fn
@@ -866,11 +877,15 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     k5_launches = _counter("k5.launches")
     osd_launches = _counter("k4.launches")
     osd_rows = _counter("osd.rows")
+    bp_launches = _counter("k7.launches")
     if mf_launches != BATCH // DEEP_CHUNK \
             or k5_launches != BATCH // DEEP_CHUNK:
         raise RuntimeError(f"dual-output / sync kernels launched "
                            f"{mf_launches} / {k5_launches} times, want "
                            f"{BATCH // DEEP_CHUNK}")
+    if bp_launches != BATCH // BP_CHUNK:
+        raise RuntimeError(f"BP + CRC kernel launched {bp_launches} times, "
+                           f"want one a BP group, {BATCH // BP_CHUNK}")
     if res.success.shape != (BATCH, DEEP_CANDIDATES) \
             or res.payload.shape != (BATCH, DEEP_CANDIDATES, 10) \
             or not bool(torch.isfinite(res.score[res.candidate_valid]).all()):
@@ -904,7 +919,8 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     _phase(9, f"DEEP decode_slots {BATCH} slots at {FS / 1000:g} kHz osr "
               f"{DEEP_OSR[0]}x{DEEP_OSR[1]}: yield {decoded}/{BATCH}, "
               f"dual-output kernel launches {mf_launches}, sync kernel "
-              f"launches {k5_launches}, OSD kernel "
+              f"launches {k5_launches}, BP + CRC kernel launches "
+              f"{bp_launches}, OSD kernel "
               f"launches {osd_launches} reducing {osd_rows} rows (the rows "
               f"BP left), {int(res.success.sum())} successful rows of which "
               f"{osd_accepted} OSD-accepted, {unplanted} unplanted decodes, "
@@ -1190,12 +1206,13 @@ def _api_phase(dev) -> tuple[int, dict]:
         card_s = time.perf_counter() - t0
         k6 = _counter("k6.launches")
         k4 = _counter("k4.launches")
+        k7 = _counter("k7.launches")
         k6_total += k6
         host = decode_ft8_message(wave, FS, device="cpu", **kw)
         got = [r.message.payload for r in card]
-        if k6 < 1 or (kw.get("use_osd") and k4 < 1):
-            raise RuntimeError(f"{name}: sync kernel {k6}, OSD kernel {k4} "
-                               "launches")
+        if k6 < 1 or k7 < 1 or (kw.get("use_osd") and k4 < 1):
+            raise RuntimeError(f"{name}: sync kernel {k6}, OSD kernel {k4}, "
+                               f"BP + CRC kernel {k7} launches")
         _check_api_rows(name, card, host)
         unplanted = [pl for pl in got if pl not in planted]
         missed = sorted(s for pl, s in planted.items()
@@ -1214,7 +1231,8 @@ def _api_phase(dev) -> tuple[int, dict]:
         lines.append(f"{name}: {len(card)} rows, all planted >= {min_snr:g} "
                      f"dB decoded (weakest decoded "
                      f"{min(planted[pl] for pl in got):.1f} dB), sync kernel "
-                     f"launches {k6}, OSD kernel launches {k4}, first call "
+                     f"launches {k6}, OSD kernel launches {k4}, BP + CRC "
+                     f"kernel launches {k7}, first call "
                      f"{card_s * 1e3:.0f} ms")
     # osr 10x10 (the generic sync instance on a shrunk tile; the plain
     # waterfall, as at every osr of this API) on a band around the
@@ -1230,19 +1248,21 @@ def _api_phase(dev) -> tuple[int, dict]:
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     k6 = _counter("k6.launches")
+    k7 = _counter("k7.launches")
     k6_total += k6
     t0 = time.perf_counter()
     host = decode_ft8_message(wave, FS, device="cpu", **band)
     host_s = time.perf_counter() - t0
-    if k6 != 1 or bytes(payloads[strong]) not in {
+    if k6 != 1 or k7 < 1 or bytes(payloads[strong]) not in {
             r.message.payload for r in card}:
-        raise RuntimeError(f"osr {HIGH_OSR}x{HIGH_OSR}: sync kernel "
-                           f"launches {k6}, rows {card}")
+        raise RuntimeError(f"osr {HIGH_OSR}x{HIGH_OSR}: sync / BP + CRC "
+                           f"kernel launches {k6} / {k7}, rows {card}")
     _check_api_rows(f"osr {HIGH_OSR}x{HIGH_OSR}", card, host)
     lines.append(f"osr {HIGH_OSR}x{HIGH_OSR} on {band['freq_min']:.0f}-"
                  f"{band['freq_max']:.0f} Hz: {len(card)} rows (the "
                  f"{snr[strong]:.1f} dB signal decoded), sync kernel "
-                 f"launches {k6}, first call {card_s * 1e3:.0f} ms (CPU "
+                 f"launches {k6}, BP + CRC kernel launches {k7}, first call "
+                 f"{card_s * 1e3:.0f} ms (CPU "
                  f"{host_s * 1e3:.0f} ms)")
     _phase(12, f"decode_ft8_message on a crowded {FS / 1000:g} kHz capture "
                f"({CROWD_SIGNALS} + 1 buried signals): "
@@ -1302,12 +1322,13 @@ def _weak_phase(dev) -> int:
         _reset_counts()
         card = decode_ft8_message(wave, FS, device=dev, **kw)
         torch.cuda.synchronize()
-        k6, k4 = _counter("k6.launches"), \
-            _counter("k4.launches")
+        k6, k4, k7 = _counter("k6.launches"), \
+            _counter("k4.launches"), _counter("k7.launches")
         k6_total += k6
-        if k6 < 1 or k4 < 1:
+        if k6 < 1 or k4 < 1 or k7 < 1:
             raise RuntimeError(f"weak capture, {name}: sync kernel {k6}, "
-                               f"OSD kernel {k4} launches")
+                               f"OSD kernel {k4}, BP + CRC kernel {k7} "
+                               "launches")
         _check_api_rows(f"weak capture, {name}", card,
                         decode_ft8_message(wave, FS, device="cpu", **kw))
         found[name] = {r.message.payload for r in card}
@@ -1337,18 +1358,18 @@ def _weak_phase(dev) -> int:
     slot_lines = []
     for name, extra, used in (
             ("use_mf + mf_refine", dict(use_mf=True, mf_refine=True),
-             ("K1", "K5", "K4")),
+             ("K1", "K5", "K4", "K7")),
             ("mf_first + mf_refine", dict(mf_first=True, mf_refine=True),
-             ("K6", "K4")),
+             ("K6", "K4", "K7")),
             ("mf_first + coherent", dict(mf_first=True, coherent=True),
-             ("K3", "K5", "K4"))):
+             ("K3", "K5", "K4", "K7"))):
         torch.cuda.synchronize()
         _reset_counts()
         card = decode_slot(torch.as_tensor(wave, device=dev), p, nf,
                            **slot_kw, **extra)
         torch.cuda.synchronize()
         launched = {k: _counter(f"{k.lower()}.launches")
-                    for k in ("K1", "K3", "K5", "K6", "K4")}
+                    for k in ("K1", "K3", "K5", "K6", "K4", "K7")}
         k6_total += launched["K6"]
         if not all(launched[k] >= 1 for k in used):
             raise RuntimeError(f"decode_slot {name}: launches {launched}")
@@ -1723,11 +1744,13 @@ def _beacon_phase(dev, smi: str) -> tuple[int, int]:
     torch.cuda.synchronize()
     k4_feed = _counter("k4.launches")
     k6_feed = _counter("k6.launches")
+    k7_feed = _counter("k7.launches")
     _reset_counts()
     flushed = card_s.flush()
     torch.cuda.synchronize()
     card_ms = (time.perf_counter() - t0) * 1e3
     k6_flush = _counter("k6.launches")
+    k7_flush = _counter("k7.launches")
     card += flushed
     t0 = time.perf_counter()
     host_s = BeaconSession(fs, device="cpu", **BEACON_SESSION)
@@ -1743,10 +1766,12 @@ def _beacon_phase(dev, smi: str) -> tuple[int, int]:
                            f"{payloads.count(beacon)} times, first at ring "
                            f"depth {first_at} (CPU {host_first}); flushed "
                            f"{[r.message.payload for r in flushed]}")
-    if k4_feed < 1 or k6_feed != 0 or k6_flush < 1:
+    if k4_feed < 1 or k6_feed != 0 or k6_flush < 1 or k7_feed < 1 \
+            or k7_flush < 1:
         raise RuntimeError(f"BeaconSession: OSD kernel {k4_feed} launches in"
                            f" the stacked decodes, sync kernel {k6_feed} in "
-                           f"them and {k6_flush} in the flush")
+                           f"them and {k6_flush} in the flush, BP + CRC "
+                           f"kernel {k7_feed} / {k7_flush}")
     # save / load mid-stream resumes with the same rows
     cut = int(4.5 * n)
     first = BeaconSession(fs, device=dev, **BEACON_SESSION)
@@ -1778,7 +1803,9 @@ def _beacon_phase(dev, smi: str) -> tuple[int, int]:
                f"tail's payload by the flush; card == CPU rows ({len(card)}); "
                f"OSD kernel launches in the stacked decodes {k4_feed}, sync "
                f"kernel launches {k6_feed} there and {k6_flush} in the "
-               f"flush; save/load after 4.5 cycles resumes with the same "
+               f"flush, BP + CRC kernel launches {k7_feed} there and "
+               f"{k7_flush} in the flush; save/load after 4.5 cycles "
+               f"resumes with the same "
                f"rows; whole stream card {card_ms:.0f} ms, CPU "
                f"{host_ms:.0f} ms; correct_frequency_drift's fitted rate "
                f"per raw cycle (Hz/s, {BEACON_DRIFT:g} injected): "
@@ -1834,16 +1861,19 @@ def _beacon_phase(dev, smi: str) -> tuple[int, int]:
         got = decode_ft8_message(w, rate, device=dev)
         torch.cuda.synchronize()
         k6 = _counter("k6.launches")
+        k7 = _counter("k7.launches")
         k6_api += k6
         _check_api_rows(f"decode_ft8_message {name}", got,
                         decode_ft8_message(w, rate, device="cpu"))
         found = {r.message.payload for r in got}
-        if k6 < 1 or not found <= planted or len(found) < CROWD_SIGNALS // 2:
-            raise RuntimeError(f"decode_ft8_message {name}: sync kernel "
-                               f"{k6} launches, {len(found)} payloads, "
-                               f"{len(found - planted)} unplanted")
+        if k6 < 1 or k7 < 1 or not found <= planted \
+                or len(found) < CROWD_SIGNALS // 2:
+            raise RuntimeError(f"decode_ft8_message {name}: sync / BP + CRC "
+                               f"kernel {k6} / {k7} launches, {len(found)} "
+                               f"payloads, {len(found - planted)} unplanted")
         api_lines.append(f"{name} {len(found)} planted payloads, sync "
-                         f"kernel launches {k6}")
+                         f"kernel launches {k6}, BP + CRC kernel launches "
+                         f"{k7}")
     # the stacking results' geometry: R = 8 at 2 kHz
     w2k = np.stack([scipy.signal.resample_poly(c.astype(np.float64), 1, 6)
                     for c in _stack2k_cycles()]).astype(np.float32)
@@ -1852,17 +1882,20 @@ def _beacon_phase(dev, smi: str) -> tuple[int, int]:
     got = decode_ft8_stacked(w2k, 2000.0, device=dev, **BEACON_DECODE)
     torch.cuda.synchronize()
     k4_2k = _counter("k4.launches")
+    k7_2k = _counter("k7.launches")
     _check_beacon_rows("decode_ft8_stacked 2 kHz R 8", got,
                        decode_ft8_stacked(w2k, 2000.0, device="cpu",
                                           **BEACON_DECODE))
-    if k4_2k < 1:
-        raise RuntimeError(f"decode_ft8_stacked 2 kHz: OSD kernel {k4_2k}")
+    if k4_2k < 1 or k7_2k < 1:
+        raise RuntimeError(f"decode_ft8_stacked 2 kHz: OSD / BP + CRC "
+                           f"kernel {k4_2k} / {k7_2k}")
     verdict = "decoded" if beacon in {r.message.payload for r in got} \
         else "missed"
     _phase(14, "decode_ft8_message on phase 12's capture, card == CPU rows: "
                + "; ".join(api_lines) + f"; decode_ft8_stacked at 2 kHz, R "
                f"{BEACON_REPEATS}, {STACK2K_SNR_DB:g} dB, no drift: "
-               f"{verdict}, card == CPU rows, OSD kernel launches {k4_2k}")
+               f"{verdict}, card == CPU rows, OSD kernel launches {k4_2k}, "
+               f"BP + CRC kernel launches {k7_2k}")
 
     _beacon_times(dev, smi, cycles, corrected, analytic, w48, w2k)
     return k4_feed + k4_2k, k6_flush + k6_api
@@ -2030,6 +2063,7 @@ def _channel_phase(dev, smi: str) -> tuple[int, int]:
     card_ms = (time.perf_counter() - t0) * 1e3
     k4 = _counter("k4.launches")
     k6 = _counter("k6.launches")
+    k7 = _counter("k7.launches")
     t0 = time.perf_counter()
     host = demo.receive(host_noisy, doppler, DEMO_CYCLES, device="cpu",
                         out=host_lines.append)
@@ -2046,16 +2080,17 @@ def _channel_phase(dev, smi: str) -> tuple[int, int]:
                            f"{[unpack_message(r.message.payload) for r in host['rows']]}"
                            f"), detection {det} (CPU "
                            f"{host['dets'][:1]})")
-    if k6 < 1 or k4 < 1:
-        raise RuntimeError(f"demo RX: sync kernel {k6}, OSD kernel {k4} "
-                           "launches")
+    if k6 < 1 or k4 < 1 or k7 < 1:
+        raise RuntimeError(f"demo RX: sync kernel {k6}, OSD kernel {k4}, "
+                           f"BP + CRC kernel {k7} launches")
     _phase(15, f"demo at full size ({DEMO_CYCLES} cycles at {fs / 1000:g} "
                f"kHz, Es/N0 {DEMO_ESN0:g} dB, seed {DEMO_SEED}, decimated "
                f"x{demo.DECIM}): card == CPU rows, path A "
                f"{_demo_rows_text(card['single'])}, path B "
                f"{_demo_rows_text(card['rows'])}; card prints: "
                + " | ".join(card_lines) + f"; sync kernel launches {k6}, "
-               f"OSD kernel launches {k4}; RX card {card_ms:.0f} ms (first "
+               f"OSD kernel launches {k4}, BP + CRC kernel launches {k7}; "
+               f"RX card {card_ms:.0f} ms (first "
                f"call), CPU {host_ms:.0f} ms")
 
     tx_ms = _median_ms(lambda: demo.transmit(DEMO_CYCLES, DEMO_ESN0,
@@ -2154,14 +2189,15 @@ def _stream_phase(dev, smi: str) -> tuple[int, int]:
             ms = (time.perf_counter() - t0) * 1e3
             k4 = _counter("k4.launches")
             k6 = _counter("k6.launches")
+            k7 = _counter("k7.launches")
             k4_total += k4
             k6_total += k6
-            if k6 != STREAM_BLOCKS or (k4 > 0) != cfg.use_osd:
+            if k6 != STREAM_BLOCKS or (k4 > 0) != cfg.use_osd or k7 < 1:
                 raise RuntimeError(f"StreamSession {name} depth {depth}: "
                                    f"sync kernel {k6} launches (want one a "
                                    f"block, {STREAM_BLOCKS}), OSD kernel "
-                                   f"{k4}")
-            runs[depth] = (rows, ms, k4, k6)
+                                   f"{k4}, BP + CRC kernel {k7}")
+            runs[depth] = (rows, ms, k4, k6, k7)
         card = runs[0][0]
         t0 = time.perf_counter()
         hs = StreamSession(fs, cfg, device="cpu")
@@ -2203,7 +2239,8 @@ def _stream_phase(dev, smi: str) -> tuple[int, int]:
             f"{name}: {len(card)} rows, each planted signal once, card == "
             f"CPU, depth 2 == depth 0, sync kernel launches "
             f"{runs[0][3]}/{runs[2][3]} (depth 0/2), OSD kernel launches "
-            f"{runs[0][2]}/{runs[2][2]}; save after {STREAM_CUT_BLOCKS:g} "
+            f"{runs[0][2]}/{runs[2][2]}, BP + CRC kernel launches "
+            f"{runs[0][4]}/{runs[2][4]}; save after {STREAM_CUT_BLOCKS:g} "
             f"blocks ({in_flight} in flight) resumes with the same rows; "
             f"whole stream card {runs[0][1]:.0f}/{runs[2][1]:.0f} ms (first"
             f" calls), CPU {host_ms:.0f} ms; rows "
@@ -2393,16 +2430,18 @@ def _cli_phase(dev, smi: str) -> tuple[int, int]:
         torch.cuda.synchronize()
         k4 = _counter("k4.launches")
         k6 = _counter("k6.launches")
+        k7 = _counter("k7.launches")
         _cli_same("--deep in process", buf.getvalue(), host_out["--deep"])
-    if rc != 0 or k6 < 1 or k4 < 1:
+    if rc != 0 or k6 < 1 or k4 < 1 or k7 < 1:
         raise RuntimeError(f"cli --deep in process: exit {rc}, sync kernel "
-                           f"{k6}, OSD kernel {k4} launches")
+                           f"{k6}, OSD kernel {k4}, BP + CRC kernel {k7} "
+                           "launches")
     _phase(17, f"[{smi}] python -m ft8_demodulator_tpu_torch.cli, stdout on "
                "the card == stdout with FT8_PLATFORM=cpu (score / SNR one "
                f"last digit apart: {edges} lines); wall time per process "
                "(start, import, kernel load and decode): " + "; ".join(lines)
                + f"; --deep in this process: sync kernel launches {k6}, OSD "
-               f"kernel launches {k4}")
+               f"kernel launches {k4}, BP + CRC kernel launches {k7}")
     return k4, k6
 
 
@@ -2422,9 +2461,10 @@ PAR_EVENTS = ((0, "CQ K1ABC FN42", 2.0, 1500.0),
 PAR_RANKS = 4
 PAR_PP_SLOTS = 4
 PAR_TIMEOUT_S = 300.0
-# the launches each rank counts: the frequency-major sync kernel (K6) and
-# the OSD kernel (K4), as the profiler names them
-LAUNCH_NAMES = "sync_kernel<false,...> / osd_eliminate_kernel"
+# the launches each rank counts: the frequency-major sync kernel (K6), the
+# OSD kernel (K4) and BP + CRC (K7), as the profiler names them
+LAUNCH_NAMES = "sync_kernel<false,...> / osd_eliminate_kernel / " \
+    "ldpc_bp_kernel"
 # the regimes on PAR_RANKS ranks: (name, what the parent checks)
 PAR_REGIMES = ("DP x SP 2x2", "TP 4 osr 2x2", "TP 4 osr 4x4 OSD MF",
                "PP 2 stages OSD", "composed 1x2x2")
@@ -2489,9 +2529,9 @@ def _rank_ms(call, device) -> float | None:
 
 
 def _counted(calls: dict, device) -> dict:
-    """Each call once with the K6 / K4 counts from 0 (the phase's main
+    """Each call once with the K6 / K4 / K7 counts from 0 (the phase's main
     path), then once more timed on the card: name -> (result,
-    (K6, K4) launches of this rank, ms)."""
+    (K6, K4, K7) launches of this rank, ms)."""
 
     out = {}
     for name, call in calls.items():
@@ -2500,7 +2540,7 @@ def _counted(calls: dict, device) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize()
         launches = (_counter("k6.launches"),
-                    _counter("k4.launches"))
+                    _counter("k4.launches"), _counter("k7.launches"))
         out[name] = (_host_result(result), launches, _rank_ms(call, device))
     return out
 
@@ -2612,16 +2652,17 @@ def _parallel_phase(dev, smi: str) -> tuple[int, int]:
     card = run_ranks(_nccl_rank, 1, "nccl", dev, args, PAR_TIMEOUT_S)[0]
     host = run_ranks(_nccl_rank, 1, "gloo", "cpu", args, PAR_TIMEOUT_S)[0]
     texts = []
-    for name, (result, (k6, k4), ms) in card.items():
+    for name, (result, (k6, k4, k7), ms) in card.items():
         _same_result(f"NCCL {name}", result, host[name][0])
         if name.startswith("stream"):
             _planted_once(f"NCCL {name}", result, planted)
-        if k6 < 1 or (k4 > 0) != ("OSD" in name):
-            raise RuntimeError(f"NCCL {name}: K6 {k6}, K4 {k4} launches")
+        if k6 < 1 or (k4 > 0) != ("OSD" in name) or k7 < 1:
+            raise RuntimeError(f"NCCL {name}: K6 {k6}, K4 {k4}, K7 {k7} "
+                               "launches")
         k6_total += k6
         k4_total += k4
         texts.append(f"{name} {_rows_text(result)} rows == CPU, "
-                     f"{LAUNCH_NAMES} {k6}/{k4}, {_ms_text(ms)}")
+                     f"{LAUNCH_NAMES} {k6}/{k4}/{k7}, {_ms_text(ms)}")
     _phase(18, f"[{smi}] NCCL world size 1 (run_ranks, one rank on "
                f"{dev}): phase 16's {STREAM_SECONDS}-s {STREAM_FS / 1000:g} "
                "kHz stream, each planted signal once; " + "; ".join(texts)
@@ -2670,11 +2711,13 @@ def _parallel_phase(dev, smi: str) -> tuple[int, int]:
         launches = [card[r][name][1] for r in ranks_in]
         fronts = launches[:1] if name.startswith("PP") else launches
         backs = launches[1:] if name.startswith("PP") else launches
-        if any(k6 < 1 for k6, _ in fronts) or (
-                "OSD" in name and any(k4 < 1 for _, k4 in backs)):
-            raise RuntimeError(f"{name}: K6/K4 launches per rank {launches}")
-        k6_total += sum(k6 for k6, _ in launches)
-        k4_total += sum(k4 for _, k4 in launches)
+        if any(k6 < 1 for k6, _, _ in fronts) \
+                or any(k7 < 1 for _, _, k7 in backs) or (
+                "OSD" in name and any(k4 < 1 for _, k4, _ in backs)):
+            raise RuntimeError(f"{name}: K6/K4/K7 launches per rank "
+                               f"{launches}")
+        k6_total += sum(k6 for k6, _, _ in launches)
+        k4_total += sum(k4 for _, k4, _ in launches)
         ms = [card[r][name][2] for r in range(PAR_RANKS)]
         texts.append(f"{name}: {_rows_text(card[ranks_in[0]][name][0])} "
                      f"rows on ranks {ranks_in} == CPU == one rank, "
@@ -2737,7 +2780,7 @@ def _soak_api(dev, soak) -> tuple[int, dict, str]:
     from ft8_demodulator_tpu_torch.demod.decode import decode_ft8_message
 
     k6 = Counter()
-    k4_total = rows = 0
+    k4_total = k7_total = rows = 0
     decoded = {}
     for snr, seed in SOAK_HALVES:
         trials = soak.soak_trials(seed, SOAK_TRIALS, snr)
@@ -2748,18 +2791,21 @@ def _soak_api(dev, soak) -> tuple[int, dict, str]:
                                       **t.decode_kwargs)
             torch.cuda.synchronize()
             launches = (_counter("k6.launches"),
-                        _counter("k4.launches"))
+                        _counter("k4.launches"), _counter("k7.launches"))
             host = decode_ft8_message(t.audio, t.fs, device="cpu",
                                       **t.decode_kwargs)
             _check_api_rows(name, card, host)
-            if launches[0] < 1 or (launches[1] > 0 and not t.use_osd):
-                raise RuntimeError(f"{name}: K6 / K4 launches {launches}")
+            if launches[0] < 1 or (launches[1] > 0 and not t.use_osd) \
+                    or launches[2] < 1:
+                raise RuntimeError(f"{name}: K6 / K4 / K7 launches "
+                                   f"{launches}")
             if snr == SOAK_HALVES[0][0]:
                 why = soak.planted_fault(t, card)
                 if why is not None:
                     raise RuntimeError(f"{name}: {why}")
             k6[(t.osr, t.osr)] += launches[0]
             k4_total += launches[1]
+            k7_total += launches[2]
             rows += len(card)
             decoded[snr] = decoded.get(snr, 0) + any(
                 r.message.payload == t.payload for r in card)
@@ -2781,7 +2827,8 @@ def _soak_api(dev, soak) -> tuple[int, dict, str]:
                                       for k, n in sorted(k6.items()))
             + ", by instance " + ", ".join(
                 f"{k} {n}" for k, n in sorted(by_instance.items()))
-            + f"; osd_eliminate_kernel launches {k4_total}")
+            + f"; osd_eliminate_kernel launches {k4_total}, ldpc_bp_kernel "
+            f"launches {k7_total}")
     return k4_total, k6, text
 
 
@@ -2825,10 +2872,12 @@ def _soak_slots(dev, soak) -> tuple[int, int, list[str]]:
             w, p, nf, chunk=SOAK_SLOT_BATCH, **kw)))
         torch.cuda.synchronize()
         launches = {k: _counter(f"{k.lower()}.launches")
-                    for k in ("K1", "K3", "K5", "K6", "K4")}
+                    for k in ("K1", "K3", "K5", "K6", "K4", "K7")}
         front = ("K3" if run == "DEEP" else "K1", "K5") if block else ("K6",)
         want = {k: (SOAK_SLOT_BATCH if k == "K6" else 1) for k in front}
         want["K4"] = len(orders)
+        # BP + CRC: one group of the batch; off the block route one a slot
+        want["K7"] = 1 if block else SOAK_SLOT_BATCH
         if {k: n for k, n in launches.items() if n} != \
                 {k: n for k, n in want.items() if n} \
                 or (run == "DEEP") != bool(orders):
@@ -2899,6 +2948,94 @@ def _soak_phase(dev, smi: str) -> tuple[int, int]:
                " K4 / K5 / K6 bit for bit)")
     _phase(19, f"[{smi}] phase {time.perf_counter() - t0:.1f} s")
     return k4_api + k4_slots, sum(k6_api.values()) + k6_slots
+
+
+BP_SOURCE = "ft8_demodulator_tpu_torch/csrc/ldpc_bp.cu"
+BP_NO_TPU_KERNEL = ("no TPU kernel: the JAX package runs BP as one jitted "
+                    "lax.while_loop (ft8_demodulator_tpu/ops/"
+                    "ldpc_decode.py:187)")
+
+
+def _bp_inputs(dev, waves) -> dict:
+    """The LLRs BP + CRC is handed on the main paths: phase 4's first BP
+    group (decode_slots STANDARD, 5,120 rows) and phase 12's crowded
+    capture (decode_ft8_message's defaults, 20 rows)."""
+    from ft8_demodulator_tpu_torch.demod import decode as dec
+    from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
+
+    seen, entry = [], dec.bp_crc_batch
+
+    def keep(llrs, *args):
+        seen.append(llrs)
+        return entry(llrs, *args)
+
+    p = waterfall_params(FS, 2, 2)
+    dec.bp_crc_batch = keep
+    try:
+        dec.decode_slots(waves, p, p.num_frames(waves.shape[1]), chunk=CHUNK,
+                         bp_chunk=BP_CHUNK, max_candidates=MAX_CANDIDATES,
+                         min_score=MIN_SCORE, max_iterations=BP_ITERATIONS)
+        batch = seen[0]
+        dec.decode_ft8_message(_crowded_capture()[0], FS, device=dev)
+        station = seen[-1]
+    finally:
+        dec.bp_crc_batch = entry
+    out = {"5,120 rows": batch, "20 rows": station}
+    for label, llrs in out.items():
+        want = int(label.split()[0].replace(",", ""))
+        if tuple(llrs.shape) != (want, 174):
+            raise RuntimeError(f"BP input {label}: {tuple(llrs.shape)}")
+    return out
+
+
+def _bp_phase(dev, smi: str, waves, log: str, launches: int) -> dict:
+    """Phase 20: K7 against the plain loop and its bound.  Returns its JSON
+    record, with ``launches`` (phase 4's, on the main path)."""
+    from ft8_demodulator_tpu_torch.ops import ldpc_cuda as lc
+    from ft8_demodulator_tpu_torch.ops import ldpc_decode as bp
+
+    tables = bp.bp_tables(dev)
+    texts, times = [], {}
+    for label, llrs in _bp_inputs(dev, waves).items():
+        flat = llrs.reshape(-1, 174).contiguous()
+        got = bp.bp_crc_batch(flat, BP_ITERATIONS, tables)
+        want = bp.bp_crc_batch_plain(flat, BP_ITERATIONS, tables)
+        torch.cuda.synchronize()
+        bad = [f for f, a, b in zip(want._fields, got, want)
+               if not torch.equal(a, b)]
+        if bad:
+            raise RuntimeError(f"K7 vs plain on {label}: {bad} differ")
+        kernel_ms, plain_ms, plain_ev, _ = _kernel_vs_plain_ms(
+            lambda: lc.bp_crc_kernel(flat, BP_ITERATIONS, tables.k7_table),
+            lambda: bp.bp_crc_batch_plain(flat, BP_ITERATIONS, tables),
+            "ldpc_bp_kernel", reps=20, plain_reps=3)
+        bound_ms = lc.bp_bound(got.iterations) * 1e3
+        it = got.iterations.float()
+        times[label] = (kernel_ms, plain_ms, bound_ms)
+        texts.append(f"{label}: K7 == plain bit for bit, iterations mean "
+                     f"{float(it.mean()):.2f} max {int(it.max())}, "
+                     f"{int((got.crc_calc == got.crc_extracted).sum())} "
+                     f"CRC passes; K7 {kernel_ms:.4f} ms (bound "
+                     f"{bound_ms:.6f} ms by operations, "
+                     f"{100 * bound_ms / kernel_ms:.1f} %), plain "
+                     f"{plain_ms:.4f} ms ({plain_ev} device events per "
+                     "call)")
+    report, keep = [], False
+    for line in _ptxas_report(log):
+        if line.endswith(":"):
+            keep = line.startswith("ldpc_bp_kernel")
+        if keep:
+            report.append(line)
+    _phase(20, f"[{smi}] BP + CRC (K7) vs the plain loop, device time over "
+               "20 warm launches (plain: 3 calls), min of 2 counted "
+               "windows: " + "; ".join(texts) + "; ptxas: "
+               + " | ".join(report))
+    ms, plain_ms, bound_ms = times["5,120 rows"]
+    return {"name": "ldpc_bp", "route": "cuda", "source": BP_SOURCE,
+            "replaces": None, "launches": launches, "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations", "library_ms": None,
+            "library_note": BP_NO_TPU_KERNEL}
 
 
 def main() -> int:
@@ -2976,10 +3113,14 @@ def main() -> int:
     first_s = time.perf_counter() - t0
     launches = _counter("k1.launches")
     k5_std_launches = _counter("k5.launches")
+    k7_launches = _counter("k7.launches")
     if launches != BATCH // CHUNK or k5_std_launches != BATCH // CHUNK:
         raise RuntimeError(f"waterfall / sync kernels launched {launches} "
                            f"/ {k5_std_launches} times, want "
                            f"{BATCH // CHUNK}")
+    if k7_launches != BATCH // BP_CHUNK:
+        raise RuntimeError(f"BP + CRC kernel launched {k7_launches} times, "
+                           f"want one a BP group, {BATCH // BP_CHUNK}")
     if res.success.shape != (BATCH, MAX_CANDIDATES) \
             or res.payload.shape != (BATCH, MAX_CANDIDATES, 10) \
             or not bool(torch.isfinite(res.score[res.candidate_valid]).all()):
@@ -2991,7 +3132,8 @@ def main() -> int:
         raise RuntimeError(f"yield {decoded}/{BATCH}: planted payloads lost")
     _phase(4, f"decode_slots {BATCH} slots at {FS / 1000:g} kHz: yield "
               f"{decoded}/{BATCH}, waterfall kernel launches {launches}, "
-              f"sync kernel launches {k5_std_launches}, "
+              f"sync kernel launches {k5_std_launches}, BP + CRC kernel "
+              f"launches {k7_launches}, "
               f"{int(res.success.sum())} successful rows, first call "
               f"{first_s:.2f} s")
 
@@ -3026,13 +3168,14 @@ def main() -> int:
     res20 = decode_slots(w20, p20, nf20, chunk=4, bp_chunk=BP_CHUNK, **kw)
     torch.cuda.synchronize()
     k2_launches = _counter("k1.launches")
+    k7_20 = _counter("k7.launches")
     sets20 = _decode_sets(res20, 4)
     decoded20 = sum(bytes(payloads20[b]) in {s[0] for s in sets20[b]}
                     for b in range(4))
-    if k2_launches != 1 or decoded20 != 4:
-        raise RuntimeError(f"decode_slots at 20 kHz: waterfall kernel "
-                           f"launches {k2_launches} (want 1), yield "
-                           f"{decoded20}/4")
+    if k2_launches != 1 or k7_20 != 1 or decoded20 != 4:
+        raise RuntimeError(f"decode_slots at 20 kHz: waterfall / BP + CRC "
+                           f"kernel launches {k2_launches} / {k7_20} (want "
+                           f"1), yield {decoded20}/4")
     lib20_text = _check_library(w20, p20, nf20, box=False)
     k2_ms, k2_plain_ms, k2_plain_ev, k2_lib_ms = _kernel_vs_plain_ms(
         lambda: wc.block_waterfall_tf_fused_batch(w20, p20, nf20),
@@ -3063,7 +3206,8 @@ def main() -> int:
               f"plain {plain_ms:.4f} ms ({plain_ev} device events per "
               f"call), torch.stft yardstick {lib_ms:.4f} ms ({lib_text}); "
               f"decode_slots on 4 slots at 20 kHz: yield "
-              f"{decoded20}/4, waterfall kernel launches {k2_launches}; "
+              f"{decoded20}/4, waterfall kernel launches {k2_launches}, BP "
+              f"+ CRC kernel launches {k7_20}; "
               f"there batch 4 ({k2_ctas} thread blocks, {k2_waves:.2f} "
               f"waves) kernel {k2_ms:.4f} ms (bound {k2_bound[0]:.4f} ms by "
               f"{k2_bound[1]}), plain "
@@ -3088,6 +3232,7 @@ def main() -> int:
         k4_new, k6_new = phase(dev, smi)
         deep_kernels[1]["launches"] += k4_new
         k6_launches += k6_new
+    bp_kernel = _bp_phase(dev, smi, waves, kl.log, k7_launches)
     k5_err = max(v for k, v in sync_diffs.items() if k.startswith("K5"))
     k6_err = max(v for k, v in sync_diffs.items() if k.startswith("K6"))
 
@@ -3113,7 +3258,7 @@ def main() -> int:
         "max_abs_err": k6_err, "ms": kt["K6 DEEP"][0],
         "plain_ms": kt["K6 DEEP"][1], "bound_ms": kt["K6 DEEP"][3][0],
         "bound_by": kt["K6 DEEP"][3][1], "library_ms": None,
-        "library_note": NO_LIBRARY["sync_scores"]}]}))
+        "library_note": NO_LIBRARY["sync_scores"]}, bp_kernel]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -66,8 +66,8 @@ import torch
 from torch import nn
 
 from ..beacon.detect import track_known_payload
-from ..ops.ldpc_decode import BPTables, _build_routing, bp_decode_batch, \
-    make_bp_tables
+from ..ops.ldpc_decode import BPTables, _build_routing, bp_crc_batch, \
+    crc_of_plain, make_bp_tables
 from ..ops import osd
 from ..ops.llr import (extract_llrs, extract_llrs_coherent,
                        extract_llrs_matched, extract_llrs_matched_blocks,
@@ -164,11 +164,10 @@ class SlotDecoder(nn.Module):
         self.register_buffer("dft_packed", None)
         bp = make_bp_tables(arrays["var_of_mi"], arrays["nj_of_mi"],
                             arrays["mi_of_nj"], arrays["mi_mask"],
-                            arrays["parity_check"], "cpu")
+                            arrays["parity_check"], "cpu",
+                            arrays["crc_matrix_77"])
         for key, value in bp._asdict().items():
             self.register_buffer(key, value)
-        self.register_buffer(
-            "crc_t", t("crc_matrix_77", torch.float32).T.contiguous())
         self.register_buffer("gray_map", t("gray_map", torch.int64))
         tables = osd.make_osd_tables(arrays["osd_basis"],
                                      arrays["osd_row_syndromes"], "cpu")
@@ -210,26 +209,6 @@ def slot_decoder(p: WaterfallParams, num_frames: int,
     return SlotDecoder.from_arrays(decoder_arrays(p, num_frames), device)
 
 
-def _crc_of_plain(plain: torch.Tensor, crc_t: torch.Tensor | None = None
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(..., 174) hard bits -> (computed CRC-14, embedded CRC-14) per row.
-
-    The float32 product is exact: 0/1 operands, integer sums <= 77.
-    """
-    if crc_t is None:
-        with host_wait("ft8.decode.wait"):
-            crc_t = torch.as_tensor(C.CRC_MATRIX_77.T, dtype=torch.float32,
-                                    device=plain.device)
-    weights = 2 ** torch.arange(C.CRC_BITS - 1, -1, -1, device=plain.device,
-                                dtype=torch.int32)
-    bits77 = plain[..., : C.PAYLOAD_BITS].to(torch.float32)
-    crc_bits = torch.remainder(bits77 @ crc_t, 2.0).to(torch.int32)
-    crc_calc = (crc_bits * weights).sum(-1, dtype=torch.int32)
-    crc_extracted = (plain[..., C.PAYLOAD_BITS: C.LDPC_K] * weights) \
-        .sum(-1, dtype=torch.int32)
-    return crc_calc, crc_extracted
-
-
 @span("ft8.decode")
 def finish_decode(llrs: torch.Tensor, abs_time: torch.Tensor,
                   abs_freq: torch.Tensor, score: torch.Tensor,
@@ -238,16 +217,17 @@ def finish_decode(llrs: torch.Tensor, abs_time: torch.Tensor,
                   ) -> SlotDecodeResult:
     """(..., 174) LLRs + candidate metadata -> SlotDecodeResult.
 
-    BP -> CRC -> payload pack.  ``use_osd`` runs ordered-statistics
-    decoding (``ops/osd.py``) on the valid candidates whose BP decode did
-    not pass the CRC; an accepted OSD codeword replaces the BP one (its
-    ldpc_errors read 0).  ``decoder`` supplies the BP, CRC and OSD tables;
-    None builds them.
+    BP + CRC (``ops/ldpc_decode.py bp_crc_batch``: one K7 launch on the
+    card) -> payload pack.  ``use_osd`` runs ordered-statistics decoding
+    (``ops/osd.py``) on the valid candidates whose BP decode did not pass
+    the CRC; an accepted OSD codeword replaces the BP one (its ldpc_errors
+    read 0) and the CRC is taken again.  ``decoder`` supplies the BP, CRC
+    and OSD tables; None builds them.
     """
     tables = decoder.bp_tables() if decoder is not None else None
     crc_t = decoder.crc_t if decoder is not None else None
-    plain, ldpc_errors = bp_decode_batch(llrs, max_iterations, tables)
-    crc_calc, crc_extracted = _crc_of_plain(plain, crc_t)
+    plain, ldpc_errors, crc_calc, crc_extracted, _ = bp_crc_batch(
+        llrs, max_iterations, tables)
 
     if use_osd:
         bp_success = (ldpc_errors == 0) & (crc_calc == crc_extracted)
@@ -256,7 +236,7 @@ def finish_decode(llrs: torch.Tensor, abs_time: torch.Tensor,
             tables=decoder.osd_tables() if decoder is not None else None)
         plain = torch.where(take[..., None], osd_plain, plain)
         ldpc_errors = torch.where(take, 0, ldpc_errors)
-        crc_calc, crc_extracted = _crc_of_plain(plain, crc_t)
+        crc_calc, crc_extracted = crc_of_plain(plain, crc_t)
 
     # payload bytes: 77 bits + 3 zero pad, packed MSB-first
     lead = plain.shape[:-1]

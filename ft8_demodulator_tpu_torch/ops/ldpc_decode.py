@@ -24,6 +24,14 @@ approximations.  Early exit follows the reference with a halted mask:
 * otherwise min_errors tracks the best syndrome weight seen,
 
 and the loop stops once every row has halted.
+
+That loop is the plain version (:func:`bp_decode_batch_plain`, with each
+row's iteration count; :func:`bp_crc_batch_plain` adds the CRC-14).  On a
+CUDA tensor :func:`bp_decode_batch` and :func:`bp_crc_batch` launch the
+kernel K7 instead (``ops/ldpc_cuda.py``, ``csrc/ldpc_bp.cu``): every
+iteration of every row and the CRC in one launch, each row leaving its loop
+where the plain version freezes it, bit for bit the plain version's
+results.
 """
 
 from __future__ import annotations
@@ -35,10 +43,13 @@ import numpy as np
 import torch
 
 from ..protocol import constants as C
-from ..utils.profiling import count, host_wait
+from ..utils.profiling import count, count_on_card, host_wait, recording
+from .ldpc_cuda import bp_crc_kernel, pack_table
 
-__all__ = ["fast_tanh", "fast_atanh", "ldpc_check", "bp_decode",
-           "bp_decode_batch", "BPTables", "bp_tables", "make_bp_tables"]
+__all__ = ["fast_tanh", "fast_atanh", "ldpc_check", "crc_of_plain",
+           "bp_decode", "bp_decode_batch", "bp_decode_batch_plain",
+           "bp_crc_batch", "bp_crc_batch_plain", "BPDecode", "BPTables",
+           "bp_tables", "make_bp_tables"]
 
 _M, _N = C.LDPC_M, C.LDPC_N
 _CD, _VD = C.CHECK_MAX_DEG, C.VAR_MAX_DEG
@@ -84,12 +95,15 @@ class BPTables(NamedTuple):
     mi_of_nj: torch.Tensor     # (522,)
     mi_mask: torch.Tensor      # (581,) bool
     parity_t: torch.Tensor     # (174, 83) float32 0/1
+    crc_t: torch.Tensor        # (77, 14) float32 0/1, the CRC generator
+    k7_table: torch.Tensor     # (ldpc_cuda.TABLE_WORDS,) int32, K7's
 
 
 def make_bp_tables(var_of_mi, nj_of_mi, mi_of_nj, mi_mask, parity_check,
-                   device) -> BPTables:
-    """BPTables on ``device`` from the numpy routing vectors and the
-    (83, 174) parity-check matrix."""
+                   device, crc_matrix=C.CRC_MATRIX_77) -> BPTables:
+    """BPTables on ``device`` from the numpy routing vectors, the (83, 174)
+    parity-check matrix and the (14, 77) CRC generator (K7's table holds
+    the last two packed; the plain version reads ``crc_t``)."""
     var_of_mi, nj_of_mi = np.asarray(var_of_mi), np.asarray(nj_of_mi)
     loo_a, loo_b = _leave_one_out_pairs(var_of_mi, nj_of_mi)
     idx = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64,
@@ -99,7 +113,12 @@ def make_bp_tables(var_of_mi, nj_of_mi, mi_of_nj, mi_mask, parity_check,
         mi_of_nj=idx(mi_of_nj),
         mi_mask=torch.as_tensor(np.asarray(mi_mask) > 0, device=device),
         parity_t=torch.as_tensor(np.asarray(parity_check, np.float32).T,
-                                 device=device).contiguous())
+                                 device=device).contiguous(),
+        crc_t=torch.as_tensor(np.asarray(crc_matrix, np.float32).T,
+                              device=device).contiguous(),
+        k7_table=torch.as_tensor(pack_table(var_of_mi, nj_of_mi, mi_mask,
+                                            parity_check, crc_matrix),
+                                 device=device))
 
 
 @functools.lru_cache(maxsize=8)
@@ -168,16 +187,52 @@ def _tov_sum(llrs: torch.Tensor, tov: torch.Tensor) -> torch.Tensor:
             + tov[..., 2 * _N: 3 * _N])
 
 
-def bp_decode_batch(llrs: torch.Tensor, max_iterations: int = 20,
-                    tables: BPTables | None = None):
-    """(..., 174) LLRs -> (plain (..., 174) int32, min_errors (...,) int32).
+def crc_of_plain(plain: torch.Tensor, crc_t: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., 174) hard bits -> (computed CRC-14, embedded CRC-14) per row.
+
+    The float32 product is exact: 0/1 operands, integer sums <= 77.
+    ``crc_t``: the (77, 14) float32 generator on the device of ``plain``;
+    None copies it there (a wait for the card).
+    """
+    if crc_t is None:
+        with host_wait("ft8.decode.wait"):
+            crc_t = torch.as_tensor(C.CRC_MATRIX_77.T, dtype=torch.float32,
+                                    device=plain.device)
+    weights = 2 ** torch.arange(C.CRC_BITS - 1, -1, -1, device=plain.device,
+                                dtype=torch.int32)
+    bits77 = plain[..., : C.PAYLOAD_BITS].to(torch.float32)
+    crc_bits = torch.remainder(bits77 @ crc_t, 2.0).to(torch.int32)
+    crc_calc = (crc_bits * weights).sum(-1, dtype=torch.int32)
+    crc_extracted = (plain[..., C.PAYLOAD_BITS: C.LDPC_K] * weights) \
+        .sum(-1, dtype=torch.int32)
+    return crc_calc, crc_extracted
+
+
+class BPDecode(NamedTuple):
+    """BP + CRC of candidate rows (batch shape ``...``), all int32."""
+
+    plain: torch.Tensor          # (..., 174) hard bits of the last iteration
+    ldpc_errors: torch.Tensor    # (...,) fewest parity errors seen
+    crc_calc: torch.Tensor       # (...,) CRC-14 of bits 0..76
+    crc_extracted: torch.Tensor  # (...,) CRC-14 in bits 77..90
+    iterations: torch.Tensor     # (...,) iterations the row ran
+
+
+def bp_decode_batch_plain(llrs: torch.Tensor, max_iterations: int = 20,
+                          tables: BPTables | None = None):
+    """(..., 174) LLRs -> (plain (..., 174) int32, min_errors (...,) int32,
+    iterations (...,) int32), in plain PyTorch on any device.
 
     Fixed-shape equivalent of the reference's bp_decode: a halted mask
     freezes each row's state once the reference would have left its loop,
-    and the loop ends when every row has halted.  ``tables``: routing
-    tables on the device of ``llrs``; None takes :func:`bp_tables`.
+    and the loop ends when every row has halted (a wait for the card each
+    iteration); a row's iterations are those it was live in.  ``tables``:
+    routing tables on the device of ``llrs``; None takes :func:`bp_tables`.
     Counters (``utils/profiling.py``): ``bp.calls``, ``bp.rows``,
-    ``bp.iterations`` (iterations run) and ``bp.all_halted`` (early exits).
+    ``bp.iterations`` (iterations run), ``bp.all_halted`` (early exits)
+    and, while a profiler records, ``bp.row_iterations`` (their sum over
+    rows, on the rows' device).
     """
     if tables is None:
         tables = bp_tables(llrs.device)
@@ -188,6 +243,7 @@ def bp_decode_batch(llrs: torch.Tensor, max_iterations: int = 20,
                             device=dev)
     min_err = torch.full(batch_shape, _M, dtype=torch.int32, device=dev)
     halted = torch.zeros(batch_shape, dtype=torch.bool, device=dev)
+    row_iterations = torch.zeros(batch_shape, dtype=torch.int32, device=dev)
 
     llr_routed = llrs[..., tables.var_of_mi]   # loop-invariant
     count("bp.calls")
@@ -205,6 +261,7 @@ def bp_decode_batch(llrs: torch.Tensor, max_iterations: int = 20,
         errors = ldpc_check(plain, tables)
 
         live = ~halted
+        row_iterations += live
         # reference order: the zero-codeword break happens before the error
         # check, so min_errors must not absorb the zero codeword's syndrome
         min_err = torch.where(live & ~zero_cw, torch.minimum(min_err, errors),
@@ -215,7 +272,58 @@ def bp_decode_batch(llrs: torch.Tensor, max_iterations: int = 20,
         tov_next = _bp_iteration(llr_routed, tov, tables)
         tov = torch.where(halted[..., None], tov, tov_next)
     count("bp.iterations", iterations)
-    return plain_out, min_err
+    count_on_card("bp.row_iterations", row_iterations)
+    return plain_out, min_err, row_iterations
+
+
+def bp_crc_batch_plain(llrs: torch.Tensor, max_iterations: int = 20,
+                       tables: BPTables | None = None) -> BPDecode:
+    """Plain PyTorch version of K7: :func:`bp_decode_batch_plain`, then
+    :func:`crc_of_plain` with ``tables.crc_t``."""
+    if tables is None:
+        tables = bp_tables(llrs.device)
+    plain, errors, iterations = bp_decode_batch_plain(llrs, max_iterations,
+                                                      tables)
+    crc_calc, crc_extracted = crc_of_plain(plain, tables.crc_t)
+    return BPDecode(plain, errors, crc_calc, crc_extracted, iterations)
+
+
+def bp_crc_batch(llrs: torch.Tensor, max_iterations: int = 20,
+                 tables: BPTables | None = None) -> BPDecode:
+    """(..., 174) float32 LLRs -> BPDecode, as :func:`bp_crc_batch_plain`.
+
+    A CPU tensor goes through the plain version; a CUDA tensor through K7,
+    all rows in one launch (none for 0 rows; a launch failure raises), with
+    the CRC generator packed in ``tables.k7_table``.
+    Counters on the card: ``bp.calls``, ``bp.rows`` and ``k7.launches``;
+    while a profiler records, on the card, ``bp.iterations`` (the slowest
+    row's), ``bp.all_halted`` (1 if it exited before ``max_iterations``)
+    and ``bp.row_iterations`` (their sum).
+    """
+    if tables is None:
+        tables = bp_tables(llrs.device)
+    if llrs.device.type == "cpu":
+        return bp_crc_batch_plain(llrs, max_iterations, tables)
+    batch_shape = llrs.shape[:-1]
+    flat = llrs.reshape(-1, _N).contiguous()
+    rows = flat.shape[0]
+    count("bp.calls")
+    count("bp.rows", rows)
+    plain, stats = bp_crc_kernel(flat, max_iterations, tables.k7_table)
+    if rows and recording():
+        slowest = stats[3].max()
+        count_on_card("bp.iterations", slowest)
+        count_on_card("bp.all_halted", slowest < max_iterations)
+        count_on_card("bp.row_iterations", stats[3])
+    return BPDecode(plain.reshape(*batch_shape, _N),
+                    *(s.reshape(batch_shape) for s in stats))
+
+
+def bp_decode_batch(llrs: torch.Tensor, max_iterations: int = 20,
+                    tables: BPTables | None = None):
+    """(..., 174) LLRs -> (plain (..., 174) int32, min_errors (...,) int32)
+    of :func:`bp_crc_batch`."""
+    return bp_crc_batch(llrs, max_iterations, tables)[:2]
 
 
 def bp_decode(llr: torch.Tensor, max_iterations: int = 20,

@@ -28,9 +28,11 @@ import torch
 from torch.profiler import record_function
 
 __all__ = ["span", "host_wait", "count", "count_on_card", "counters",
-           "reset_counters", "trace", "time_jitted"]
+           "reset_counters", "recording", "trace", "time_jitted"]
 
-_recording = torch.autograd._profiler_enabled
+# whether a profiler records: the one switch of spans and on-card counts
+# (a caller tests it before computing what only an on-card count reads)
+recording = torch.autograd._profiler_enabled
 
 
 class _Unrecorded:
@@ -81,7 +83,7 @@ def span(name: str):
     ``record_function(name)`` range while a profiler records, else a shared
     null context (about 0.7 us a use on a host CPU, against 12 us for a
     ``record_function`` range that no profiler records)."""
-    if _recording():
+    if recording():
         return _Recorded(name)
     return _unrecorded(name)
 
@@ -107,7 +109,7 @@ def count(name: str, n: int = 1) -> None:
     """Add ``n`` (a host number) to the counter ``name``; while a profiler
     records, to its traced total too."""
     _TOTALS[name] = _TOTALS.get(name, 0) + n
-    if _recording():
+    if recording():
         _TRACED[name] = _TRACED.get(name, 0) + n
 
 
@@ -115,7 +117,7 @@ def count_on_card(name: str, mask: torch.Tensor) -> None:
     """While a profiler records, add ``mask.sum()`` to the traced counter
     ``name`` in an accumulator on the device of ``mask`` (no host read);
     otherwise do nothing."""
-    if not _recording():
+    if not recording():
         return
     key = (name, mask.device)
     acc = _ON_CARD.get(key)

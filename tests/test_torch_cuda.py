@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions: the fused
 waterfall (dB only and dual output), the OSD kernel (reliability order ->
-reduced bases) and the sync stencil (time-major and frequency-major, the
-generic instance's shrunk tiles included); the limits left on the card
+reduced bases), the sync stencil (time-major and frequency-major, the
+generic instance's shrunk tiles included) and BP + CRC (K7; the slot
+decodes and the host API through K7 or through the plain loop on the card
+give equal results); the limits left on the card
 raise ValueErrors; the host decode API on the card against the CPU; the
 direct, refined and coherent matched-filter LLRs on the card against the
 CPU;
@@ -21,11 +23,15 @@ no conftest fixture, so on a machine without JAX it runs as
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from ft8_demodulator_tpu_torch.demod import decode as tdec
+from ft8_demodulator_tpu_torch.ops import ldpc_cuda as tlc
+from ft8_demodulator_tpu_torch.ops import ldpc_decode as tbp
 from ft8_demodulator_tpu_torch.ops import llr as tllr
 from ft8_demodulator_tpu_torch.ops import osd as tosd
 from ft8_demodulator_tpu_torch.ops import osd_cuda as tosc
@@ -120,6 +126,136 @@ def test_osd_kernel_matches_plain_bit_for_bit(cuda, rows):
     torch.cuda.synchronize()
     assert red.shape == (rows, 91, 6) and pcol.shape == (rows, 91)
     assert torch.equal(red, want_red) and torch.equal(pcol, want_pcol)
+
+
+def _bp_rows(rows, seed, device):
+    """(rows, 174) LLRs, each row drawn from: clean codewords, noisy
+    codewords at scales 0.5-3, all-zero rows, rows that hard-decide to the
+    zero codeword, pure noise at scales 0.1-10."""
+    rng = np.random.default_rng(seed)
+    payloads = rng.integers(0, 256, (rows, 10), dtype=np.uint8)
+    payloads[:, 9] &= 0xF8
+    sign = 2.0 * _cw_bits(payloads) - 1.0
+    kind = rng.integers(0, 5, rows)
+    scale = rng.uniform(0.5, 3.0, (rows, 1))
+    noise = rng.standard_normal((rows, 174))
+    llrs = np.select(
+        [kind[:, None] == k for k in range(4)],
+        [4.0 * sign, scale * sign + noise, np.zeros_like(noise),
+         -scale * np.ones_like(noise)],
+        10.0 ** rng.uniform(-1, 1, (rows, 1)) * noise)
+    return torch.as_tensor(llrs.astype(np.float32), device=device)
+
+
+def _cw_bits(payloads):
+    from ft8_demodulator_tpu_torch.protocol.encode import (encode_codeword,
+                                                           payload_to_bits)
+
+    return encode_codeword(payload_to_bits(torch.as_tensor(payloads))
+                           ).numpy()
+
+
+@pytest.mark.parametrize("max_iterations", [0, 1, 20])
+@pytest.mark.parametrize("rows", [1, 20, 37, 5120, 10240])
+def test_bp_kernel_matches_plain_bit_for_bit(cuda, rows, max_iterations):
+    """K7 against the plain loop on the card: plain bits, min_errors, both
+    CRCs and each row's iterations equal (torch.equal)."""
+    llrs = _bp_rows(rows, rows + max_iterations, cuda)
+    tables = tbp.bp_tables(cuda)
+    got = tbp.bp_crc_batch(llrs, max_iterations, tables)
+    want = tbp.bp_crc_batch_plain(llrs, max_iterations, tables)
+    torch.cuda.synchronize()
+    for name, g, w in zip(want._fields, got, want):
+        assert g.is_cuda and g.dtype == torch.int32, name
+        assert torch.equal(g, w), (name, int((g != w).sum()))
+    if max_iterations == 20 and rows >= 37:
+        assert len(set(got.iterations.tolist())) > 2
+        assert bool((got.crc_calc == got.crc_extracted).any())
+
+
+def test_bp_kernel_launch_counter(cuda):
+    """One k7 launch per bp_crc_batch / bp_decode_batch call on the card,
+    none for 0 rows or on the plain loop; a traced call counts the slowest
+    row's iterations and their sum on the card."""
+    llrs = _bp_rows(37, 3, cuda)
+    before = counters().get("k7.launches", 0)
+    tbp.bp_crc_batch(llrs, 20)
+    tbp.bp_decode_batch(llrs.reshape(1, 37, 174), 20)
+    tbp.bp_crc_batch(llrs[:0], 20)
+    tbp.bp_crc_batch_plain(llrs, 20)
+    torch.cuda.synchronize()
+    assert counters().get("k7.launches", 0) == before + 2
+    reset_counters()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts):
+        res = tbp.bp_crc_batch(llrs, 20)
+    traced = counters(traced=True)
+    assert traced["k7.launches"] == traced["bp.calls"] == 1
+    assert traced["bp.rows"] == 37
+    assert traced["bp.iterations"] == int(res.iterations.max())
+    assert traced["bp.row_iterations"] == int(res.iterations.sum())
+    assert traced.get("bp.all_halted", 0) == int(res.iterations.max() < 20)
+    with pytest.raises(ValueError, match="table"):
+        tlc.bp_crc_kernel(llrs, 20, tbp.bp_tables(cuda).k7_table[:-1])
+
+
+def _through_plain_bp(monkeypatch):
+    """finish_decode with the plain loop in K7's place."""
+    monkeypatch.setattr(tdec, "bp_crc_batch", tbp.bp_crc_batch_plain)
+
+
+def _equal_results(got, want):
+    for name, a, b in zip(want._fields, got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("deep", [False, True])
+def test_decode_slots_same_through_k7_and_plain_bp(cuda, monkeypatch, deep):
+    """chip_smoke.py's 0-dB slots (seed 42, 12 kHz), STANDARD and DEEP:
+    every field of decode_slots' result equal through K7 and through the
+    plain loop, and K7 launched once a BP group."""
+    from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
+
+    cs = _chip_smoke()
+    waves, payloads = cs._synth_slots(cuda, batch=16)
+    osr, kw = ((4, 4), dict(max_candidates=40, min_score=1.0, use_osd=True,
+                            mf_first=True, chunk=8)) if deep else \
+        ((2, 2), dict(max_candidates=20, min_score=10.0, chunk=16))
+    p = waterfall_params(cs.FS, *osr)
+    nf = p.num_frames(waves.shape[1])
+    before = counters().get("k7.launches", 0)
+    got = tdec.decode_slots(waves, p, nf, bp_chunk=8, **kw)
+    assert counters().get("k7.launches", 0) == before + 2
+    _through_plain_bp(monkeypatch)
+    want = tdec.decode_slots(waves, p, nf, bp_chunk=8, **kw)
+    assert counters().get("k7.launches", 0) == before + 2
+    _equal_results(got, want)
+    sets = [{bytes(x) for x in got.payload[b][got.success[b]].cpu().numpy()}
+            for b in range(16)]
+    assert all(bytes(payloads[b]) in sets[b] for b in range(16))
+
+
+@pytest.mark.parametrize("deep", [False, True])
+def test_decode_ft8_message_same_through_k7_and_plain_bp(cuda, monkeypatch,
+                                                         deep):
+    """chip_smoke.py's crowded capture (seed 11): decode_ft8_message's rows
+    through K7 equal the plain loop's, STANDARD and DEEP, and hold phase
+    12's yield (every planted signal at or above the run's SNR, nothing
+    unplanted)."""
+    cs = _chip_smoke()
+    wave, payloads, snr, _ = cs._crowded_capture()
+    kw, min_snr = cs.API_RUNS["DEEP" if deep else "STANDARD"]
+    before = counters().get("k7.launches", 0)
+    got = tdec.decode_ft8_message(wave, cs.FS, device=cuda, **kw)
+    assert counters().get("k7.launches", 0) > before
+    _through_plain_bp(monkeypatch)
+    want = tdec.decode_ft8_message(wave, cs.FS, device=cuda, **kw)
+    assert [dataclasses.astuple(r) for r in got] == \
+        [dataclasses.astuple(r) for r in want]
+    planted = {bytes(pl): float(s) for pl, s in zip(payloads, snr)}
+    found = {r.message.payload for r in got}
+    assert found <= set(planted)
+    assert {pl for pl, s in planted.items() if s >= min_snr} <= found
 
 
 @pytest.mark.parametrize("rows,chunk", [(13, 5), (2500, 1024), (0, 16)])
