@@ -13,10 +13,13 @@ corrector:
   4. degree-2 fit over the three sync windows; phase-integral compensation
      exp(-j 2 pi (k t^2/2 + a t^3/3)).
 
-The waterfalls and the rotations run on the device (range ``ft8.drift``);
-the tracks, fits and correlations are host numpy, copied from the JAX
-module.  The rotation's cycle count is float64 on the host, reduced mod 1
-before the float32 rotate.
+The waterfalls and the rotations run on the device; the tracks, fits and
+correlations are host numpy, copied from the JAX module.  The corrector is
+range ``ft8.drift``, host work included, its copies between host and card
+``ft8.drift.wait``.  Counters:
+``drift.cycles`` (calls) and ``drift.locked`` (calls that found a
+continuous segment).  The rotation's cycle count is float64 on the host,
+reduced mod 1 before the float32 rotate.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from ..ops.gfsk import gauss_window
 from ..ops.waterfall import waterfall_complex, waterfall_params
 from ..protocol import constants as C
 from ..utils.device import entry_device
-from ..utils.profiling import span
+from ..utils.profiling import count, host_wait, span
 
 logger = logging.getLogger(__name__)
 
@@ -133,10 +136,10 @@ def apply_polynomial_drift(wave_ri, rate_hz_per_s: float,
     t = np.arange(n, dtype=np.float64) / float(fs)
     phase = (float(rate_hz_per_s) * t * t / 2.0
              + float(acc_hz_per_s2) * t * t * t / 3.0)
-    cyc = torch.as_tensor((phase - np.floor(phase)).astype(np.float32),
-                          device=device)
-    with span("ft8.drift"):
-        out = _apply_phase_cycles(z, cyc)
+    with host_wait("ft8.drift.wait"):
+        cyc = torch.as_tensor((phase - np.floor(phase)).astype(np.float32),
+                              device=device)
+    out = _apply_phase_cycles(z, cyc)
     return torch.view_as_real(out) if as_pair else out
 
 
@@ -147,8 +150,8 @@ def _argmax_track(wave: torch.Tensor, fs: float, bins_per_tone: int,
     geometry)."""
     p = waterfall_params(fs, bins_per_tone, steps_per_symbol)
     num_frames = p.num_frames(wave.shape[-1])
-    with span("ft8.drift"):
-        mag = waterfall_complex(wave, p, num_frames)
+    mag = waterfall_complex(wave, p, num_frames)
+    with host_wait("ft8.drift.wait"):
         track = torch.argmax(mag, dim=0).cpu().numpy()
     return track, mag.shape[0], p
 
@@ -164,6 +167,7 @@ def _polyfit(x: np.ndarray, y: np.ndarray, degree: int) -> np.ndarray:
     return coefs
 
 
+@span("ft8.drift")
 def correct_frequency_drift(wave_complex, fs: float,
                             sym_bin: float = C.TONE_SPACING_HZ,
                             sym_t: float = C.SYMBOL_PERIOD_S,
@@ -194,14 +198,17 @@ def correct_frequency_drift(wave_complex, fs: float,
         ri = np.stack([wave_in.real, wave_in.imag], -1).astype(np.float32)
     else:
         ri = wave_in.astype(np.float32)
-    z = torch.view_as_complex(torch.as_tensor(ri, device=device))
+    count("drift.cycles")
+    with host_wait("ft8.drift.wait"):
+        z = torch.view_as_complex(torch.as_tensor(ri, device=device))
 
     model: dict = {"f_center_hz": None, "sync_time_s": None,
                    "rate_hz_per_s": None, "acc_hz_per_s2": None,
                    "segment_s": None}
 
     def out(zc, rate):
-        r = torch.view_as_real(zc).cpu().numpy()
+        with host_wait("ft8.drift.wait"):
+            r = torch.view_as_real(zc).cpu().numpy()
         if complex_in:
             r = r[..., 0] + 1j * r[..., 1]
         return (r, rate, model) if return_model else (r, rate)
@@ -216,6 +223,7 @@ def correct_frequency_drift(wave_complex, fs: float,
     max_variance = p["max_variance_factor"] * freq_bins ** 2
     segments, _metric = detect_signal_continuity(track, window_size,
                                                  max_variance)
+    count("drift.locked", int(bool(segments)))
     if not segments:
         logger.warning("No continuous signal segments detected, "
                        "returning original signal")

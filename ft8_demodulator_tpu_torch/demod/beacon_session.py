@@ -7,7 +7,8 @@ keeps a ring of the newest ``max_repeats`` cycles and after each completed
 cycle decodes the stack of the ring on ``device``, so a beacon too weak
 for one cycle surfaces once enough cycles have accumulated.  With
 ``correction`` each cycle is made analytic (``scipy.signal.hilbert`` on
-the host) and drift-corrected on the device before it enters the ring.
+the host) and drift-corrected on the device before it enters the ring,
+the corrector's model beside it (``drift_models``).
 
 Results deduplicate across the session, and ``save`` / ``load`` snapshot
 the whole state to an .npz with the JAX package's keys, so that a
@@ -24,6 +25,7 @@ import torch
 from ..protocol import constants as C
 from ..protocol.message import CallsignHashTable, unpack_message
 from ..utils.device import entry_device
+from ..utils.profiling import span
 from .stack import decode_ft8_stacked
 from .types import FT8Decode
 
@@ -78,6 +80,7 @@ class BeaconSession:
         pad = int(round(self.t0_seconds * self.fs)) % self.cycle_len
         self._buffer = np.zeros(pad, np.float32)
         self._cycles: list[np.ndarray] = []       # newest last; <= R kept
+        self._models: list[dict | None] = []      # each cycle's drift model
         self._cycles_done = 0                     # total completed cycles
         self._seen: set[bytes] = set()
         # session-owned callsign hash cache (persisted in checkpoints)
@@ -121,20 +124,26 @@ class BeaconSession:
     # -- internals -----------------------------------------------------------
 
     def _push(self, cycle: np.ndarray) -> None:
+        model = None
         if self.correction:
             import scipy.signal
 
             from ..beacon import correct_frequency_drift
 
-            corrected, _ = correct_frequency_drift(
-                scipy.signal.hilbert(cycle.astype(np.float64)), self.fs,
+            # the corrector's input, so its time is the corrector's
+            with span("ft8.drift"):
+                analytic = scipy.signal.hilbert(cycle.astype(np.float64))
+            corrected, _, model = correct_frequency_drift(
+                analytic, self.fs,
                 params={"bins_per_tone": self.bins_per_tone,
                         "steps_per_symbol": self.steps_per_symbol},
-                device=self.device)
+                return_model=True, device=self.device)
             cycle = np.asarray(corrected)
         self._cycles.append(cycle)
+        self._models.append(model)
         if len(self._cycles) > self.max_repeats:
             self._cycles.pop(0)
+            self._models.pop(0)
         self._cycles_done += 1
 
     def _ring(self) -> np.ndarray:
@@ -182,6 +191,13 @@ class BeaconSession:
     @property
     def repeats_buffered(self) -> int:
         return len(self._cycles)
+
+    @property
+    def drift_models(self) -> list[dict | None]:
+        """The corrector's model (``correct_frequency_drift``'s
+        ``return_model``) of each cycle in the ring, oldest first: None
+        without ``correction`` or for a cycle restored by ``load``."""
+        return [None if m is None else dict(m) for m in self._models]
 
     # -- persistence ---------------------------------------------------------
 
@@ -231,6 +247,7 @@ class BeaconSession:
                 refine_fixes=bool(z["refine_fixes"]), device=device)
         s._buffer = np.asarray(z["buffer"], np.float32)
         s._cycles = [np.asarray(c) for c in z["cycles"]]
+        s._models = [None] * len(s._cycles)
         s._cycles_done = int(z["cycles_done"])
         s._fed = bool(z["fed"])
         s._finished = bool(z["finished"])

@@ -17,8 +17,12 @@ arrive as (R, n) complex or (R, n, 2) [re, im].
 R > 1 stacks score candidates with the linear-power Costas z statistic
 (``ops/sync.py sync_scores_z``, range ``ft8.sync_z``); R == 1 keeps the
 reference dB stencil (the frequency-major stencil kernel, ``ft8.sync``).
-The stacked power and spectra run in range ``ft8.stack``.  The BP, CRC and
-OSD tables come from the cached ``SlotDecoder`` of the geometry.
+The stacked power and spectra run in range ``ft8.stack``, the ring's upload
+and the live-repeat read in ``ft8.stack.wait``; the coherent retry counts
+the candidates it ran (``coherent.rows``) and those it decoded that the
+first pass did not (``coherent.accepted``), on the card while a profiler
+records.  The BP, CRC and OSD tables come from the cached ``SlotDecoder``
+of the geometry.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from ..ops.waterfall import (_DB_FLOOR, WaterfallParams, _as_complex,
                              waterfall_params)
 from ..protocol import constants as C
 from ..utils.device import entry_device
-from ..utils.profiling import span
+from ..utils.profiling import count_on_card, host_wait, recording, span
 from .decode import (SlotDecoder, _format_results, _merge_results,
                      _refine_rows, ap_arrays, ap_retry_llrs, estimate_snr,
                      finish_decode, slot_decoder, variant_retry)
@@ -151,8 +155,11 @@ def _decode_slot_stacked_with_mag(waves: torch.Tensor, p: WaterfallParams,
             cllrs = extract_llrs_coherent_stacked(
                 waves, abs_time, abs_freq, p.nperseg, p.hop, p.freq_osr,
                 is_complex)
-        res = _merge_results(res, variant_retry(cllrs, res, max_iterations,
-                                                use_osd, decoder))
+        retry = variant_retry(cllrs, res, max_iterations, use_osd, decoder)
+        if recording():
+            count_on_card("coherent.rows", res.candidate_valid)
+            count_on_card("coherent.accepted", ~res.success & retry.success)
+        res = _merge_results(res, retry)
     if ap_values is not None:
         with span("ft8.ap"):
             res = _merge_results(res, ap_retry_llrs(
@@ -193,6 +200,7 @@ def decode_slot_stacked(waves, p: WaterfallParams,
     return res
 
 
+@span("ft8.stack")
 def as_device_stack(waves, device: str | torch.device = "cuda"
                     ) -> tuple[torch.Tensor, bool]:
     """Host repeats -> ((R, n[, 2]) float32 tensor on ``device``,
@@ -217,8 +225,9 @@ def as_device_stack(waves, device: str | torch.device = "cuda"
     elif waves.ndim != 2:
         raise ValueError("waves must be (R, n) real, (R, n) complex, or "
                          "(R, n, 2) [re, im]: R slot-aligned repeats")
-    return torch.as_tensor(waves.astype(np.float32), device=device), \
-        is_complex
+    waves = waves.astype(np.float32)
+    with host_wait("ft8.stack.wait"):
+        return torch.as_tensor(waves, device=device), is_complex
 
 
 def decode_ft8_stacked(waves, sample_rate: float,
@@ -260,7 +269,8 @@ def decode_ft8_stacked(waves, sample_rate: float,
         coherent, min_z=float(min_z))
     # the live repeats: silent rows weigh 0 in the combiner, so the SNR's
     # median correction and the gate scale with the repeats that count
-    live = torch.nonzero(wave_d.flatten(1).any(1)).flatten().tolist()
+    with host_wait("ft8.stack.wait"):
+        live = torch.nonzero(wave_d.flatten(1).any(1)).flatten().tolist()
     r_stack = max(1, len(live))
     snr = estimate_snr(mag, res.payload, res.abs_time, res.abs_freq,
                        p.time_osr, p.freq_osr, stack_r=r_stack)

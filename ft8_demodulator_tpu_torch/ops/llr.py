@@ -383,6 +383,10 @@ def _mix(wr, wi, mc, ms):
 
 
 def _positions(rows, device) -> torch.Tensor:
+    """Symbol positions as an int64 tensor on ``device`` (a tensor passes
+    through)."""
+    if isinstance(rows, torch.Tensor):
+        return rows
     return torch.as_tensor(np.asarray(rows, np.int64), device=device)
 
 
@@ -546,8 +550,13 @@ def extract_llrs_coherent_stacked(waves: torch.Tensor, abs_time: torch.Tensor,
     n_sig = C.NUM_SYMBOLS * sps
     costas_pos = np.flatnonzero(C.FRAME_IS_COSTAS)
     n_costas = len(costas_pos)
-    cpos = _positions(costas_pos, dev).to(torch.float32)
-    ctone = _positions(C.FRAME_COSTAS_TONE[costas_pos], dev)
+    # the host tables' copies to the card, each a wait
+    with host_wait("ft8.coherent.wait", 4):
+        cpos = _positions(costas_pos, dev).to(torch.float32)
+        ctone = _positions(C.FRAME_COSTAS_TONE[costas_pos], dev)
+        dts_d = _positions(np.round(np.linspace(-hop // 2, hop // 2, 9))
+                           .astype(np.int64), dev)
+        data_pos = _positions(C.DATA_SYMBOL_POSITIONS, dev)
     c_idx = torch.arange(n_costas, device=dev)
     two_pi = 2.0 * np.pi
 
@@ -566,10 +575,11 @@ def extract_llrs_coherent_stacked(waves: torch.Tensor, abs_time: torch.Tensor,
     def complex_syms(dt, rows):
         """Window offsets dt (broadcast to (..., K)) -> (R, ..., K, P, 8)
         complex tone correlations, the base-row phase step removed."""
-        y = _tone_corr(xp, s0 + dt, rows, mixes, tables.tones, sps)
+        with host_wait("ft8.coherent.wait"):
+            pos = _positions(rows, dev)
+        y = _tone_corr(xp, s0 + dt, pos, mixes, tables.tones, sps)
         re, im = y[..., :8], y[..., 8:]
-        ang0 = (-two_pi * q_frac[:, None]) * _positions(rows, dev).to(
-            torch.float32)
+        ang0 = (-two_pi * q_frac[:, None]) * pos.to(torch.float32)
         cos0 = torch.cos(ang0)[..., None]
         sin0 = torch.sin(ang0)[..., None]
         return re * cos0 - im * sin0, re * sin0 + im * cos0
@@ -579,10 +589,13 @@ def extract_llrs_coherent_stacked(waves: torch.Tensor, abs_time: torch.Tensor,
         return re[..., c_idx, ctone], im[..., c_idx, ctone]
 
     # stage 1: the dt grid, scored by the coarse-df coherence metric
-    dts = np.round(np.linspace(-hop // 2, hop // 2, 9)).astype(np.int64)
     half_row = 0.5 / phi + 0.02
     n_coarse = int(np.ceil(2 * half_row * 4 * C.NUM_SYMBOLS)) | 1
-    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+
+    def f32(x):
+        with host_wait("ft8.coherent.wait"):
+            return torch.tensor(x, dtype=torch.float32, device=dev)
+
     deltas = _linspace_f32(f32(-half_row), f32(half_row), n_coarse)
     ramp = (-two_pi * deltas[:, None]) * cpos[None, :]    # (D, 21)
     rc, rs = torch.cos(ramp), torch.sin(ramp)
@@ -596,9 +609,9 @@ def extract_llrs_coherent_stacked(waves: torch.Tensor, abs_time: torch.Tensor,
         sr, si = s[..., :n_coarse], s[..., n_coarse:]
         return (sr * sr + si * si).sum(0)
 
-    re, im = complex_syms(_positions(dts, dev)[:, None], costas_pos)
+    re, im = complex_syms(dts_d[:, None], costas_pos)
     mets = spectrum(*costas_z(re, im)).amax(-1)           # (9, K)
-    dt_sel = _positions(dts, dev)[torch.argmax(mets, dim=0)]
+    dt_sel = dts_d[torch.argmax(mets, dim=0)]
 
     # the 79 symbols at each candidate's dt; stage 2: the centre branch
     re79, im79 = complex_syms(dt_sel, np.arange(C.NUM_SYMBOLS))
@@ -607,8 +620,9 @@ def extract_llrs_coherent_stacked(waves: torch.Tensor, abs_time: torch.Tensor,
 
     # stages 3-4: every branch's fine (df, dt) track and projection
     order = [0, 1, -1, 2, -2, 3, -3][:num_branches]
-    step = torch.tensor([m * (1.0 / 36.0) for m in order],
-                        dtype=torch.float32, device=dev)
+    with host_wait("ft8.coherent.wait"):
+        step = torch.tensor([m * (1.0 / 36.0) for m in order],
+                            dtype=torch.float32, device=dev)
     fine_d = _linspace_f32(f32(-0.016), f32(0.016), 11)
     fine_t = _linspace_f32(f32(-0.06), f32(0.06), 5)
     t2 = fine_t.shape[0]
@@ -636,7 +650,6 @@ def extract_llrs_coherent_stacked(waves: torch.Tensor, abs_time: torch.Tensor,
         + (two_pi * t_fin)[..., None, None] * tone8       # (R, B, K, 79, 8)
     proj = re79[:, None] * torch.cos(track) + im79[:, None] * torch.sin(track)
     proj = torch.clamp(proj, min=0.0)
-    powers = (proj * proj).sum(0)[:, :, _positions(C.DATA_SYMBOL_POSITIONS,
-                                                   dev)]  # (B, K, 58, 8)
+    powers = (proj * proj).sum(0)[:, :, data_pos]        # (B, K, 58, 8)
     llr = _llr_from_powers(powers[..., tables.gray_map])
     return normalize_llrs(llr.reshape(len(order), k, C.LDPC_N))

@@ -383,3 +383,32 @@ def test_beacon_session_unpack_feed_after_flush_and_t0():
     with pytest.raises(ValueError, match="max_repeats"):
         BeaconSession(FS, max_repeats=0, device="cpu")
     assert encode_tones(torch.as_tensor(PAYLOAD)).shape == (79,)
+
+
+def test_beacon_session_keeps_each_ring_cycles_drift_model(monkeypatch,
+                                                           tmp_path):
+    """With correction, the corrector's model of each cycle in the ring
+    stays beside it, oldest first, and leaves with it; a checkpoint does
+    not hold them, so a loaded session's are None."""
+    import ft8_demodulator_tpu_torch.beacon as beacon
+
+    calls = []
+
+    def corrector(wave, fs, params=None, return_model=False, device="cpu"):
+        calls.append(len(calls))
+        model = {"segment_s": (0.0, 1.0), "sync_time_s": float(calls[-1])}
+        return np.asarray(wave).real.astype(np.float32), 0.0, model
+
+    monkeypatch.setattr(beacon, "correct_frequency_drift", corrector)
+    monkeypatch.setattr(
+        "ft8_demodulator_tpu_torch.demod.beacon_session.decode_ft8_stacked",
+        lambda *a, **kw: [])
+    s = BeaconSession(FS, max_repeats=2, correction=True, device="cpu")
+    s.feed(np.zeros(3 * N, np.float32))
+    assert [m["sync_time_s"] for m in s.drift_models] == [1.0, 2.0]
+    s.drift_models[0]["sync_time_s"] = -1.0          # a copy
+    assert s.drift_models[0]["sync_time_s"] == 1.0
+    s.save(str(tmp_path / "s.npz"))
+    assert BeaconSession.load(str(tmp_path / "s.npz"),
+                              device="cpu").drift_models == [None, None]
+    assert BeaconSession(FS, device="cpu").drift_models == []
