@@ -206,7 +206,22 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    and requires them: one a BP group where decode_slots' groups are known
    (phases 4, 6, 9 and 19's slot batches, where a geometry off the block
    route decodes each slot alone), at least one elsewhere; phases
-   10 and 13 time calls that phases 9 and 12 count.
+   10 and 13 time calls that phases 9 and 12 count;
+21. LLRs (K8, csrc/llr_gather.cu) on the first chunk of phase 4's
+   STANDARD decode (16 slots' dB grids, K 20) and of phase 9's DEEP one (8
+   slots' boxcar grids, K 40): K8's rows == the plain route's LLRs before
+   scaling times the scale that tests/_torch_k8_model.py computes from
+   them, bit for bit, that scale within 4 ulp of normalize_llrs', and the
+   largest |K8 - normalize_llrs| (the record's max_abs_err); device time
+   of K8 and of the plain route (as in phase 6) beside K8's bound
+   (ops/llr_cuda.py llr_bound, bytes); a BeaconSession cycle
+   (block-spectra matched LLRs) must launch K7 and no K8; ptxas's report
+   of both K8 instances (a spill raises).  Every phase that decodes on the
+   card with the counters zeroed just before reads K8's launches there
+   and requires them: one a chunk of decode_slots' time-major routes
+   (phases 4, 6, 9 and 19's slot batches), and elsewhere one a
+   frequency-major sync launch on the Hann route and none on the
+   matched-filter-first one (phases 12, 16, 18 and 19's trials).
 
 Then one JSON line with the kernels (each with its launches on the main
 path, device ms, plain ms, bound ms and what bounds it, and the library
@@ -222,6 +237,7 @@ card it exits 1 and prints no result.  Imports nothing of JAX.
 from __future__ import annotations
 
 import functools
+import importlib
 import json
 import os
 import re
@@ -317,6 +333,15 @@ def _counter(name: str) -> int:
     return counters().get(name, 0)
 
 
+def _k8_want(k6: int, mf_first: bool) -> int:
+    """K8 launches of a frequency-major decode (a decode_ft8_message pass,
+    a stream block, a rank's band or slot) whose sync kernel launched
+    ``k6`` times: one LLR extraction a sync on the Hann route, none on the
+    matched-filter-first route (its LLRs come from the block spectra or a
+    direct matched filter)."""
+    return 0 if mf_first else k6
+
+
 def _nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -355,10 +380,11 @@ def _synth_slots(device, fs: float = FS, batch: int = BATCH,
 def _kernel_name(fn: str) -> str:
     """A hand kernel's name from its mangled entry: waterfall_kernel<true>,
     sync_kernel<false,4,4> (layout, then the osr it is built for; 0: any),
-    osd_eliminate_kernel, ldpc_bp_kernel; other names as they are."""
+    osd_eliminate_kernel, ldpc_bp_kernel, llr_kernel<true> (the boxcar
+    route); other names as they are."""
     m = re.search(r"(waterfall_pack_kernel|osd_eliminate_kernel|"
-                  r"ldpc_bp_kernel|waterfall_kernel|sync_kernel)(?:ILb([01])E((?:Li\d+E)*))?",
-                  fn)
+                  r"ldpc_bp_kernel|llr_kernel|waterfall_kernel|sync_kernel)"
+                  r"(?:ILb([01])E((?:Li\d+E)*))?", fn)
     if not m:
         return fn
     name, flag, ints = m.groups()
@@ -878,11 +904,13 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     osd_launches = _counter("k4.launches")
     osd_rows = _counter("osd.rows")
     bp_launches = _counter("k7.launches")
+    llr_launches = _counter("k8.launches")
     if mf_launches != BATCH // DEEP_CHUNK \
-            or k5_launches != BATCH // DEEP_CHUNK:
-        raise RuntimeError(f"dual-output / sync kernels launched "
-                           f"{mf_launches} / {k5_launches} times, want "
-                           f"{BATCH // DEEP_CHUNK}")
+            or k5_launches != BATCH // DEEP_CHUNK \
+            or llr_launches != BATCH // DEEP_CHUNK:
+        raise RuntimeError(f"dual-output / sync / LLR kernels launched "
+                           f"{mf_launches} / {k5_launches} / {llr_launches} "
+                           f"times, want {BATCH // DEEP_CHUNK}")
     if bp_launches != BATCH // BP_CHUNK:
         raise RuntimeError(f"BP + CRC kernel launched {bp_launches} times, "
                            f"want one a BP group, {BATCH // BP_CHUNK}")
@@ -919,8 +947,8 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     _phase(9, f"DEEP decode_slots {BATCH} slots at {FS / 1000:g} kHz osr "
               f"{DEEP_OSR[0]}x{DEEP_OSR[1]}: yield {decoded}/{BATCH}, "
               f"dual-output kernel launches {mf_launches}, sync kernel "
-              f"launches {k5_launches}, BP + CRC kernel launches "
-              f"{bp_launches}, OSD kernel "
+              f"launches {k5_launches}, LLR kernel launches {llr_launches}, "
+              f"BP + CRC kernel launches {bp_launches}, OSD kernel "
               f"launches {osd_launches} reducing {osd_rows} rows (the rows "
               f"BP left), {int(res.success.sum())} successful rows of which "
               f"{osd_accepted} OSD-accepted, {unplanted} unplanted decodes, "
@@ -1207,12 +1235,15 @@ def _api_phase(dev) -> tuple[int, dict]:
         k6 = _counter("k6.launches")
         k4 = _counter("k4.launches")
         k7 = _counter("k7.launches")
+        k8 = _counter("k8.launches")
         k6_total += k6
         host = decode_ft8_message(wave, FS, device="cpu", **kw)
         got = [r.message.payload for r in card]
-        if k6 < 1 or k7 < 1 or (kw.get("use_osd") and k4 < 1):
+        if k6 < 1 or k7 < 1 or (kw.get("use_osd") and k4 < 1) \
+                or k8 != _k8_want(k6, kw.get("mf_first", False)):
             raise RuntimeError(f"{name}: sync kernel {k6}, OSD kernel {k4}, "
-                               f"BP + CRC kernel {k7} launches")
+                               f"BP + CRC kernel {k7}, LLR kernel {k8} "
+                               "launches")
         _check_api_rows(name, card, host)
         unplanted = [pl for pl in got if pl not in planted]
         missed = sorted(s for pl, s in planted.items()
@@ -1231,9 +1262,9 @@ def _api_phase(dev) -> tuple[int, dict]:
         lines.append(f"{name}: {len(card)} rows, all planted >= {min_snr:g} "
                      f"dB decoded (weakest decoded "
                      f"{min(planted[pl] for pl in got):.1f} dB), sync kernel "
-                     f"launches {k6}, OSD kernel launches {k4}, BP + CRC "
-                     f"kernel launches {k7}, first call "
-                     f"{card_s * 1e3:.0f} ms")
+                     f"launches {k6}, OSD kernel launches {k4}, LLR kernel "
+                     f"launches {k8}, BP + CRC kernel launches {k7}, first "
+                     f"call {card_s * 1e3:.0f} ms")
     # osr 10x10 (the generic sync instance on a shrunk tile; the plain
     # waterfall, as at every osr of this API) on a band around the
     # strongest signal, so that the CPU side stays short
@@ -1249,19 +1280,22 @@ def _api_phase(dev) -> tuple[int, dict]:
     card_s = time.perf_counter() - t0
     k6 = _counter("k6.launches")
     k7 = _counter("k7.launches")
+    k8 = _counter("k8.launches")
     k6_total += k6
     t0 = time.perf_counter()
     host = decode_ft8_message(wave, FS, device="cpu", **band)
     host_s = time.perf_counter() - t0
-    if k6 != 1 or k7 < 1 or bytes(payloads[strong]) not in {
+    if k6 != 1 or k7 < 1 or k8 != 1 or bytes(payloads[strong]) not in {
             r.message.payload for r in card}:
-        raise RuntimeError(f"osr {HIGH_OSR}x{HIGH_OSR}: sync / BP + CRC "
-                           f"kernel launches {k6} / {k7}, rows {card}")
+        raise RuntimeError(f"osr {HIGH_OSR}x{HIGH_OSR}: sync / BP + CRC / "
+                           f"LLR kernel launches {k6} / {k7} / {k8}, rows "
+                           f"{card}")
     _check_api_rows(f"osr {HIGH_OSR}x{HIGH_OSR}", card, host)
     lines.append(f"osr {HIGH_OSR}x{HIGH_OSR} on {band['freq_min']:.0f}-"
                  f"{band['freq_max']:.0f} Hz: {len(card)} rows (the "
                  f"{snr[strong]:.1f} dB signal decoded), sync kernel "
-                 f"launches {k6}, BP + CRC kernel launches {k7}, first call "
+                 f"launches {k6}, LLR kernel launches {k8}, BP + CRC kernel "
+                 f"launches {k7}, first call "
                  f"{card_s * 1e3:.0f} ms (CPU "
                  f"{host_s * 1e3:.0f} ms)")
     _phase(12, f"decode_ft8_message on a crowded {FS / 1000:g} kHz capture "
@@ -1322,13 +1356,14 @@ def _weak_phase(dev) -> int:
         _reset_counts()
         card = decode_ft8_message(wave, FS, device=dev, **kw)
         torch.cuda.synchronize()
-        k6, k4, k7 = _counter("k6.launches"), \
-            _counter("k4.launches"), _counter("k7.launches")
+        k6, k4, k7, k8 = (_counter(f"{k}.launches")
+                          for k in ("k6", "k4", "k7", "k8"))
         k6_total += k6
-        if k6 < 1 or k4 < 1 or k7 < 1:
+        if k6 < 1 or k4 < 1 or k7 < 1 \
+                or k8 != _k8_want(k6, kw.get("mf_first", False)):
             raise RuntimeError(f"weak capture, {name}: sync kernel {k6}, "
-                               f"OSD kernel {k4}, BP + CRC kernel {k7} "
-                               "launches")
+                               f"OSD kernel {k4}, BP + CRC kernel {k7}, LLR "
+                               f"kernel {k8} launches")
         _check_api_rows(f"weak capture, {name}", card,
                         decode_ft8_message(wave, FS, device="cpu", **kw))
         found[name] = {r.message.payload for r in card}
@@ -1356,22 +1391,25 @@ def _weak_phase(dev) -> int:
     slot_kw = dict(max_candidates=DEEP_CANDIDATES, min_score=DEEP_MIN_SCORE,
                    max_iterations=BP_ITERATIONS, use_osd=True)
     slot_lines = []
-    for name, extra, used in (
+    # (name, options, kernels that must launch, K8 launches: one on the
+    # time-major routes, none on the frequency-major matched-filter route)
+    for name, extra, used, k8_want in (
             ("use_mf + mf_refine", dict(use_mf=True, mf_refine=True),
-             ("K1", "K5", "K4", "K7")),
+             ("K1", "K5", "K8", "K4", "K7"), 1),
             ("mf_first + mf_refine", dict(mf_first=True, mf_refine=True),
-             ("K6", "K4", "K7")),
+             ("K6", "K4", "K7"), 0),
             ("mf_first + coherent", dict(mf_first=True, coherent=True),
-             ("K3", "K5", "K4", "K7"))):
+             ("K3", "K5", "K8", "K4", "K7"), 1)):
         torch.cuda.synchronize()
         _reset_counts()
         card = decode_slot(torch.as_tensor(wave, device=dev), p, nf,
                            **slot_kw, **extra)
         torch.cuda.synchronize()
         launched = {k: _counter(f"{k.lower()}.launches")
-                    for k in ("K1", "K3", "K5", "K6", "K4", "K7")}
+                    for k in ("K1", "K3", "K5", "K6", "K8", "K4", "K7")}
         k6_total += launched["K6"]
-        if not all(launched[k] >= 1 for k in used):
+        if not all(launched[k] >= 1 for k in used) \
+                or launched["K8"] != k8_want:
             raise RuntimeError(f"decode_slot {name}: launches {launched}")
         lift = lambda r: type(r)(*(a[None] for a in r))
         sets = _decode_sets(lift(card), 1)
@@ -2190,14 +2228,17 @@ def _stream_phase(dev, smi: str) -> tuple[int, int]:
             k4 = _counter("k4.launches")
             k6 = _counter("k6.launches")
             k7 = _counter("k7.launches")
+            k8 = _counter("k8.launches")
             k4_total += k4
             k6_total += k6
-            if k6 != STREAM_BLOCKS or (k4 > 0) != cfg.use_osd or k7 < 1:
+            if k6 != STREAM_BLOCKS or (k4 > 0) != cfg.use_osd or k7 < 1 \
+                    or k8 != _k8_want(k6, cfg.mf_first):
                 raise RuntimeError(f"StreamSession {name} depth {depth}: "
                                    f"sync kernel {k6} launches (want one a "
                                    f"block, {STREAM_BLOCKS}), OSD kernel "
-                                   f"{k4}, BP + CRC kernel {k7}")
-            runs[depth] = (rows, ms, k4, k6, k7)
+                                   f"{k4}, BP + CRC kernel {k7}, LLR kernel "
+                                   f"{k8}")
+            runs[depth] = (rows, ms, k4, k6, k7, k8)
         card = runs[0][0]
         t0 = time.perf_counter()
         hs = StreamSession(fs, cfg, device="cpu")
@@ -2240,7 +2281,8 @@ def _stream_phase(dev, smi: str) -> tuple[int, int]:
             f"CPU, depth 2 == depth 0, sync kernel launches "
             f"{runs[0][3]}/{runs[2][3]} (depth 0/2), OSD kernel launches "
             f"{runs[0][2]}/{runs[2][2]}, BP + CRC kernel launches "
-            f"{runs[0][4]}/{runs[2][4]}; save after {STREAM_CUT_BLOCKS:g} "
+            f"{runs[0][4]}/{runs[2][4]}, LLR kernel launches "
+            f"{runs[0][5]}/{runs[2][5]}; save after {STREAM_CUT_BLOCKS:g} "
             f"blocks ({in_flight} in flight) resumes with the same rows; "
             f"whole stream card {runs[0][1]:.0f}/{runs[2][1]:.0f} ms (first"
             f" calls), CPU {host_ms:.0f} ms; rows "
@@ -2462,9 +2504,10 @@ PAR_RANKS = 4
 PAR_PP_SLOTS = 4
 PAR_TIMEOUT_S = 300.0
 # the launches each rank counts: the frequency-major sync kernel (K6), the
-# OSD kernel (K4) and BP + CRC (K7), as the profiler names them
+# OSD kernel (K4), BP + CRC (K7) and the LLR kernel (K8), as the profiler
+# names them
 LAUNCH_NAMES = "sync_kernel<false,...> / osd_eliminate_kernel / " \
-    "ldpc_bp_kernel"
+    "ldpc_bp_kernel / llr_kernel"
 # the regimes on PAR_RANKS ranks: (name, what the parent checks)
 PAR_REGIMES = ("DP x SP 2x2", "TP 4 osr 2x2", "TP 4 osr 4x4 OSD MF",
                "PP 2 stages OSD", "composed 1x2x2")
@@ -2529,9 +2572,9 @@ def _rank_ms(call, device) -> float | None:
 
 
 def _counted(calls: dict, device) -> dict:
-    """Each call once with the K6 / K4 / K7 counts from 0 (the phase's main
-    path), then once more timed on the card: name -> (result,
-    (K6, K4, K7) launches of this rank, ms)."""
+    """Each call once with the K6 / K4 / K7 / K8 counts from 0 (the phase's
+    main path), then once more timed on the card: name -> (result,
+    (K6, K4, K7, K8) launches of this rank, ms)."""
 
     out = {}
     for name, call in calls.items():
@@ -2539,8 +2582,8 @@ def _counted(calls: dict, device) -> dict:
         result = call()
         if device.type == "cuda":
             torch.cuda.synchronize()
-        launches = (_counter("k6.launches"),
-                    _counter("k4.launches"), _counter("k7.launches"))
+        launches = tuple(_counter(f"{k}.launches")
+                         for k in ("k6", "k4", "k7", "k8"))
         out[name] = (_host_result(result), launches, _rank_ms(call, device))
     return out
 
@@ -2652,17 +2695,19 @@ def _parallel_phase(dev, smi: str) -> tuple[int, int]:
     card = run_ranks(_nccl_rank, 1, "nccl", dev, args, PAR_TIMEOUT_S)[0]
     host = run_ranks(_nccl_rank, 1, "gloo", "cpu", args, PAR_TIMEOUT_S)[0]
     texts = []
-    for name, (result, (k6, k4, k7), ms) in card.items():
+    for name, (result, (k6, k4, k7, k8), ms) in card.items():
         _same_result(f"NCCL {name}", result, host[name][0])
         if name.startswith("stream"):
             _planted_once(f"NCCL {name}", result, planted)
-        if k6 < 1 or (k4 > 0) != ("OSD" in name) or k7 < 1:
-            raise RuntimeError(f"NCCL {name}: K6 {k6}, K4 {k4}, K7 {k7} "
-                               "launches")
+        if k6 < 1 or (k4 > 0) != ("OSD" in name) or k7 < 1 \
+                or k8 != _k8_want(k6, "mf_first" in name):
+            raise RuntimeError(f"NCCL {name}: K6 {k6}, K4 {k4}, K7 {k7}, "
+                               f"K8 {k8} launches")
         k6_total += k6
         k4_total += k4
         texts.append(f"{name} {_rows_text(result)} rows == CPU, "
-                     f"{LAUNCH_NAMES} {k6}/{k4}/{k7}, {_ms_text(ms)}")
+                     f"{LAUNCH_NAMES} {k6}/{k4}/{k7}/{k8}, "
+                     f"{_ms_text(ms)}")
     _phase(18, f"[{smi}] NCCL world size 1 (run_ranks, one rank on "
                f"{dev}): phase 16's {STREAM_SECONDS}-s {STREAM_FS / 1000:g} "
                "kHz stream, each planted signal once; " + "; ".join(texts)
@@ -2711,13 +2756,16 @@ def _parallel_phase(dev, smi: str) -> tuple[int, int]:
         launches = [card[r][name][1] for r in ranks_in]
         fronts = launches[:1] if name.startswith("PP") else launches
         backs = launches[1:] if name.startswith("PP") else launches
-        if any(k6 < 1 for k6, _, _ in fronts) \
-                or any(k7 < 1 for _, _, k7 in backs) or (
-                "OSD" in name and any(k4 < 1 for _, k4, _ in backs)):
-            raise RuntimeError(f"{name}: K6/K4/K7 launches per rank "
+        # each rank's sync launches are each followed by one LLR launch
+        if any(k6 < 1 for k6, _, _, _ in fronts) \
+                or any(k7 < 1 for _, _, k7, _ in backs) or (
+                "OSD" in name and any(k4 < 1 for _, k4, _, _ in backs)) \
+                or any(k8 != _k8_want(k6, False)
+                       for k6, _, _, k8 in launches):
+            raise RuntimeError(f"{name}: K6/K4/K7/K8 launches per rank "
                                f"{launches}")
-        k6_total += sum(k6 for k6, _, _ in launches)
-        k4_total += sum(k4 for _, k4, _ in launches)
+        k6_total += sum(k6 for k6, _, _, _ in launches)
+        k4_total += sum(k4 for _, k4, _, _ in launches)
         ms = [card[r][name][2] for r in range(PAR_RANKS)]
         texts.append(f"{name}: {_rows_text(card[ranks_in[0]][name][0])} "
                      f"rows on ranks {ranks_in} == CPU == one rank, "
@@ -2754,13 +2802,13 @@ SOAK_RUNS = {
 GENERIC_K6 = "<false, 0, 0>"
 
 
-def _soak_cases():
-    """tests/_torch_soak_cases.py (imports no JAX)."""
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "tests"))
-    import _torch_soak_cases
-
-    return _torch_soak_cases
+def _tests_module(name: str):
+    """A helper module of tests/ that imports no JAX
+    (_torch_soak_cases, _torch_k8_model)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(name)
 
 
 def _k6_instance(tau: int, phi: int) -> str:
@@ -2790,14 +2838,15 @@ def _soak_api(dev, soak) -> tuple[int, dict, str]:
             card = decode_ft8_message(t.audio, t.fs, device=dev,
                                       **t.decode_kwargs)
             torch.cuda.synchronize()
-            launches = (_counter("k6.launches"),
-                        _counter("k4.launches"), _counter("k7.launches"))
+            launches = tuple(_counter(f"{k}.launches")
+                             for k in ("k6", "k4", "k7", "k8"))
             host = decode_ft8_message(t.audio, t.fs, device="cpu",
                                       **t.decode_kwargs)
             _check_api_rows(name, card, host)
             if launches[0] < 1 or (launches[1] > 0 and not t.use_osd) \
-                    or launches[2] < 1:
-                raise RuntimeError(f"{name}: K6 / K4 / K7 launches "
+                    or launches[2] < 1 or launches[3] != _k8_want(
+                        launches[0], t.decode_kwargs.get("mf_first", False)):
+                raise RuntimeError(f"{name}: K6 / K4 / K7 / K8 launches "
                                    f"{launches}")
             if snr == SOAK_HALVES[0][0]:
                 why = soak.planted_fault(t, card)
@@ -2872,12 +2921,16 @@ def _soak_slots(dev, soak) -> tuple[int, int, list[str]]:
             w, p, nf, chunk=SOAK_SLOT_BATCH, **kw)))
         torch.cuda.synchronize()
         launches = {k: _counter(f"{k.lower()}.launches")
-                    for k in ("K1", "K3", "K5", "K6", "K4", "K7")}
+                    for k in ("K1", "K3", "K5", "K6", "K8", "K4", "K7")}
         front = ("K3" if run == "DEEP" else "K1", "K5") if block else ("K6",)
         want = {k: (SOAK_SLOT_BATCH if k == "K6" else 1) for k in front}
         want["K4"] = len(orders)
         # BP + CRC: one group of the batch; off the block route one a slot
         want["K7"] = 1 if block else SOAK_SLOT_BATCH
+        # LLRs: one the chunk; off the block route one a slot on the Hann
+        # route, none on the matched-filter one
+        want["K8"] = 1 if block else _k8_want(SOAK_SLOT_BATCH,
+                                              kw.get("mf_first", False))
         if {k: n for k, n in launches.items() if n} != \
                 {k: n for k, n in want.items() if n} \
                 or (run == "DEEP") != bool(orders):
@@ -2936,7 +2989,7 @@ def _soak_slots(dev, soak) -> tuple[int, int, list[str]]:
 def _soak_phase(dev, smi: str) -> tuple[int, int]:
     """Phase 19: the reference soak's random coverage on the card.
     Returns the OSD and the frequency-major sync kernels' launches."""
-    soak = _soak_cases()
+    soak = _tests_module("_torch_soak_cases")
     t0 = time.perf_counter()
     k4_api, k6_api, text = _soak_api(dev, soak)
     _phase(19, text)
@@ -3038,6 +3091,132 @@ def _bp_phase(dev, smi: str, waves, log: str, launches: int) -> dict:
             "library_note": BP_NO_TPU_KERNEL}
 
 
+LLR_SOURCE = "ft8_demodulator_tpu_torch/csrc/llr_gather.cu"
+# K8's scale against PyTorch's (normalize_llrs): its sums run in another
+# order
+LLR_SCALE_ULPS = 4
+LLR_NO_TPU_KERNEL = ("no TPU kernel: the JAX package reads the LLR cells "
+                     "through one-hot matmuls that XLA fuses "
+                     "(ft8_demodulator_tpu/ops/llr.py)")
+
+
+def _llr_inputs(dev, waves) -> dict:
+    """The LLR layer's inputs on the batch paths: the first chunk of phase
+    4's STANDARD decode (16 slots' time-major dB grids, K 20) and of phase
+    9's DEEP one (8 slots' boxcar grids, K 40), with their top-K
+    candidates: (grid, abs_time, abs_freq, search grid, boxcar route,
+    Gray map) by label."""
+    from ft8_demodulator_tpu_torch.demod import decode as dec
+    from ft8_demodulator_tpu_torch.ops import waterfall_cuda as wc
+    from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
+
+    out = {}
+    for label, osr, chunk, k, min_score, matched in (
+            (f"STANDARD {CHUNK}xK{MAX_CANDIDATES}", (2, 2), CHUNK,
+             MAX_CANDIDATES, MIN_SCORE, False),
+            (f"DEEP {DEEP_CHUNK}xK{DEEP_CANDIDATES}", DEEP_OSR, DEEP_CHUNK,
+             DEEP_CANDIDATES, DEEP_MIN_SCORE, True)):
+        p = waterfall_params(FS, *osr)
+        nf = p.num_frames(waves.shape[1])
+        decoder = dec.slot_decoder(p, nf, dev)
+        w = waves[:chunk].contiguous()
+        if matched:
+            mags, grid = wc.block_waterfall_mf_tf_fused_batch(
+                w, p, nf, decoder.waterfall_consts())
+        else:
+            grid = mags = wc.block_waterfall_tf_fused_batch(
+                w, p, nf, decoder.waterfall_consts())
+        at, af, _, _ = dec._candidates(mags, decoder.g, k, min_score,
+                                       decoder)
+        out[label] = (grid, at, af, decoder.g, matched, decoder.gray_map)
+    return out
+
+
+def _llr_phase(dev, smi: str, waves, log: str, launches: int) -> dict:
+    """Phase 21: K8 against the plain route and its bound, and no K8 in a
+    beacon cycle.  Returns its JSON record (launches: phase 4's)."""
+    from ft8_demodulator_tpu_torch.demod import BeaconSession
+    from ft8_demodulator_tpu_torch.ops import llr as ll
+    from ft8_demodulator_tpu_torch.ops import llr_cuda as lk
+
+    k8 = _tests_module("_torch_k8_model")
+    texts, times, errs = [], {}, {}
+    for label, (grid, at, af, g, matched, gray) in _llr_inputs(
+            dev, waves).items():
+        args = (grid, at, af, g.time_osr, g.freq_osr, g.num_blocks, matched,
+                gray)
+        if matched:
+            def plain_raw():
+                return ll._grid_llrs_plain(grid, at, af, g.time_osr,
+                                           g.freq_osr, gray)
+        else:
+            def plain_raw():
+                return ll._hann_llrs_plain(grid, at, af, g.time_osr,
+                                           g.freq_osr, g.num_blocks, gray)
+        llrs = lk.llr_kernel(*args)
+        want = plain_raw()
+        torch.cuda.synchronize()
+        # the model's scale from the plain LLRs before scaling: K8's rows
+        # are their product bit for bit (the gather and the scale at once)
+        scale = torch.as_tensor(k8.scales(want.cpu().numpy().reshape(
+            -1, 174)), device=dev).reshape(want.shape[:-1])
+        product = want * scale[..., None]
+        if not torch.equal(llrs, product):
+            raise RuntimeError(f"K8 vs plain on {label}: "
+                               f"{int((llrs != product).sum())} LLRs differ "
+                               "from the plain ones before scaling times "
+                               "the model's scale")
+        ulps = int(k8.ulps(scale.cpu().numpy(),
+                           ll._llr_scale(want).cpu().numpy()).max())
+        if ulps > LLR_SCALE_ULPS:
+            raise RuntimeError(f"K8 vs plain on {label}: scale {ulps} ulp "
+                               f"from PyTorch's (bound {LLR_SCALE_ULPS})")
+        errs[label] = float((llrs - ll.normalize_llrs(want)).abs().max())
+        kernel_ms, plain_ms, plain_ev, _ = _kernel_vs_plain_ms(
+            lambda: lk.llr_kernel(*args),
+            lambda: ll.normalize_llrs(plain_raw()), "llr_kernel", reps=20)
+        bound_ms = lk.llr_bound(at.numel()) * 1e3
+        times[label] = (kernel_ms, plain_ms, bound_ms)
+        texts.append(f"{label} ({at.numel()} rows): K8 == plain before "
+                     f"scaling x the model's scale bit for bit, scale within "
+                     f"{ulps} ulp of PyTorch's, max |K8 - normalize_llrs| "
+                     f"{errs[label]:.3e}; K8 {kernel_ms:.4f} ms (bound "
+                     f"{bound_ms:.6f} ms by bytes, "
+                     f"{100 * bound_ms / kernel_ms:.1f} %), plain "
+                     f"{plain_ms:.4f} ms ({plain_ev} device events per "
+                     "call)")
+    # a beacon cycle takes the block-spectra matched LLRs: no K8
+    stream = _beacon_stream()[0]
+    session = BeaconSession(BEACON_FS, device=dev, **BEACON_SESSION)
+    _reset_counts()
+    session.feed(stream[: int(BEACON_FS * SLOT_S) + 1])
+    torch.cuda.synchronize()
+    beacon_k7, beacon_k8 = _counter("k7.launches"), _counter("k8.launches")
+    if beacon_k7 < 1 or beacon_k8 != 0:
+        raise RuntimeError(f"a BeaconSession cycle launched K7 {beacon_k7} "
+                           f"and K8 {beacon_k8} times (want >= 1 and 0)")
+    report, keep = [], False
+    for line in _ptxas_report(log):
+        if line.endswith(":"):
+            keep = line.startswith("llr_kernel")
+        if keep:
+            report.append(line)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+            if spill and spill.group(1, 2) != ("0", "0"):
+                raise RuntimeError(f"llr_kernel spills: {report}")
+    _phase(21, f"[{smi}] LLRs (K8) vs the plain route, device time over 20 "
+               "warm launches, min of 2 counted windows: "
+               + "; ".join(texts) + f"; a BeaconSession cycle: K7 "
+               f"{beacon_k7}, K8 {beacon_k8}; ptxas: " + " | ".join(report))
+    ms, plain_ms, bound_ms = times[f"STANDARD {CHUNK}xK{MAX_CANDIDATES}"]
+    return {"name": "llr_gather", "route": "cuda", "source": LLR_SOURCE,
+            "replaces": None, "launches": launches,
+            "max_abs_err": max(errs.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None, "library_note": LLR_NO_TPU_KERNEL}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3114,10 +3293,12 @@ def main() -> int:
     launches = _counter("k1.launches")
     k5_std_launches = _counter("k5.launches")
     k7_launches = _counter("k7.launches")
-    if launches != BATCH // CHUNK or k5_std_launches != BATCH // CHUNK:
-        raise RuntimeError(f"waterfall / sync kernels launched {launches} "
-                           f"/ {k5_std_launches} times, want "
-                           f"{BATCH // CHUNK}")
+    k8_launches = _counter("k8.launches")
+    if launches != BATCH // CHUNK or k5_std_launches != BATCH // CHUNK \
+            or k8_launches != BATCH // CHUNK:
+        raise RuntimeError(f"waterfall / sync / LLR kernels launched "
+                           f"{launches} / {k5_std_launches} / {k8_launches} "
+                           f"times, want {BATCH // CHUNK}")
     if k7_launches != BATCH // BP_CHUNK:
         raise RuntimeError(f"BP + CRC kernel launched {k7_launches} times, "
                            f"want one a BP group, {BATCH // BP_CHUNK}")
@@ -3132,8 +3313,9 @@ def main() -> int:
         raise RuntimeError(f"yield {decoded}/{BATCH}: planted payloads lost")
     _phase(4, f"decode_slots {BATCH} slots at {FS / 1000:g} kHz: yield "
               f"{decoded}/{BATCH}, waterfall kernel launches {launches}, "
-              f"sync kernel launches {k5_std_launches}, BP + CRC kernel "
-              f"launches {k7_launches}, "
+              f"sync kernel launches {k5_std_launches}, LLR kernel "
+              f"launches {k8_launches}, BP + CRC kernel launches "
+              f"{k7_launches}, "
               f"{int(res.success.sum())} successful rows, first call "
               f"{first_s:.2f} s")
 
@@ -3169,13 +3351,14 @@ def main() -> int:
     torch.cuda.synchronize()
     k2_launches = _counter("k1.launches")
     k7_20 = _counter("k7.launches")
+    k8_20 = _counter("k8.launches")
     sets20 = _decode_sets(res20, 4)
     decoded20 = sum(bytes(payloads20[b]) in {s[0] for s in sets20[b]}
                     for b in range(4))
-    if k2_launches != 1 or k7_20 != 1 or decoded20 != 4:
+    if k2_launches != 1 or k7_20 != 1 or k8_20 != 1 or decoded20 != 4:
         raise RuntimeError(f"decode_slots at 20 kHz: waterfall / BP + CRC "
-                           f"kernel launches {k2_launches} / {k7_20} (want "
-                           f"1), yield {decoded20}/4")
+                           f"/ LLR kernel launches {k2_launches} / {k7_20} "
+                           f"/ {k8_20} (want 1), yield {decoded20}/4")
     lib20_text = _check_library(w20, p20, nf20, box=False)
     k2_ms, k2_plain_ms, k2_plain_ev, k2_lib_ms = _kernel_vs_plain_ms(
         lambda: wc.block_waterfall_tf_fused_batch(w20, p20, nf20),
@@ -3206,8 +3389,8 @@ def main() -> int:
               f"plain {plain_ms:.4f} ms ({plain_ev} device events per "
               f"call), torch.stft yardstick {lib_ms:.4f} ms ({lib_text}); "
               f"decode_slots on 4 slots at 20 kHz: yield "
-              f"{decoded20}/4, waterfall kernel launches {k2_launches}, BP "
-              f"+ CRC kernel launches {k7_20}; "
+              f"{decoded20}/4, waterfall kernel launches {k2_launches}, LLR "
+              f"kernel launches {k8_20}, BP + CRC kernel launches {k7_20}; "
               f"there batch 4 ({k2_ctas} thread blocks, {k2_waves:.2f} "
               f"waves) kernel {k2_ms:.4f} ms (bound {k2_bound[0]:.4f} ms by "
               f"{k2_bound[1]}), plain "
@@ -3233,6 +3416,7 @@ def main() -> int:
         deep_kernels[1]["launches"] += k4_new
         k6_launches += k6_new
     bp_kernel = _bp_phase(dev, smi, waves, kl.log, k7_launches)
+    llr_kernel = _llr_phase(dev, smi, waves, kl.log, k8_launches)
     k5_err = max(v for k, v in sync_diffs.items() if k.startswith("K5"))
     k6_err = max(v for k, v in sync_diffs.items() if k.startswith("K6"))
 
@@ -3258,7 +3442,8 @@ def main() -> int:
         "max_abs_err": k6_err, "ms": kt["K6 DEEP"][0],
         "plain_ms": kt["K6 DEEP"][1], "bound_ms": kt["K6 DEEP"][3][0],
         "bound_by": kt["K6 DEEP"][3][1], "library_ms": None,
-        "library_note": NO_LIBRARY["sync_scores"]}, bp_kernel]}))
+        "library_note": NO_LIBRARY["sync_scores"]}, bp_kernel,
+        llr_kernel]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

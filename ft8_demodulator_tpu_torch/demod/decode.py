@@ -664,7 +664,8 @@ def decode_waterfall(mag: torch.Tensor, g: SearchGrid, max_candidates: int,
             scores, g, max_candidates, min_score)
     with span("ft8.llrs"):
         llrs = extract_llrs(mag, abs_time, abs_freq, g.time_osr, g.freq_osr,
-                            g.num_blocks)
+                            g.num_blocks,
+                            decoder.gray_map if decoder is not None else None)
     return finish_decode(llrs, abs_time, abs_freq, score, cand_valid,
                          max_iterations, use_osd, decoder)
 

@@ -26,8 +26,11 @@ max-of-4 LLRs and normalise each vector to variance 24.
 
 The JAX package routes the reads through one-hot matmuls (a TPU
 workaround); here they are index gathers, which select the same cells
-exactly.  The direct forms' tone DFTs and the coherent path's small
-correlation products are float64 matrix products rounded once to float32
+exactly.  On a CUDA tensor the Hann and boxcar-grid routes are one launch
+of the kernel K8 (``ops/llr_cuda.py``, ``csrc/llr_gather.cu``): the same
+LLRs before scaling bit for bit, the scale within a few ulp.  The direct
+forms' tone DFTs and the coherent path's small correlation products are
+float64 matrix products rounded once to float32
 (the JAX package's HIGH precision, whatever the order of the sums and
 whether the card would use TF32).
 """
@@ -42,6 +45,7 @@ import torch
 
 from ..protocol import constants as C
 from ..utils.profiling import host_wait
+from .llr_cuda import llr_kernel
 from .subtract import _linspace_f32
 
 __all__ = ["extract_llrs", "extract_llrs_tf", "extract_llrs_matched",
@@ -79,7 +83,22 @@ def extract_llrs_tf(mag_tf: torch.Tensor, abs_time: torch.Tensor,
     abs_time may be negative (pre-roll): time indices are clamped into the
     grid for the gather and the symbols outside the waterfall are masked to
     LLR 0.  ``gray_map``: (8,) int tensor (``C.GRAY_MAP``); None builds it.
+    A CUDA tensor takes K8 (``ops/llr_cuda.py``), one launch; a CPU tensor
+    the plain version (:func:`_hann_llrs_plain`, :func:`normalize_llrs`).
     """
+    if mag_tf.device.type == "cuda":
+        return llr_kernel(mag_tf, abs_time, abs_freq, time_osr, freq_osr,
+                          num_blocks, False, gray_map)
+    return normalize_llrs(_hann_llrs_plain(mag_tf, abs_time, abs_freq,
+                                           time_osr, freq_osr, num_blocks,
+                                           gray_map))
+
+
+def _hann_llrs_plain(mag_tf: torch.Tensor, abs_time: torch.Tensor,
+                     abs_freq: torch.Tensor, time_osr: int, freq_osr: int,
+                     num_blocks: int, gray_map=None) -> torch.Tensor:
+    """Plain version of K8's Hann route: the LLRs (..., K, 174) of
+    :func:`extract_llrs_tf` before the variance-24 scaling."""
     tau, phi = time_osr, freq_osr
     num_frames, num_freqs = mag_tf.shape[-2:]
     lead = mag_tf.shape[:-2]
@@ -108,7 +127,7 @@ def extract_llrs_tf(mag_tf: torch.Tensor, abs_time: torch.Tensor,
 
     llr = _llr_from_powers(s2)                            # (..., K, 58, 3)
     llr = torch.where(valid[..., None], llr, 0.0)
-    return normalize_llrs(llr.reshape(*lead, k, C.LDPC_N))
+    return llr.reshape(*lead, k, C.LDPC_N)
 
 
 def extract_llrs(mag: torch.Tensor, abs_time: torch.Tensor,
@@ -123,9 +142,15 @@ def extract_llrs(mag: torch.Tensor, abs_time: torch.Tensor,
 
 def normalize_llrs(llr: torch.Tensor) -> torch.Tensor:
     """Scale each 174-vector to variance 24."""
+    return llr * _llr_scale(llr)[..., None]
+
+
+def _llr_scale(llr: torch.Tensor) -> torch.Tensor:
+    """(..., 174) -> (...,) the factor that scales each vector to variance
+    24 (K8's is a few ulp apart: its sums run in another order)."""
     mean = llr.mean(dim=-1, keepdim=True)
-    var = ((llr - mean) ** 2).mean(dim=-1, keepdim=True)
-    return llr * torch.sqrt(24.0 / torch.clamp(var, min=1e-30))
+    var = ((llr - mean) ** 2).mean(dim=-1)
+    return torch.sqrt(24.0 / torch.clamp(var, min=1e-30))
 
 
 # ---------------------------------------------------------------------------
@@ -135,12 +160,19 @@ def normalize_llrs(llr: torch.Tensor) -> torch.Tensor:
 def _powers_to_llrs(powers: torch.Tensor, gray_map=None) -> torch.Tensor:
     """(..., K, 58, 8) linear symbol powers in tone order -> (..., K, 174)
     normalised LLRs."""
+    return normalize_llrs(_powers_to_bit_llrs(powers, gray_map))
+
+
+def _powers_to_bit_llrs(powers: torch.Tensor, gray_map=None
+                        ) -> torch.Tensor:
+    """(..., K, 58, 8) linear symbol powers in tone order -> (..., K, 174)
+    LLRs before the variance-24 scaling."""
     if gray_map is None:
         with host_wait("ft8.llrs.wait"):
             gray_map = torch.as_tensor(C.GRAY_MAP, device=powers.device)
     s2 = (10.0 * torch.log10(1e-12 + powers))[..., gray_map.to(torch.int64)]
     llr = _llr_from_powers(s2)
-    return normalize_llrs(llr.reshape(*powers.shape[:-2], C.LDPC_N))
+    return llr.reshape(*powers.shape[:-2], C.LDPC_N)
 
 
 def extract_llrs_matched_grid(box_tf: torch.Tensor, abs_time: torch.Tensor,
@@ -153,8 +185,22 @@ def extract_llrs_matched_grid(box_tf: torch.Tensor, abs_time: torch.Tensor,
     at block j - (time_osr - 1) (``ops/waterfall.py`` ``_block_boxcar_tf``
     or the dual-output kernel's second output), so symbol s of a candidate
     at abs_time reads row abs_time + s * time_osr + time_osr - 1.  Rows
-    outside the grid read power 0.
+    outside the grid read power 0.  A CUDA tensor takes K8
+    (``ops/llr_cuda.py``), one launch; a CPU tensor the plain version
+    (:func:`_grid_llrs_plain`, :func:`normalize_llrs`).
     """
+    if box_tf.device.type == "cuda":
+        return llr_kernel(box_tf, abs_time, abs_freq, time_osr, freq_osr, 0,
+                          True, gray_map)
+    return normalize_llrs(_grid_llrs_plain(box_tf, abs_time, abs_freq,
+                                           time_osr, freq_osr, gray_map))
+
+
+def _grid_llrs_plain(box_tf: torch.Tensor, abs_time: torch.Tensor,
+                     abs_freq: torch.Tensor, time_osr: int, freq_osr: int,
+                     gray_map=None) -> torch.Tensor:
+    """Plain version of K8's boxcar route: the LLRs (..., K, 174) of
+    :func:`extract_llrs_matched_grid` before the variance-24 scaling."""
     tau, phi = time_osr, freq_osr
     nbrows, num_freqs = box_tf.shape[-2:]
     lead = box_tf.shape[:-2]
@@ -173,7 +219,7 @@ def extract_llrs_matched_grid(box_tf: torch.Tensor, abs_time: torch.Tensor,
                           flat.reshape(*lead, k * 58 * 8)
                           ).reshape(*lead, k, 58, 8)
     powers = torch.where(valid[..., None], powers, 0.0)
-    return _powers_to_llrs(powers, gray_map)
+    return _powers_to_bit_llrs(powers, gray_map)
 
 
 def _mf_block_powers(spec: torch.Tensor, abs_time: torch.Tensor,

@@ -3,7 +3,11 @@ waterfall (dB only and dual output), the OSD kernel (reliability order ->
 reduced bases), the sync stencil (time-major and frequency-major, the
 generic instance's shrunk tiles included) and BP + CRC (K7; the slot
 decodes and the host API through K7 or through the plain loop on the card
-give equal results); the limits left on the card
+give equal results), the LLRs (K8 at the batch cells' and the station's
+shapes: the plain routes' LLRs before scaling bit for bit, the scale
+within 4 ulp and equal to the numpy model's, one launch a call and no
+host wait; its launches on the decode paths, none in a beacon cycle);
+the limits left on the card
 raise ValueErrors; the host decode API on the card against the CPU; the
 direct, refined and coherent matched-filter LLRs on the card against the
 CPU;
@@ -979,3 +983,145 @@ def test_parallel_ranks_on_one_card_match_cpu(cuda):
         # a stream block, its pre-roll and a band: one sync launch each
         assert k6 == 3 and k4 >= 1
     assert len(card[0][0]) == 2 and card[0][1].success.any()
+
+
+def _k8_front(kind, cuda):
+    """The LLR layer's input at the three shapes the cells run: the first
+    STANDARD chunk of chip_smoke.py's 0-dB slots (16 time-major dB grids,
+    K 20), the first DEEP chunk (8 boxcar grids, K 40) and the crowded
+    capture's band crop (a frequency-major view cropped in frequency and
+    time, read as its (T, F) transpose, K 20), with the top-K candidates
+    the decoders hand the layer.  Returns the route's arguments and the
+    rest of the front for finish_decode."""
+    from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_real
+
+    cs = _chip_smoke()
+    if kind == "station":
+        p = waterfall_params(cs.FS, 2, 2)
+        wave = torch.as_tensor(cs._crowded_capture()[0], device=cuda)
+        nf = p.num_frames(wave.shape[0])
+        mag = waterfall_real(wave, p, nf)[40: 440, 10: nf - 10]
+        g = tsync.search_grid(mag.shape[0], mag.shape[1], 2, 2)
+        at, af, score, valid = tsync.find_candidates(
+            tsc.sync_scores_kernel(mag, g), g, 20, 10.0)
+        return dict(grid=mag.transpose(-1, -2), at=at, af=af, score=score,
+                    valid=valid, g=g, matched=False, gray=None,
+                    decoder=tdec.slot_decoder(p, nf, cuda))
+    deep = kind == "deep"
+    p = waterfall_params(cs.FS, *((4, 4) if deep else (2, 2)))
+    waves, _ = cs._synth_slots(cuda, batch=8 if deep else 16)
+    nf = p.num_frames(waves.shape[1])
+    decoder = tdec.slot_decoder(p, nf, cuda)
+    consts = decoder.waterfall_consts()
+    if deep:
+        mags, grid = twc.block_waterfall_mf_tf_fused_batch(waves, p, nf,
+                                                           consts)
+    else:
+        grid = mags = twc.block_waterfall_tf_fused_batch(waves, p, nf, consts)
+    at, af, score, valid = tdec._candidates(
+        mags, decoder.g, 40 if deep else 20, 1.0 if deep else 10.0, decoder)
+    return dict(grid=grid, at=at, af=af, score=score, valid=valid,
+                g=decoder.g, matched=deep, gray=decoder.gray_map,
+                decoder=decoder)
+
+
+def _k8_plain_raw(x):
+    g = x["g"]
+    if x["matched"]:
+        return tllr._grid_llrs_plain(x["grid"], x["at"], x["af"], g.time_osr,
+                                     g.freq_osr, x["gray"])
+    return tllr._hann_llrs_plain(x["grid"], x["at"], x["af"], g.time_osr,
+                                 g.freq_osr, g.num_blocks, x["gray"])
+
+
+@pytest.mark.parametrize("kind", ["standard", "deep", "station"])
+def test_k8_matches_plain_route(cuda, kind):
+    """K8 against the plain route on the card: each row equal bit for bit
+    to the plain LLRs before scaling times the numpy model's scale from
+    them (one comparison for the gather and the scale: the kernel's product
+    rounds as PyTorch's does), the model's scale within 4 ulp of the plain
+    one; one k8 launch a call and no host wait; the same decodes through
+    finish_decode."""
+    import _torch_k8_model as k8
+    from ft8_demodulator_tpu_torch.ops import llr_cuda as tlk
+
+    x = _k8_front(kind, cuda)
+    g = x["g"]
+    args = (x["grid"], x["at"], x["af"], g.time_osr, g.freq_osr,
+            g.num_blocks, x["matched"], x["gray"])
+    tlk.llr_kernel(*args)               # the station's Gray map, copied once
+    torch.cuda.synchronize()
+    before = counters()
+    llrs = tlk.llr_kernel(*args)
+    after = counters()
+    assert after.get("k8.launches", 0) == before.get("k8.launches", 0) + 1
+    assert after.get("waits", 0) == before.get("waits", 0)
+    want = _k8_plain_raw(x)
+    torch.cuda.synchronize()
+    assert llrs.shape == want.shape == x["at"].shape + (174,)
+    assert torch.isfinite(want).all()
+    scale = torch.as_tensor(k8.scales(want.cpu().numpy().reshape(-1, 174)),
+                            device=cuda).reshape(want.shape[:-1])
+    assert torch.equal(llrs, want * scale[..., None]), \
+        int((llrs != want * scale[..., None]).sum())
+    plain_scale = tllr._llr_scale(want)
+    assert k8.ulps(scale.cpu().numpy(), plain_scale.cpu().numpy()).max() <= 4
+    # the routes' entry points take K8 on the card
+    before = counters().get("k8.launches", 0)
+    if x["matched"]:
+        routed = tllr.extract_llrs_matched_grid(x["grid"], x["at"], x["af"],
+                                                g.time_osr, g.freq_osr,
+                                                x["gray"])
+    elif kind == "station":
+        routed = tllr.extract_llrs(x["grid"].transpose(-1, -2), x["at"],
+                                   x["af"], g.time_osr, g.freq_osr,
+                                   g.num_blocks)
+    else:
+        routed = tllr.extract_llrs_tf(x["grid"], x["at"], x["af"],
+                                      g.time_osr, g.freq_osr, g.num_blocks,
+                                      x["gray"])
+    assert counters().get("k8.launches", 0) == before + 1
+    assert torch.equal(routed, llrs)
+    # the same decodes through finish_decode (BP + CRC, OSD on DEEP)
+    front = [a.reshape(-1, *a.shape[x["at"].dim():])
+             for a in (x["at"], x["af"], x["score"], x["valid"])]
+    use_osd = x["matched"]
+    got, ref = (tdec.finish_decode(v.reshape(-1, 174), *front, 20, use_osd,
+                                   x["decoder"])
+                for v in (llrs, tllr.normalize_llrs(want)))
+    lift = lambda r: tdec.SlotDecodeResult(*(a[None] for a in r))
+    assert _decode_sets(lift(got), 0) == _decode_sets(lift(ref), 0)
+    assert got.success.any()
+
+
+def test_k8_on_the_batch_and_station_paths(cuda):
+    """decode_slots launches K8 once a chunk and waits for the card nowhere
+    on the STANDARD route; a capture's decode once; a BeaconSession cycle
+    (block-spectra matched LLRs) never."""
+    from ft8_demodulator_tpu_torch.demod import BeaconSession
+
+    cs = _chip_smoke()
+    waves, _ = cs._synth_slots(cuda, batch=16)
+    for osr, kw, chunks in (((2, 2), dict(chunk=8), 2),
+                            ((4, 4), dict(chunk=4, max_candidates=40,
+                                          min_score=1.0, use_osd=True,
+                                          mf_first=True), 4)):
+        p = waterfall_params(cs.FS, *osr)
+        nf = p.num_frames(waves.shape[1])
+        tdec.decode_slots(waves, p, nf, **kw)       # builds the decoder
+        before = counters()
+        tdec.decode_slots(waves, p, nf, **kw)
+        after = counters()
+        assert after["k8.launches"] - before["k8.launches"] == chunks
+        if osr == (2, 2):
+            assert after.get("waits", 0) == before.get("waits", 0)
+    before = counters()["k8.launches"]
+    tdec.decode_ft8_message(cs._crowded_capture()[0], cs.FS, device=cuda)
+    assert counters()["k8.launches"] == before + 1
+    stream, *_ = cs._beacon_stream()
+    session = BeaconSession(cs.BEACON_FS, device=cuda, **cs.BEACON_SESSION)
+    before = counters()
+    session.feed(stream[: int(cs.BEACON_FS * cs.SLOT_S) + 1])
+    after = counters()
+    assert after.get("k7.launches", 0) > before.get("k7.launches", 0)
+    assert after.get("k8.launches", 0) == before.get("k8.launches", 0)
