@@ -3051,8 +3051,8 @@ def _bp_phase(dev, smi: str, waves, log: str, launches: int) -> dict:
     texts, times = [], {}
     for label, llrs in _bp_inputs(dev, waves).items():
         flat = llrs.reshape(-1, 174).contiguous()
-        got = bp.bp_crc_batch(flat, BP_ITERATIONS, tables)
-        want = bp.bp_crc_batch_plain(flat, BP_ITERATIONS, tables)
+        got = bp.bp_crc_batch(flat, BP_ITERATIONS)
+        want = bp.bp_crc_batch_plain(flat, BP_ITERATIONS)
         torch.cuda.synchronize()
         bad = [f for f, a, b in zip(want._fields, got, want)
                if not torch.equal(a, b)]
@@ -3060,7 +3060,7 @@ def _bp_phase(dev, smi: str, waves, log: str, launches: int) -> dict:
             raise RuntimeError(f"K7 vs plain on {label}: {bad} differ")
         kernel_ms, plain_ms, plain_ev, _ = _kernel_vs_plain_ms(
             lambda: lc.bp_crc_kernel(flat, BP_ITERATIONS, tables.k7_table),
-            lambda: bp.bp_crc_batch_plain(flat, BP_ITERATIONS, tables),
+            lambda: bp.bp_crc_batch_plain(flat, BP_ITERATIONS),
             "ldpc_bp_kernel", reps=20, plain_reps=3)
         bound_ms = lc.bp_bound(got.iterations) * 1e3
         it = got.iterations.float()
@@ -3109,6 +3109,7 @@ def _llr_inputs(dev, waves) -> dict:
     from ft8_demodulator_tpu_torch.demod import decode as dec
     from ft8_demodulator_tpu_torch.ops import waterfall_cuda as wc
     from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
+    from ft8_demodulator_tpu_torch.protocol.tables import device_table
 
     out = {}
     for label, osr, chunk, k, min_score, matched in (
@@ -3126,9 +3127,9 @@ def _llr_inputs(dev, waves) -> dict:
         else:
             grid = mags = wc.block_waterfall_tf_fused_batch(
                 w, p, nf, decoder.waterfall_consts())
-        at, af, _, _ = dec._candidates(mags, decoder.g, k, min_score,
-                                       decoder)
-        out[label] = (grid, at, af, decoder.g, matched, decoder.gray_map)
+        at, af, _, _ = dec._candidates(mags, decoder.g, k, min_score)
+        out[label] = (grid, at, af, decoder.g, matched,
+                      device_table("GRAY_MAP", dev))
     return out
 
 
@@ -3148,11 +3149,11 @@ def _llr_phase(dev, smi: str, waves, log: str, launches: int) -> dict:
         if matched:
             def plain_raw():
                 return ll._grid_llrs_plain(grid, at, af, g.time_osr,
-                                           g.freq_osr, gray)
+                                           g.freq_osr)
         else:
             def plain_raw():
                 return ll._hann_llrs_plain(grid, at, af, g.time_osr,
-                                           g.freq_osr, g.num_blocks, gray)
+                                           g.freq_osr, g.num_blocks)
         llrs = lk.llr_kernel(*args)
         want = plain_raw()
         torch.cuda.synchronize()

@@ -37,13 +37,13 @@ variant that passes the CRC: decodes are a superset of the first pass.
 frequency with a coherent known-payload fix (``beacon/detect.py``
 ``track_known_payload``).
 
-The per-geometry constants (DFT matrices, combine phases, BP routing,
-parity-check and CRC matrices, Gray map, OSD basis and row syndromes, and
-on the card the waterfall kernels' packed weights) are the buffers of one
-``SlotDecoder`` module, cached per (geometry, device); ``.to(device)``
-moves them.
-``SlotDecoder.from_arrays`` loads them from numpy arrays, for instance the
-ones the JAX package builds.
+A constant reaches a device once: the protocol's tables through
+``protocol/tables.py`` ``device_table``, the BP, CRC and OSD tables and
+the LLR index sets through the caches of the ``ops/`` module that derives
+them, and a slot geometry's waterfall constants (DFT matrices, combine
+phases, on the card the kernels' packed weights) as the buffers of one
+``SlotDecoder`` module, cached per (geometry, device) by
+:func:`slot_decoder`.  No function here takes a constant as an argument.
 
 Each stage runs inside a span (``utils/profiling.py`` ``span``) named
 ``ft8.<stage>`` (waterfall, sync, top_k, llrs, decode, osd inside decode,
@@ -66,8 +66,7 @@ import torch
 from torch import nn
 
 from ..beacon.detect import track_known_payload
-from ..ops.ldpc_decode import BPTables, _build_routing, bp_crc_batch, \
-    crc_of_plain, make_bp_tables
+from ..ops.ldpc_decode import bp_crc_batch, crc_of_plain
 from ..ops import osd
 from ..ops.llr import (extract_llrs, extract_llrs_coherent,
                        extract_llrs_matched, extract_llrs_matched_blocks,
@@ -99,62 +98,28 @@ __all__ = ["SlotDecoder", "decoder_arrays", "slot_decoder", "decode_slot",
            "coherent_retry", "estimate_snr"]
 
 
-def decoder_arrays(p: WaterfallParams, num_frames: int
-                   ) -> dict[str, np.ndarray]:
-    """The constants of one geometry as numpy arrays, from this package's
-    builders (the keys :meth:`SlotDecoder.from_arrays` reads)."""
+def decoder_arrays(p: WaterfallParams) -> dict[str, np.ndarray]:
+    """The waterfall constants of one geometry as numpy arrays, from this
+    package's builders (the buffers of :class:`SlotDecoder`)."""
     dft_cos, dft_sin = _block_dft_matrices(p.hop, p.nfft, p.num_freq_bins,
                                            p.freq_osr)
     combine_cos, combine_sin = _block_combine_phases(p)
-    var_of_mi, nj_of_mi, mi_of_nj, mi_mask = _build_routing()
-    return {
-        "fs": np.asarray(p.fs), "freq_osr": np.asarray(p.freq_osr),
-        "time_osr": np.asarray(p.time_osr),
-        "num_frames": np.asarray(num_frames),
-        "dft_cos": dft_cos, "dft_sin": dft_sin,
-        "combine_cos": combine_cos, "combine_sin": combine_sin,
-        "var_of_mi": var_of_mi, "nj_of_mi": nj_of_mi, "mi_of_nj": mi_of_nj,
-        "mi_mask": mi_mask,
-        "parity_check": C.PARITY_CHECK, "crc_matrix_77": C.CRC_MATRIX_77,
-        "gray_map": C.GRAY_MAP,
-        "osd_basis": osd._basis(), "osd_row_syndromes": osd._ROW_SYNDROMES_NP,
-    }
+    return {"dft_cos": dft_cos, "dft_sin": dft_sin,
+            "combine_cos": combine_cos, "combine_sin": combine_sin}
 
 
 class SlotDecoder(nn.Module):
-    """Constants of the decode for one (geometry, num_frames), as
-    registered buffers."""
+    """The waterfall constants of one (geometry, num_frames), as registered
+    buffers, and its search grid ``g``."""
 
-    def __init__(self, arrays: dict[str, np.ndarray]):
+    def __init__(self, p: WaterfallParams, num_frames: int):
         super().__init__()
-        self.p = waterfall_params(float(arrays["fs"]),
-                                  int(arrays["freq_osr"]),
-                                  int(arrays["time_osr"]))
-        self.num_frames = int(arrays["num_frames"])
-        p = self.p
-        self.g = search_grid(p.num_freq_bins, self.num_frames, p.time_osr,
+        self.p = p
+        self.g = search_grid(p.num_freq_bins, num_frames, p.time_osr,
                              p.freq_osr)
-        kx = p.num_freq_bins + 2 * p.freq_osr
-        shapes = {
-            "dft_cos": (p.hop, kx), "dft_sin": (p.hop, kx),
-            "combine_cos": (p.time_osr, kx), "combine_sin": (p.time_osr, kx),
-            "var_of_mi": (C.LDPC_M * C.CHECK_MAX_DEG,),
-            "nj_of_mi": (C.LDPC_M * C.CHECK_MAX_DEG,),
-            "mi_of_nj": (C.LDPC_N * C.VAR_MAX_DEG,),
-            "mi_mask": (C.LDPC_M * C.CHECK_MAX_DEG,),
-            "parity_check": (C.LDPC_M, C.LDPC_N),
-            "crc_matrix_77": (C.CRC_BITS, C.PAYLOAD_BITS),
-            "gray_map": (8,),
-            "osd_basis": (C.LDPC_K, C.LDPC_N),
-            "osd_row_syndromes": (C.LDPC_K, C.CRC_BITS),
-        }
-        for key, shape in shapes.items():
-            if np.shape(arrays[key]) != shape:
-                raise ValueError(f"{key}: shape {np.shape(arrays[key])}, "
-                                 f"want {shape} for {p}")
-
-        t = lambda key, dtype: torch.as_tensor(np.asarray(arrays[key])) \
-            .to(dtype).contiguous()
+        arrays = decoder_arrays(p)
+        t = lambda key, dtype: torch.as_tensor(arrays[key]).to(dtype) \
+            .contiguous()
         self.register_buffer("dft_cos", t("dft_cos", torch.bfloat16))
         self.register_buffer("dft_sin", t("dft_sin", torch.bfloat16))
         self.register_buffer("combine_cos", t("combine_cos", torch.float32))
@@ -162,24 +127,6 @@ class SlotDecoder(nn.Module):
         # the waterfall kernels' packed weights, built on the card at first
         # use (waterfall_consts): the CPU's plain version does not read them
         self.register_buffer("dft_packed", None)
-        bp = make_bp_tables(arrays["var_of_mi"], arrays["nj_of_mi"],
-                            arrays["mi_of_nj"], arrays["mi_mask"],
-                            arrays["parity_check"], "cpu",
-                            arrays["crc_matrix_77"])
-        for key, value in bp._asdict().items():
-            self.register_buffer(key, value)
-        self.register_buffer("gray_map", t("gray_map", torch.int64))
-        tables = osd.make_osd_tables(arrays["osd_basis"],
-                                     arrays["osd_row_syndromes"], "cpu")
-        for key, value in tables._asdict().items():
-            self.register_buffer(f"osd_{key}", value)
-
-    @classmethod
-    def from_arrays(cls, arrays: dict[str, np.ndarray],
-                    device) -> "SlotDecoder":
-        """A decoder on ``device`` from numpy arrays under the keys of
-        :func:`decoder_arrays`."""
-        return cls(arrays).to(device)
 
     def waterfall_consts(self):
         """The waterfall wrappers' constants: the four plain ones on the
@@ -194,49 +141,37 @@ class SlotDecoder(nn.Module):
                                            self.p)
         return consts + (self.dft_packed,)
 
-    def bp_tables(self) -> BPTables:
-        return BPTables(*(getattr(self, f) for f in BPTables._fields))
-
-    def osd_tables(self) -> osd.OSDTables:
-        return osd.OSDTables(*(getattr(self, f"osd_{f}")
-                               for f in osd.OSDTables._fields))
-
 
 @functools.lru_cache(maxsize=8)
 def slot_decoder(p: WaterfallParams, num_frames: int,
                  device: torch.device) -> SlotDecoder:
     """The decoder of one geometry on ``device``, built once and cached."""
-    return SlotDecoder.from_arrays(decoder_arrays(p, num_frames), device)
+    return SlotDecoder(p, num_frames).to(device)
 
 
 @span("ft8.decode")
 def finish_decode(llrs: torch.Tensor, abs_time: torch.Tensor,
                   abs_freq: torch.Tensor, score: torch.Tensor,
                   cand_valid: torch.Tensor, max_iterations: int = 20,
-                  use_osd: bool = False, decoder: SlotDecoder | None = None
-                  ) -> SlotDecodeResult:
+                  use_osd: bool = False) -> SlotDecodeResult:
     """(..., 174) LLRs + candidate metadata -> SlotDecodeResult.
 
     BP + CRC (``ops/ldpc_decode.py bp_crc_batch``: one K7 launch on the
     card) -> payload pack.  ``use_osd`` runs ordered-statistics decoding
     (``ops/osd.py``) on the valid candidates whose BP decode did not pass
     the CRC; an accepted OSD codeword replaces the BP one (its ldpc_errors
-    read 0) and the CRC is taken again.  ``decoder`` supplies the BP, CRC
-    and OSD tables; None builds them.
+    read 0) and the CRC is taken again.
     """
-    tables = decoder.bp_tables() if decoder is not None else None
-    crc_t = decoder.crc_t if decoder is not None else None
     plain, ldpc_errors, crc_calc, crc_extracted, _ = bp_crc_batch(
-        llrs, max_iterations, tables)
+        llrs, max_iterations)
 
     if use_osd:
         bp_success = (ldpc_errors == 0) & (crc_calc == crc_extracted)
-        osd_plain, take = osd.osd_decode_masked(
-            llrs, cand_valid & ~bp_success,
-            tables=decoder.osd_tables() if decoder is not None else None)
+        osd_plain, take = osd.osd_decode_masked(llrs,
+                                                cand_valid & ~bp_success)
         plain = torch.where(take[..., None], osd_plain, plain)
         ldpc_errors = torch.where(take, 0, ldpc_errors)
-        crc_calc, crc_extracted = crc_of_plain(plain, crc_t)
+        crc_calc, crc_extracted = crc_of_plain(plain)
 
     # payload bytes: 77 bits + 3 zero pad, packed MSB-first
     lead = plain.shape[:-1]
@@ -275,8 +210,8 @@ def _merge_results(res: SlotDecodeResult,
 
 
 def _mf_llrs(wave: torch.Tensor, p: WaterfallParams, abs_time: torch.Tensor,
-             abs_freq: torch.Tensor, decoder: SlotDecoder | None = None,
-             refine: bool = False, is_complex: bool = False):
+             abs_freq: torch.Tensor, refine: bool = False,
+             is_complex: bool = False):
     """Matched-filter LLRs for candidates at absolute audio coordinates.
 
     ``wave``: (n,) real or (n, 2) [re, im] with ``is_complex``.  Where the
@@ -296,16 +231,14 @@ def _mf_llrs(wave: torch.Tensor, p: WaterfallParams, abs_time: torch.Tensor,
                                         p.hop, p.freq_osr, is_complex)
         x = _as_complex(wave) if is_complex else wave
         spec = _block_spectrum(x, p, p.num_frames(x.shape[-1]))
-        return extract_llrs_matched_blocks(
-            spec, abs_time, abs_freq, p.time_osr, p.freq_osr,
-            decoder.gray_map if decoder is not None else None)
+        return extract_llrs_matched_blocks(spec, abs_time, abs_freq,
+                                           p.time_osr, p.freq_osr)
 
 
 def mf_retry(wave: torch.Tensor, p: WaterfallParams, res: SlotDecodeResult,
              t0_hops: int = 0, f0_rows: int = 0, max_iterations: int = 20,
              use_osd: bool = False, is_complex: bool = False,
-             mf_refine: bool = False,
-             decoder: SlotDecoder | None = None) -> SlotDecodeResult:
+             mf_refine: bool = False) -> SlotDecodeResult:
     """Matched-filter second chance for candidates BP(+OSD) could not
     crack.
 
@@ -318,16 +251,16 @@ def mf_retry(wave: torch.Tensor, p: WaterfallParams, res: SlotDecodeResult,
     [re, im] with ``is_complex``.
     """
     llrs = _mf_llrs(wave, p, res.abs_time + t0_hops, res.abs_freq + f0_rows,
-                    decoder, mf_refine, is_complex)
+                    mf_refine, is_complex)
     for v in (llrs if mf_refine else (llrs,)):
         res = _merge_results(res, finish_decode(
             v, res.abs_time, res.abs_freq, res.score, res.candidate_valid,
-            max_iterations, use_osd, decoder))
+            max_iterations, use_osd))
     return res
 
 
 def _candidates(mag_tf: torch.Tensor, g: SearchGrid, max_candidates: int,
-                min_score: float, decoder: SlotDecoder | None):
+                min_score: float):
     """Time-major dB grid(s) (..., T, F) -> sync (the stencil kernel on the
     card) -> top-K."""
     with span("ft8.sync"):
@@ -337,50 +270,34 @@ def _candidates(mag_tf: torch.Tensor, g: SearchGrid, max_candidates: int,
 
 
 def _front_from_mag_tf(mag_tf: torch.Tensor, g: SearchGrid,
-                       max_candidates: int, min_score: float,
-                       decoder: SlotDecoder | None = None):
+                       max_candidates: int, min_score: float):
     """Time-major dB grid(s) (..., T, F) -> sync -> top-K -> Hann LLRs (no
     BP)."""
-    gray = decoder.gray_map if decoder is not None else None
     abs_time, abs_freq, score, cand_valid = _candidates(
-        mag_tf, g, max_candidates, min_score, decoder)
+        mag_tf, g, max_candidates, min_score)
     with span("ft8.llrs"):
         llrs = extract_llrs_tf(mag_tf, abs_time, abs_freq, g.time_osr,
-                               g.freq_osr, g.num_blocks, gray)
+                               g.freq_osr, g.num_blocks)
     return llrs, abs_time, abs_freq, score, cand_valid
 
 
 def _front_mf_grid(mag_tf: torch.Tensor, box_tf: torch.Tensor,
-                   g: SearchGrid, max_candidates: int, min_score: float,
-                   decoder: SlotDecoder | None = None):
+                   g: SearchGrid, max_candidates: int, min_score: float):
     """dB grid(s) (..., T, F) + boxcar grid(s) (..., T + 2(tau-1), F) ->
     sync -> top-K on the dB grid -> MF LLRs from the boxcar grid."""
-    gray = decoder.gray_map if decoder is not None else None
     abs_time, abs_freq, score, cand_valid = _candidates(
-        mag_tf, g, max_candidates, min_score, decoder)
+        mag_tf, g, max_candidates, min_score)
     with span("ft8.llrs"):
         llrs = extract_llrs_matched_grid(box_tf, abs_time, abs_freq,
-                                         g.time_osr, g.freq_osr, gray)
+                                         g.time_osr, g.freq_osr)
     return llrs, abs_time, abs_freq, score, cand_valid
-
-
-def _check_decoder(decoder: SlotDecoder, p: WaterfallParams,
-                   num_frames: int, device: torch.device) -> None:
-    if decoder.p != p or decoder.num_frames != num_frames:
-        raise ValueError(f"decoder built for {decoder.p}, "
-                         f"{decoder.num_frames} frames; got {p}, "
-                         f"{num_frames}")
-    if decoder.dft_cos.device != device:
-        raise ValueError(f"decoder on {decoder.dft_cos.device}, "
-                         f"audio on {device}")
 
 
 def decode_slots(waves: torch.Tensor, p: WaterfallParams, num_frames: int,
                  max_candidates: int = 20, min_score: float = 10.0,
                  max_iterations: int = 20, use_osd: bool = False,
                  mf_first: bool = False,
-                 chunk: int = 16, bp_chunk: int = 256,
-                 decoder: SlotDecoder | None = None) -> SlotDecodeResult:
+                 chunk: int = 16, bp_chunk: int = 256) -> SlotDecodeResult:
     """Batched real audio (B, n) f32 -> SlotDecodeResult with (B, K) rows.
 
     * the front half runs in pieces of `chunk` slots, one waterfall launch
@@ -392,24 +309,22 @@ def decode_slots(waves: torch.Tensor, p: WaterfallParams, num_frames: int,
       exit waits for the slowest row of a group.
 
     B must be a multiple of `chunk`; `bp_chunk` is clamped to B and rounded
-    down to a divisor of B.  ``decoder`` defaults to the cached one of this
-    geometry on the device of ``waves``.  On a geometry the block backend
-    does not take, each slot decodes through :func:`decode_slot` (the JAX
-    package's chunked ``vmap(decode_slot)``).
+    down to a divisor of B.  The waterfall constants are the cached
+    :func:`slot_decoder` of this geometry on the device of ``waves``.  On a
+    geometry the block backend does not take, each slot decodes through
+    :func:`decode_slot` (the JAX package's chunked ``vmap(decode_slot)``).
     """
     b = waves.shape[0]
     if b % chunk:
         raise ValueError(f"batch {b} not a multiple of chunk {chunk}")
     count("slots", b)
-    if decoder is None:
-        decoder = slot_decoder(p, num_frames, waves.device)
-    _check_decoder(decoder, p, num_frames, waves.device)
     if _pick_backend(p, None) != "block":
         rows = [decode_slot(w, p, num_frames, max_candidates, min_score,
                             max_iterations, use_osd=use_osd,
-                            mf_first=mf_first, decoder=decoder)
+                            mf_first=mf_first)
                 for w in waves]
         return SlotDecodeResult(*(torch.stack(parts) for parts in zip(*rows)))
+    decoder = slot_decoder(p, num_frames, waves.device)
     g = decoder.g
 
     fronts = []
@@ -420,13 +335,13 @@ def decode_slots(waves: torch.Tensor, p: WaterfallParams, num_frames: int,
                 mags, boxes = block_waterfall_mf_tf_fused_batch(
                     w, p, num_frames, consts)
             fronts.append(_front_mf_grid(mags, boxes, g, max_candidates,
-                                         min_score, decoder))
+                                         min_score))
         else:
             with span("ft8.waterfall"):
                 mags = block_waterfall_tf_fused_batch(w, p, num_frames,
                                                       consts)
             fronts.append(_front_from_mag_tf(mags, g, max_candidates,
-                                             min_score, decoder))
+                                             min_score))
     # (B*K, ...) candidate rows: llrs, abs_time, abs_freq, score, valid
     front = [torch.cat(parts).flatten(0, 1) for parts in zip(*fronts)]
     count("candidates.rows", front[4].numel())
@@ -437,7 +352,7 @@ def decode_slots(waves: torch.Tensor, p: WaterfallParams, num_frames: int,
         bp_chunk -= 1
     rows = bp_chunk * max_candidates
     groups = [finish_decode(*(a[i: i + rows] for a in front),
-                            max_iterations, use_osd, decoder)
+                            max_iterations, use_osd)
               for i in range(0, b * max_candidates, rows)]
     return SlotDecodeResult(*(
         torch.cat(parts).reshape(b, max_candidates, *parts[0].shape[1:])
@@ -452,8 +367,7 @@ def decode_slot(wave: torch.Tensor, p: WaterfallParams, num_frames: int,
                 use_mf: bool = False,
                 mf_first: bool = False,
                 mf_refine: bool = False,
-                coherent: bool = False,
-                decoder: SlotDecoder | None = None) -> SlotDecodeResult:
+                coherent: bool = False) -> SlotDecodeResult:
     """Audio (n,) real, or (n, 2) [re, im] with ``is_complex`` ->
     SlotDecodeResult (K rows).
 
@@ -469,46 +383,43 @@ def decode_slot(wave: torch.Tensor, p: WaterfallParams, num_frames: int,
     :func:`decode_waterfall_mf`).  ``coherent`` then adds
     :func:`coherent_retry`.
     """
-    if decoder is None:
-        decoder = slot_decoder(p, num_frames, wave.device)
-    _check_decoder(decoder, p, num_frames, wave.device)
     if is_complex or _pick_backend(p, None) != "block" \
             or (mf_first and mf_refine):
+        g = search_grid(p.num_freq_bins, num_frames, p.time_osr, p.freq_osr)
         with span("ft8.waterfall"):
             mag = waterfall_complex(wave, p, num_frames) if is_complex \
                 else waterfall_real(wave, p, num_frames)
         if mf_first:
-            res = decode_waterfall_mf(mag, wave, p, decoder.g, 0, 0,
-                                      max_candidates, min_score,
-                                      max_iterations, use_osd, is_complex,
-                                      mf_refine=mf_refine, decoder=decoder)
+            res = decode_waterfall_mf(mag, wave, p, g, 0, 0, max_candidates,
+                                      min_score, max_iterations, use_osd,
+                                      is_complex, mf_refine=mf_refine)
         else:
-            res = decode_waterfall(mag, decoder.g, max_candidates,
-                                   min_score, max_iterations, use_osd,
-                                   decoder=decoder)
+            res = decode_waterfall(mag, g, max_candidates, min_score,
+                                   max_iterations, use_osd)
             if use_mf:
                 res = mf_retry(wave, p, res, 0, 0, max_iterations, use_osd,
-                               is_complex, mf_refine, decoder)
-    elif mf_first:
-        with span("ft8.waterfall"):
-            mags, boxes = block_waterfall_mf_tf_fused_batch(
-                wave[None], p, num_frames, decoder.waterfall_consts())
-        outs = _front_mf_grid(mags[0], boxes[0], decoder.g, max_candidates,
-                              min_score, decoder)
-        res = finish_decode(*outs, max_iterations, use_osd, decoder)
+                               is_complex, mf_refine)
     else:
-        with span("ft8.waterfall"):
-            mag_tf = block_waterfall_tf_fused_batch(
-                wave[None], p, num_frames, decoder.waterfall_consts())[0]
-        outs = _front_from_mag_tf(mag_tf, decoder.g, max_candidates,
-                                  min_score, decoder)
-        res = finish_decode(*outs, max_iterations, use_osd, decoder)
-        if use_mf:
+        decoder = slot_decoder(p, num_frames, wave.device)
+        if mf_first:
+            with span("ft8.waterfall"):
+                mags, boxes = block_waterfall_mf_tf_fused_batch(
+                    wave[None], p, num_frames, decoder.waterfall_consts())
+            outs = _front_mf_grid(mags[0], boxes[0], decoder.g,
+                                  max_candidates, min_score)
+        else:
+            with span("ft8.waterfall"):
+                mag_tf = block_waterfall_tf_fused_batch(
+                    wave[None], p, num_frames, decoder.waterfall_consts())[0]
+            outs = _front_from_mag_tf(mag_tf, decoder.g, max_candidates,
+                                      min_score)
+        res = finish_decode(*outs, max_iterations, use_osd)
+        if use_mf and not mf_first:
             res = mf_retry(wave, p, res, 0, 0, max_iterations, use_osd,
-                           False, mf_refine, decoder)
+                           False, mf_refine)
     if coherent:
         res = coherent_retry(wave, p, res, 0, 0, max_iterations, use_osd,
-                             is_complex, decoder=decoder)
+                             is_complex)
     return res
 
 
@@ -517,8 +428,7 @@ def decode_slot(wave: torch.Tensor, p: WaterfallParams, num_frames: int,
 # ---------------------------------------------------------------------------
 
 def variant_retry(llrs: torch.Tensor, res: SlotDecodeResult,
-                  max_iterations: int, use_osd: bool,
-                  decoder: SlotDecoder | None = None) -> SlotDecodeResult:
+                  max_iterations: int, use_osd: bool) -> SlotDecodeResult:
     """(B, K, 174) LLR variants -> per-candidate first valid decode.
 
     All B*K rows run one BP(+OSD) batch (one OSD kernel launch) and each
@@ -530,8 +440,7 @@ def variant_retry(llrs: torch.Tensor, res: SlotDecodeResult,
     rep = lambda a: a.repeat(b, *([1] * (a.ndim - 1)))
     sub = finish_decode(llrs.reshape(b * k, C.LDPC_N), rep(res.abs_time),
                         rep(res.abs_freq), rep(res.score),
-                        rep(res.candidate_valid), max_iterations, use_osd,
-                        decoder)
+                        rep(res.candidate_valid), max_iterations, use_osd)
     succ = sub.success.reshape(b, k)
     idx = torch.argmax(succ.to(torch.int32), dim=0) * k \
         + torch.arange(k, device=succ.device)
@@ -555,8 +464,8 @@ def _coherent_llrs(wave: torch.Tensor, p: WaterfallParams,
 def coherent_retry(wave: torch.Tensor, p: WaterfallParams,
                    res: SlotDecodeResult, t0_hops: int = 0, f0_rows: int = 0,
                    max_iterations: int = 20, use_osd: bool = False,
-                   is_complex: bool = False, num_branches: int = 5,
-                   decoder: SlotDecoder | None = None) -> SlotDecodeResult:
+                   is_complex: bool = False, num_branches: int = 5
+                   ) -> SlotDecodeResult:
     """Coherent matched-filter retry: ``num_branches`` phase-track branch
     variants of every candidate's LLRs (``ops/llr.py``
     ``extract_llrs_coherent``) decode as one batch; each candidate takes
@@ -566,7 +475,7 @@ def coherent_retry(wave: torch.Tensor, p: WaterfallParams,
     llrs = _coherent_llrs(wave, p, res, t0_hops, f0_rows, num_branches,
                           is_complex)
     return _merge_results(res, variant_retry(llrs, res, max_iterations,
-                                             use_osd, decoder))
+                                             use_osd))
 
 
 def ap_arrays(ap, device=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -596,12 +505,11 @@ def _ap_clamped(llrs: torch.Tensor, ap_values: torch.Tensor,
 
 def ap_retry_llrs(llrs: torch.Tensor, res: SlotDecodeResult,
                   ap_values: torch.Tensor, ap_mask: torch.Tensor,
-                  max_iterations: int, use_osd: bool,
-                  decoder: SlotDecoder | None = None) -> SlotDecodeResult:
+                  max_iterations: int, use_osd: bool) -> SlotDecodeResult:
     """(K, 174) LLRs + V hypotheses -> per-candidate first AP decode: the
     V*K clamped rows decode as one batch (:func:`variant_retry`)."""
     return variant_retry(_ap_clamped(llrs, ap_values, ap_mask), res,
-                         max_iterations, use_osd, decoder)
+                         max_iterations, use_osd)
 
 
 @span("ft8.ap")
@@ -645,14 +553,12 @@ def ap_coherent_retry(wave: torch.Tensor, p: WaterfallParams,
 def decode_waterfall(mag: torch.Tensor, g: SearchGrid, max_candidates: int,
                      min_score: float, max_iterations: int = 20,
                      use_osd: bool = False,
-                     min_abs_time=None,
-                     decoder: SlotDecoder | None = None) -> SlotDecodeResult:
+                     min_abs_time=None) -> SlotDecodeResult:
     """Positive-frequency dB waterfall (F, T) -> SlotDecodeResult (K rows).
 
     Sync (the frequency-major stencil kernel on the card) -> top-K -> Hann
     LLRs -> BP (+ OSD with ``use_osd``) -> CRC.  ``min_abs_time`` (int,
-    optional) masks out candidate start times below it.  ``decoder``
-    supplies the BP, CRC and OSD tables (None builds them).
+    optional) masks out candidate start times below it.
     """
     with span("ft8.sync"):
         scores = sync_scores_kernel(mag, g)
@@ -664,10 +570,9 @@ def decode_waterfall(mag: torch.Tensor, g: SearchGrid, max_candidates: int,
             scores, g, max_candidates, min_score)
     with span("ft8.llrs"):
         llrs = extract_llrs(mag, abs_time, abs_freq, g.time_osr, g.freq_osr,
-                            g.num_blocks,
-                            decoder.gray_map if decoder is not None else None)
+                            g.num_blocks)
     return finish_decode(llrs, abs_time, abs_freq, score, cand_valid,
-                         max_iterations, use_osd, decoder)
+                         max_iterations, use_osd)
 
 
 def decode_waterfall_mf(mag: torch.Tensor, wave: torch.Tensor,
@@ -677,9 +582,7 @@ def decode_waterfall_mf(mag: torch.Tensor, wave: torch.Tensor,
                         use_osd: bool = False,
                         is_complex: bool = False,
                         spec: torch.Tensor | None = None,
-                        mf_refine: bool = False,
-                        decoder: SlotDecoder | None = None
-                        ) -> SlotDecodeResult:
+                        mf_refine: bool = False) -> SlotDecodeResult:
     """MF-first decode: candidates from the (possibly cropped) waterfall
     ``mag`` (F, T), every candidate decoded from matched-filter LLRs in
     one BP (+ OSD) pass (:func:`_mf_llrs`: the block spectra where the
@@ -697,7 +600,7 @@ def decode_waterfall_mf(mag: torch.Tensor, wave: torch.Tensor,
             scores, g, max_candidates, min_score)
     if spec is None or mf_refine:
         llrs = _mf_llrs(wave, p, abs_time + t0_hops, abs_freq + f0_rows,
-                        decoder, mf_refine, is_complex)
+                        mf_refine, is_complex)
     else:
         with span("ft8.llrs"):
             llrs = extract_llrs_matched_blocks(spec, abs_time + t0_hops,
@@ -705,13 +608,12 @@ def decode_waterfall_mf(mag: torch.Tensor, wave: torch.Tensor,
                                                p.time_osr, p.freq_osr)
     if not mf_refine:
         return finish_decode(llrs, abs_time, abs_freq, score, cand_valid,
-                             max_iterations, use_osd, decoder)
+                             max_iterations, use_osd)
     res = finish_decode(llrs[0], abs_time, abs_freq, score, cand_valid,
-                        max_iterations, use_osd, decoder)
+                        max_iterations, use_osd)
     return _merge_results(res, finish_decode(llrs[1], abs_time, abs_freq,
                                              score, cand_valid,
-                                             max_iterations, use_osd,
-                                             decoder))
+                                             max_iterations, use_osd))
 
 
 def _block_spec_and_mag(wave: torch.Tensor, p: WaterfallParams,

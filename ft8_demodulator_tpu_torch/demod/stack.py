@@ -21,8 +21,8 @@ The stacked power and spectra run in range ``ft8.stack``, the ring's upload
 and the live-repeat read in ``ft8.stack.wait``; the coherent retry counts
 the candidates it ran (``coherent.rows``) and those it decoded that the
 first pass did not (``coherent.accepted``), on the card while a profiler
-records.  The BP, CRC and OSD tables come from the cached ``SlotDecoder``
-of the geometry.
+records.  The BP, CRC and OSD tables and the LLR constants come from the
+per-device caches of ``ops/`` (``protocol/tables.py``).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import torch
 from ..ops.llr import (extract_llrs, extract_llrs_coherent_stacked,
                        extract_llrs_matched_blocks_stacked,
                        extract_llrs_matched_stacked)
-from ..ops.sync import find_candidates, sync_scores_z
+from ..ops.sync import find_candidates, search_grid, sync_scores_z
 from ..ops.sync_cuda import sync_scores_kernel
 from ..ops.waterfall import (_DB_FLOOR, WaterfallParams, _as_complex,
                              _block_power, _block_spectrum, _db_scale,
@@ -42,9 +42,9 @@ from ..ops.waterfall import (_DB_FLOOR, WaterfallParams, _as_complex,
 from ..protocol import constants as C
 from ..utils.device import entry_device
 from ..utils.profiling import count_on_card, host_wait, recording, span
-from .decode import (SlotDecoder, _format_results, _merge_results,
-                     _refine_rows, ap_arrays, ap_retry_llrs, estimate_snr,
-                     finish_decode, slot_decoder, variant_retry)
+from .decode import (_format_results, _merge_results, _refine_rows,
+                     ap_arrays, ap_retry_llrs, estimate_snr, finish_decode,
+                     variant_retry)
 from .types import FT8Decode, SlotDecodeResult
 
 __all__ = ["decode_slot_stacked", "decode_ft8_stacked", "as_device_stack"]
@@ -101,8 +101,7 @@ def _decode_slot_stacked_with_mag(waves: torch.Tensor, p: WaterfallParams,
                                   min_score: float, max_iterations: int,
                                   is_complex: bool, use_osd: bool,
                                   use_mf: bool, ap_values=None, ap_mask=None,
-                                  coherent: bool = False, min_z=2.0,
-                                  decoder: SlotDecoder | None = None):
+                                  coherent: bool = False, min_z=2.0):
     """:func:`decode_slot_stacked`'s core; also returns the stacked dB grid
     (F, T) for the SNR estimate.
 
@@ -113,9 +112,7 @@ def _decode_slot_stacked_with_mag(waves: torch.Tensor, p: WaterfallParams,
     weights scale the audio of the coherent retry.
     """
     r = waves.shape[0]
-    if decoder is None:
-        decoder = slot_decoder(p, num_frames, waves.device)
-    g = decoder.g
+    g = search_grid(p.num_freq_bins, num_frames, p.time_osr, p.freq_osr)
     with span("ft8.stack"):
         power, spec, weights = _stacked_power_and_spec(
             waves, p, num_frames, is_complex, equalize=r > 1)
@@ -137,17 +134,16 @@ def _decode_slot_stacked_with_mag(waves: torch.Tensor, p: WaterfallParams,
     with span("ft8.llrs"):
         if not use_mf:
             llrs = extract_llrs(mag, abs_time, abs_freq, p.time_osr,
-                                p.freq_osr, g.num_blocks, decoder.gray_map)
+                                p.freq_osr, g.num_blocks)
         elif spec is not None:
             llrs = extract_llrs_matched_blocks_stacked(
-                spec, abs_time, abs_freq, p.time_osr, p.freq_osr,
-                decoder.gray_map)
+                spec, abs_time, abs_freq, p.time_osr, p.freq_osr)
         else:
             llrs = extract_llrs_matched_stacked(
                 waves, abs_time, abs_freq, p.nperseg, p.hop, p.freq_osr,
                 is_complex)
     res = finish_decode(llrs, abs_time, abs_freq, score, cand_valid,
-                        max_iterations, use_osd, decoder)
+                        max_iterations, use_osd)
     if coherent:
         # per-repeat carrier phases, one (dt, df) search over the repeats,
         # the projected powers summed noncoherently
@@ -155,7 +151,7 @@ def _decode_slot_stacked_with_mag(waves: torch.Tensor, p: WaterfallParams,
             cllrs = extract_llrs_coherent_stacked(
                 waves, abs_time, abs_freq, p.nperseg, p.hop, p.freq_osr,
                 is_complex)
-        retry = variant_retry(cllrs, res, max_iterations, use_osd, decoder)
+        retry = variant_retry(cllrs, res, max_iterations, use_osd)
         if recording():
             count_on_card("coherent.rows", res.candidate_valid)
             count_on_card("coherent.accepted", ~res.success & retry.success)
@@ -163,8 +159,7 @@ def _decode_slot_stacked_with_mag(waves: torch.Tensor, p: WaterfallParams,
     if ap_values is not None:
         with span("ft8.ap"):
             res = _merge_results(res, ap_retry_llrs(
-                llrs, res, ap_values, ap_mask, max_iterations, use_osd,
-                decoder))
+                llrs, res, ap_values, ap_mask, max_iterations, use_osd))
     return res, mag
 
 
@@ -176,7 +171,6 @@ def decode_slot_stacked(waves, p: WaterfallParams,
                         use_mf: bool = True,
                         coherent: bool = False,
                         min_z: float = 2.0,
-                        decoder: SlotDecoder | None = None,
                         device: str | torch.device = "cuda"
                         ) -> SlotDecodeResult:
     """R slot-aligned repeats (R, n[, 2]) of one transmission -> decode
@@ -195,8 +189,7 @@ def decode_slot_stacked(waves, p: WaterfallParams,
         waves, is_complex = as_device_stack(waves, device)
     res, _ = _decode_slot_stacked_with_mag(
         waves, p, num_frames, max_candidates, min_score, max_iterations,
-        is_complex, use_osd, use_mf, coherent=coherent, min_z=float(min_z),
-        decoder=decoder)
+        is_complex, use_osd, use_mf, coherent=coherent, min_z=float(min_z))
     return res
 
 

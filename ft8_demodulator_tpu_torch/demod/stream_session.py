@@ -10,9 +10,8 @@ blocks, and can snapshot its full state to disk and resume later.
   (the frequency-major stencil kernel on the card), BP (+ OSD), CRC, the
   retries and the SNR estimate, returning one packed (K, 18) float32
   tensor on the device; the host copies it once per block.
-* One :class:`SlotDecoder` per session: every block has the same
-  geometry, so the BP, CRC and OSD tables are built once, in
-  ``__init__``.
+* Every block has the same geometry; the BP, CRC and OSD tables and the
+  LLR constants reach the device once, through the caches of ``ops/``.
 * The SNR estimate runs on every block and is masked to -inf on the rows
   that did not decode (the JAX package skips it under a ``lax.cond`` when
   nothing decoded); those rows are never delivered, so the rows are the
@@ -37,9 +36,8 @@ from ..ops.waterfall import WaterfallParams, waterfall_real
 from ..protocol import constants as C
 from ..protocol.message import CallsignHashTable, unpack_message
 from ..utils.device import entry_device
-from .decode import (SlotDecoder, coherent_retry, decode_waterfall,
-                     decode_waterfall_mf, estimate_snr, mf_retry,
-                     slot_decoder)
+from .decode import (coherent_retry, decode_waterfall, decode_waterfall_mf,
+                     estimate_snr, mf_retry)
 from .types import FT8Decode, FT8DecodeStatus, FT8Message
 
 __all__ = ["StreamSession"]
@@ -54,8 +52,7 @@ _PACKED_COLS = _COL_PAYLOAD + C.PAYLOAD_BYTES
 
 def _decode_block_packed(chunk: torch.Tensor, p: WaterfallParams,
                          g: SearchGrid, cfg: DecoderConfig,
-                         num_frames: int, valid_frames: int,
-                         decoder: SlotDecoder) -> torch.Tensor:
+                         num_frames: int, valid_frames: int) -> torch.Tensor:
     """One streaming block: audio -> packed (K, 18) float32 results on the
     device of ``chunk``."""
     mag = waterfall_real(chunk, p, num_frames)
@@ -63,18 +60,16 @@ def _decode_block_packed(chunk: torch.Tensor, p: WaterfallParams,
         res = decode_waterfall_mf(mag, chunk, p, g, 0, 0,
                                   cfg.max_candidates, cfg.min_score,
                                   cfg.max_iterations, cfg.use_osd,
-                                  mf_refine=cfg.mf_refine, decoder=decoder)
+                                  mf_refine=cfg.mf_refine)
     else:
         res = decode_waterfall(mag, g, cfg.max_candidates, cfg.min_score,
-                               cfg.max_iterations, cfg.use_osd,
-                               decoder=decoder)
+                               cfg.max_iterations, cfg.use_osd)
         if cfg.use_mf:
             res = mf_retry(chunk, p, res, 0, 0, cfg.max_iterations,
-                           cfg.use_osd, mf_refine=cfg.mf_refine,
-                           decoder=decoder)
+                           cfg.use_osd, mf_refine=cfg.mf_refine)
     if cfg.coherent:
         res = coherent_retry(chunk, p, res, 0, 0, cfg.max_iterations,
-                             cfg.use_osd, decoder=decoder)
+                             cfg.use_osd)
 
     snr = estimate_snr(mag, res.payload, res.abs_time, res.abs_freq,
                        p.time_osr, p.freq_osr, valid_frames=valid_frames)
@@ -101,9 +96,8 @@ class StreamSession:
         self.block_len = hops * self.p.hop
         self.lookahead = (C.NUM_SYMBOLS + 1) * self.p.nperseg
         self.pipeline_depth = int(pipeline_depth)
-        # every block has this geometry: one decoder (tables) per session
+        # every block has this geometry
         self._num_frames = self.p.num_frames(self.block_len + self.lookahead)
-        self.decoder = slot_decoder(self.p, self._num_frames, self.device)
         self._buffer = np.zeros(0, np.float32)
         self._offset_samples = 0      # absolute sample index of buffer[0]
         self._seen: set[tuple[bytes, int]] = set()
@@ -182,8 +176,7 @@ class StreamSession:
             num_freqs=max(0, self.p.num_freq_bins - 7 * self.p.freq_osr),
         )
         packed = _decode_block_packed(chunk_d, self.p, g, self.config,
-                                      num_frames, self.p.num_frames(take),
-                                      self.decoder)
+                                      num_frames, self.p.num_frames(take))
         self._pending.append((packed, self._offset_samples // self.p.hop))
         consumed = take if final else self.block_len
         self._buffer = self._buffer[consumed:]

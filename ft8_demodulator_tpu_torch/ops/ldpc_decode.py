@@ -43,13 +43,14 @@ import numpy as np
 import torch
 
 from ..protocol import constants as C
+from ..protocol.tables import device_table
 from ..utils.profiling import count, count_on_card, host_wait, recording
 from .ldpc_cuda import bp_crc_kernel, pack_table
 
 __all__ = ["fast_tanh", "fast_atanh", "ldpc_check", "crc_of_plain",
            "bp_decode", "bp_decode_batch", "bp_decode_batch_plain",
            "bp_crc_batch", "bp_crc_batch_plain", "BPDecode", "BPTables",
-           "bp_tables", "make_bp_tables"]
+           "bp_tables"]
 
 _M, _N = C.LDPC_M, C.LDPC_N
 _CD, _VD = C.CHECK_MAX_DEG, C.VAR_MAX_DEG
@@ -99,32 +100,24 @@ class BPTables(NamedTuple):
     k7_table: torch.Tensor     # (ldpc_cuda.TABLE_WORDS,) int32, K7's
 
 
-def make_bp_tables(var_of_mi, nj_of_mi, mi_of_nj, mi_mask, parity_check,
-                   device, crc_matrix=C.CRC_MATRIX_77) -> BPTables:
-    """BPTables on ``device`` from the numpy routing vectors, the (83, 174)
-    parity-check matrix and the (14, 77) CRC generator (K7's table holds
-    the last two packed; the plain version reads ``crc_t``)."""
-    var_of_mi, nj_of_mi = np.asarray(var_of_mi), np.asarray(nj_of_mi)
+@functools.lru_cache(maxsize=8)
+def bp_tables(device: torch.device) -> BPTables:
+    """The routing tables, the (83, 174) parity-check matrix and the
+    (14, 77) CRC generator on ``device``, built once per device (K7's table
+    holds the last two packed; the plain version reads ``crc_t``)."""
+    var_of_mi, nj_of_mi, mi_of_nj, mi_mask = _build_routing()
     loo_a, loo_b = _leave_one_out_pairs(var_of_mi, nj_of_mi)
-    idx = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64,
-                                    device=device)
+    idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
+    f32_t = lambda name: device_table(name, device, torch.float32).T \
+        .contiguous()
     return BPTables(
         var_of_mi=idx(var_of_mi), loo_a=idx(loo_a), loo_b=idx(loo_b),
         mi_of_nj=idx(mi_of_nj),
-        mi_mask=torch.as_tensor(np.asarray(mi_mask) > 0, device=device),
-        parity_t=torch.as_tensor(np.asarray(parity_check, np.float32).T,
-                                 device=device).contiguous(),
-        crc_t=torch.as_tensor(np.asarray(crc_matrix, np.float32).T,
-                              device=device).contiguous(),
+        mi_mask=torch.as_tensor(mi_mask > 0, device=device),
+        parity_t=f32_t("PARITY_CHECK"), crc_t=f32_t("CRC_MATRIX_77"),
         k7_table=torch.as_tensor(pack_table(var_of_mi, nj_of_mi, mi_mask,
-                                            parity_check, crc_matrix),
+                                            C.PARITY_CHECK, C.CRC_MATRIX_77),
                                  device=device))
-
-
-@functools.lru_cache(maxsize=8)
-def bp_tables(device: torch.device) -> BPTables:
-    """The routing tables built by this module, cached per device."""
-    return make_bp_tables(*_build_routing(), C.PARITY_CHECK, device)
 
 
 def fast_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -144,16 +137,13 @@ def fast_atanh(x: torch.Tensor) -> torch.Tensor:
     return a / b
 
 
-def ldpc_check(plain: torch.Tensor, tables: BPTables | None = None
-               ) -> torch.Tensor:
+def ldpc_check(plain: torch.Tensor) -> torch.Tensor:
     """(..., 174) hard bits -> number of failed parity checks (int32).
 
     The float32 product is exact: 0/1 operands, integer sums <= 7.
     """
-    if tables is None:
-        tables = bp_tables(plain.device)
-    syndrome = torch.remainder(plain.to(torch.float32) @ tables.parity_t,
-                               2.0)
+    syndrome = torch.remainder(
+        plain.to(torch.float32) @ bp_tables(plain.device).parity_t, 2.0)
     return syndrome.sum(-1).to(torch.int32)
 
 
@@ -187,18 +177,12 @@ def _tov_sum(llrs: torch.Tensor, tov: torch.Tensor) -> torch.Tensor:
             + tov[..., 2 * _N: 3 * _N])
 
 
-def crc_of_plain(plain: torch.Tensor, crc_t: torch.Tensor | None = None
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
+def crc_of_plain(plain: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(..., 174) hard bits -> (computed CRC-14, embedded CRC-14) per row.
 
     The float32 product is exact: 0/1 operands, integer sums <= 77.
-    ``crc_t``: the (77, 14) float32 generator on the device of ``plain``;
-    None copies it there (a wait for the card).
     """
-    if crc_t is None:
-        with host_wait("ft8.decode.wait"):
-            crc_t = torch.as_tensor(C.CRC_MATRIX_77.T, dtype=torch.float32,
-                                    device=plain.device)
+    crc_t = bp_tables(plain.device).crc_t
     weights = 2 ** torch.arange(C.CRC_BITS - 1, -1, -1, device=plain.device,
                                 dtype=torch.int32)
     bits77 = plain[..., : C.PAYLOAD_BITS].to(torch.float32)
@@ -219,23 +203,20 @@ class BPDecode(NamedTuple):
     iterations: torch.Tensor     # (...,) iterations the row ran
 
 
-def bp_decode_batch_plain(llrs: torch.Tensor, max_iterations: int = 20,
-                          tables: BPTables | None = None):
+def bp_decode_batch_plain(llrs: torch.Tensor, max_iterations: int = 20):
     """(..., 174) LLRs -> (plain (..., 174) int32, min_errors (...,) int32,
     iterations (...,) int32), in plain PyTorch on any device.
 
     Fixed-shape equivalent of the reference's bp_decode: a halted mask
     freezes each row's state once the reference would have left its loop,
     and the loop ends when every row has halted (a wait for the card each
-    iteration); a row's iterations are those it was live in.  ``tables``:
-    routing tables on the device of ``llrs``; None takes :func:`bp_tables`.
+    iteration); a row's iterations are those it was live in.
     Counters (``utils/profiling.py``): ``bp.calls``, ``bp.rows``,
     ``bp.iterations`` (iterations run), ``bp.all_halted`` (early exits)
     and, while a profiler records, ``bp.row_iterations`` (their sum over
     rows, on the rows' device).
     """
-    if tables is None:
-        tables = bp_tables(llrs.device)
+    tables = bp_tables(llrs.device)
     batch_shape = llrs.shape[:-1]
     dev = llrs.device
     tov = torch.zeros((*batch_shape, _NNJ), dtype=torch.float32, device=dev)
@@ -258,7 +239,7 @@ def bp_decode_batch_plain(llrs: torch.Tensor, max_iterations: int = 20,
         iterations += 1
         plain = (_tov_sum(llrs, tov) > 0).to(torch.int32)
         zero_cw = plain.sum(-1) == 0
-        errors = ldpc_check(plain, tables)
+        errors = ldpc_check(plain)
 
         live = ~halted
         row_iterations += live
@@ -276,40 +257,35 @@ def bp_decode_batch_plain(llrs: torch.Tensor, max_iterations: int = 20,
     return plain_out, min_err, row_iterations
 
 
-def bp_crc_batch_plain(llrs: torch.Tensor, max_iterations: int = 20,
-                       tables: BPTables | None = None) -> BPDecode:
+def bp_crc_batch_plain(llrs: torch.Tensor, max_iterations: int = 20
+                       ) -> BPDecode:
     """Plain PyTorch version of K7: :func:`bp_decode_batch_plain`, then
-    :func:`crc_of_plain` with ``tables.crc_t``."""
-    if tables is None:
-        tables = bp_tables(llrs.device)
-    plain, errors, iterations = bp_decode_batch_plain(llrs, max_iterations,
-                                                      tables)
-    crc_calc, crc_extracted = crc_of_plain(plain, tables.crc_t)
+    :func:`crc_of_plain`."""
+    plain, errors, iterations = bp_decode_batch_plain(llrs, max_iterations)
+    crc_calc, crc_extracted = crc_of_plain(plain)
     return BPDecode(plain, errors, crc_calc, crc_extracted, iterations)
 
 
-def bp_crc_batch(llrs: torch.Tensor, max_iterations: int = 20,
-                 tables: BPTables | None = None) -> BPDecode:
+def bp_crc_batch(llrs: torch.Tensor, max_iterations: int = 20) -> BPDecode:
     """(..., 174) float32 LLRs -> BPDecode, as :func:`bp_crc_batch_plain`.
 
     A CPU tensor goes through the plain version; a CUDA tensor through K7,
     all rows in one launch (none for 0 rows; a launch failure raises), with
-    the CRC generator packed in ``tables.k7_table``.
+    the CRC generator packed in :func:`bp_tables`' ``k7_table``.
     Counters on the card: ``bp.calls``, ``bp.rows`` and ``k7.launches``;
     while a profiler records, on the card, ``bp.iterations`` (the slowest
     row's), ``bp.all_halted`` (1 if it exited before ``max_iterations``)
     and ``bp.row_iterations`` (their sum).
     """
-    if tables is None:
-        tables = bp_tables(llrs.device)
     if llrs.device.type == "cpu":
-        return bp_crc_batch_plain(llrs, max_iterations, tables)
+        return bp_crc_batch_plain(llrs, max_iterations)
     batch_shape = llrs.shape[:-1]
     flat = llrs.reshape(-1, _N).contiguous()
     rows = flat.shape[0]
     count("bp.calls")
     count("bp.rows", rows)
-    plain, stats = bp_crc_kernel(flat, max_iterations, tables.k7_table)
+    plain, stats = bp_crc_kernel(flat, max_iterations,
+                                 bp_tables(llrs.device).k7_table)
     if rows and recording():
         slowest = stats[3].max()
         count_on_card("bp.iterations", slowest)
@@ -319,15 +295,13 @@ def bp_crc_batch(llrs: torch.Tensor, max_iterations: int = 20,
                     *(s.reshape(batch_shape) for s in stats))
 
 
-def bp_decode_batch(llrs: torch.Tensor, max_iterations: int = 20,
-                    tables: BPTables | None = None):
+def bp_decode_batch(llrs: torch.Tensor, max_iterations: int = 20):
     """(..., 174) LLRs -> (plain (..., 174) int32, min_errors (...,) int32)
     of :func:`bp_crc_batch`."""
-    return bp_crc_batch(llrs, max_iterations, tables)[:2]
+    return bp_crc_batch(llrs, max_iterations)[:2]
 
 
-def bp_decode(llr: torch.Tensor, max_iterations: int = 20,
-              tables: BPTables | None = None):
+def bp_decode(llr: torch.Tensor, max_iterations: int = 20):
     """Single-codeword convenience wrapper: (174,) -> ((174,), scalar)."""
-    plain, err = bp_decode_batch(llr[None, :], max_iterations, tables)
+    plain, err = bp_decode_batch(llr[None, :], max_iterations)
     return plain[0], err[0]

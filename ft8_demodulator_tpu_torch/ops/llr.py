@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from ..protocol import constants as C
-from ..utils.profiling import host_wait
+from ..protocol.tables import device_table
 from .llr_cuda import llr_kernel
 from .subtract import _linspace_f32
 
@@ -61,61 +61,61 @@ _BIT_SET = np.array(
 )
 
 
+@functools.lru_cache(maxsize=8)
+def _bit_index_sets(device: torch.device
+                    ) -> tuple[tuple[torch.Tensor, torch.Tensor], ...]:
+    """Per bit, the Gray-ordered positions with the bit set and clear (the
+    max-of-4 index sets) on ``device``, built once."""
+    return tuple((torch.as_tensor(np.flatnonzero(_BIT_SET[b]), device=device),
+                  torch.as_tensor(np.flatnonzero(~_BIT_SET[b]),
+                                  device=device))
+                 for b in range(3))
+
+
 def _llr_from_powers(s2: torch.Tensor) -> torch.Tensor:
     """(..., 8) Gray-ordered powers -> (..., 3) bit LLRs (max-of-4 contrast)."""
-    out = []
-    for b in range(3):
-        # the index sets, copied from host memory on every call
-        with host_wait("ft8.llrs.wait", 2):
-            pos_i = torch.as_tensor(np.flatnonzero(_BIT_SET[b]),
-                                    device=s2.device)
-            neg_i = torch.as_tensor(np.flatnonzero(~_BIT_SET[b]),
-                                    device=s2.device)
-        out.append(s2[..., pos_i].amax(dim=-1) - s2[..., neg_i].amax(dim=-1))
-    return torch.stack(out, dim=-1)
+    return torch.stack([s2[..., pos_i].amax(dim=-1)
+                        - s2[..., neg_i].amax(dim=-1)
+                        for pos_i, neg_i in _bit_index_sets(s2.device)],
+                       dim=-1)
 
 
 def extract_llrs_tf(mag_tf: torch.Tensor, abs_time: torch.Tensor,
                     abs_freq: torch.Tensor, time_osr: int, freq_osr: int,
-                    num_blocks: int, gray_map=None) -> torch.Tensor:
+                    num_blocks: int) -> torch.Tensor:
     """Waterfall (..., T, F) + candidates (..., K) -> LLRs (..., K, 174).
 
     abs_time may be negative (pre-roll): time indices are clamped into the
     grid for the gather and the symbols outside the waterfall are masked to
-    LLR 0.  ``gray_map``: (8,) int tensor (``C.GRAY_MAP``); None builds it.
-    A CUDA tensor takes K8 (``ops/llr_cuda.py``), one launch; a CPU tensor
-    the plain version (:func:`_hann_llrs_plain`, :func:`normalize_llrs`).
+    LLR 0.  A CUDA tensor takes K8 (``ops/llr_cuda.py``), one launch; a CPU
+    tensor the plain version (:func:`_hann_llrs_plain`,
+    :func:`normalize_llrs`).
     """
     if mag_tf.device.type == "cuda":
         return llr_kernel(mag_tf, abs_time, abs_freq, time_osr, freq_osr,
-                          num_blocks, False, gray_map)
+                          num_blocks, False,
+                          device_table("GRAY_MAP", mag_tf.device))
     return normalize_llrs(_hann_llrs_plain(mag_tf, abs_time, abs_freq,
-                                           time_osr, freq_osr, num_blocks,
-                                           gray_map))
+                                           time_osr, freq_osr, num_blocks))
 
 
 def _hann_llrs_plain(mag_tf: torch.Tensor, abs_time: torch.Tensor,
                      abs_freq: torch.Tensor, time_osr: int, freq_osr: int,
-                     num_blocks: int, gray_map=None) -> torch.Tensor:
+                     num_blocks: int) -> torch.Tensor:
     """Plain version of K8's Hann route: the LLRs (..., K, 174) of
     :func:`extract_llrs_tf` before the variance-24 scaling."""
     tau, phi = time_osr, freq_osr
     num_frames, num_freqs = mag_tf.shape[-2:]
     lead = mag_tf.shape[:-2]
     dev = mag_tf.device
-    if gray_map is None:
-        with host_wait("ft8.llrs.wait"):
-            gray_map = torch.as_tensor(C.GRAY_MAP, device=dev)
-    with host_wait("ft8.llrs.wait"):
-        sym = torch.as_tensor(C.DATA_SYMBOL_POSITIONS, dtype=torch.int64,
-                              device=dev)
+    sym = device_table("DATA_SYMBOL_POSITIONS", dev)
     abs_time = abs_time.to(torch.int64)
     abs_freq = abs_freq.to(torch.int64)
     k = abs_time.shape[-1]
 
     # (..., K, 58) frame and (..., K, 8) bin of every Gray-ordered cell
     t_idx = (abs_time[..., None] + sym * tau).clamp(0, num_frames - 1)
-    f_idx = abs_freq[..., None] + gray_map.to(torch.int64) * phi
+    f_idx = abs_freq[..., None] + device_table("GRAY_MAP", dev) * phi
     flat = (t_idx[..., :, None] * num_freqs + f_idx[..., None, :])
     s2 = torch.gather(mag_tf.reshape(*lead, num_frames * num_freqs), -1,
                       flat.reshape(*lead, k * 58 * 8)
@@ -132,12 +132,12 @@ def _hann_llrs_plain(mag_tf: torch.Tensor, abs_time: torch.Tensor,
 
 def extract_llrs(mag: torch.Tensor, abs_time: torch.Tensor,
                  abs_freq: torch.Tensor, time_osr: int, freq_osr: int,
-                 num_blocks: int, gray_map=None) -> torch.Tensor:
+                 num_blocks: int) -> torch.Tensor:
     """Frequency-major waterfall (..., F, T) + candidates (..., K) -> LLRs
     (..., K, 174): :func:`extract_llrs_tf` on the transposed view (the
     gathers select the same cells)."""
     return extract_llrs_tf(mag.transpose(-1, -2), abs_time, abs_freq,
-                           time_osr, freq_osr, num_blocks, gray_map)
+                           time_osr, freq_osr, num_blocks)
 
 
 def normalize_llrs(llr: torch.Tensor) -> torch.Tensor:
@@ -157,27 +157,24 @@ def _llr_scale(llr: torch.Tensor) -> torch.Tensor:
 # matched-filter LLRs (block geometry)
 # ---------------------------------------------------------------------------
 
-def _powers_to_llrs(powers: torch.Tensor, gray_map=None) -> torch.Tensor:
+def _powers_to_llrs(powers: torch.Tensor) -> torch.Tensor:
     """(..., K, 58, 8) linear symbol powers in tone order -> (..., K, 174)
     normalised LLRs."""
-    return normalize_llrs(_powers_to_bit_llrs(powers, gray_map))
+    return normalize_llrs(_powers_to_bit_llrs(powers))
 
 
-def _powers_to_bit_llrs(powers: torch.Tensor, gray_map=None
-                        ) -> torch.Tensor:
+def _powers_to_bit_llrs(powers: torch.Tensor) -> torch.Tensor:
     """(..., K, 58, 8) linear symbol powers in tone order -> (..., K, 174)
     LLRs before the variance-24 scaling."""
-    if gray_map is None:
-        with host_wait("ft8.llrs.wait"):
-            gray_map = torch.as_tensor(C.GRAY_MAP, device=powers.device)
-    s2 = (10.0 * torch.log10(1e-12 + powers))[..., gray_map.to(torch.int64)]
+    s2 = (10.0 * torch.log10(1e-12 + powers))[
+        ..., device_table("GRAY_MAP", powers.device)]
     llr = _llr_from_powers(s2)
     return llr.reshape(*powers.shape[:-2], C.LDPC_N)
 
 
 def extract_llrs_matched_grid(box_tf: torch.Tensor, abs_time: torch.Tensor,
                               abs_freq: torch.Tensor, time_osr: int,
-                              freq_osr: int, gray_map=None) -> torch.Tensor:
+                              freq_osr: int) -> torch.Tensor:
     """Boxcar power grid (..., R, F) + candidates (..., K) -> MF LLRs
     (..., K, 174).
 
@@ -191,23 +188,21 @@ def extract_llrs_matched_grid(box_tf: torch.Tensor, abs_time: torch.Tensor,
     """
     if box_tf.device.type == "cuda":
         return llr_kernel(box_tf, abs_time, abs_freq, time_osr, freq_osr, 0,
-                          True, gray_map)
+                          True, device_table("GRAY_MAP", box_tf.device))
     return normalize_llrs(_grid_llrs_plain(box_tf, abs_time, abs_freq,
-                                           time_osr, freq_osr, gray_map))
+                                           time_osr, freq_osr))
 
 
 def _grid_llrs_plain(box_tf: torch.Tensor, abs_time: torch.Tensor,
-                     abs_freq: torch.Tensor, time_osr: int, freq_osr: int,
-                     gray_map=None) -> torch.Tensor:
+                     abs_freq: torch.Tensor, time_osr: int, freq_osr: int
+                     ) -> torch.Tensor:
     """Plain version of K8's boxcar route: the LLRs (..., K, 174) of
     :func:`extract_llrs_matched_grid` before the variance-24 scaling."""
     tau, phi = time_osr, freq_osr
     nbrows, num_freqs = box_tf.shape[-2:]
     lead = box_tf.shape[:-2]
     dev = box_tf.device
-    with host_wait("ft8.llrs.wait"):
-        sym = torch.as_tensor(C.DATA_SYMBOL_POSITIONS, dtype=torch.int64,
-                              device=dev)
+    sym = device_table("DATA_SYMBOL_POSITIONS", dev)
     tone = torch.arange(8, device=dev)
     k = abs_time.shape[-1]
     t_idx = abs_time.to(torch.int64)[..., None] + sym * tau + (tau - 1)
@@ -219,7 +214,7 @@ def _grid_llrs_plain(box_tf: torch.Tensor, abs_time: torch.Tensor,
                           flat.reshape(*lead, k * 58 * 8)
                           ).reshape(*lead, k, 58, 8)
     powers = torch.where(valid[..., None], powers, 0.0)
-    return _powers_to_bit_llrs(powers, gray_map)
+    return _powers_to_bit_llrs(powers)
 
 
 def _mf_block_powers(spec: torch.Tensor, abs_time: torch.Tensor,
@@ -241,9 +236,7 @@ def _mf_block_powers(spec: torch.Tensor, abs_time: torch.Tensor,
     nb, kx = spec.shape[-2:]
     lead = spec.shape[:-2]
     dev = spec.device
-    with host_wait("ft8.llrs.wait"):
-        sym = torch.as_tensor(C.DATA_SYMBOL_POSITIONS, dtype=torch.int64,
-                              device=dev)
+    sym = device_table("DATA_SYMBOL_POSITIONS", dev)
     s = torch.arange(tau, device=dev)
     tone = torch.arange(8, device=dev)
 
@@ -269,19 +262,19 @@ def _mf_block_powers(spec: torch.Tensor, abs_time: torch.Tensor,
 
 def extract_llrs_matched_blocks(spec: torch.Tensor, abs_time: torch.Tensor,
                                 abs_freq: torch.Tensor, time_osr: int,
-                                freq_osr: int, gray_map=None) -> torch.Tensor:
+                                freq_osr: int) -> torch.Tensor:
     """Matched-filter LLRs from the slot's complex block spectra
     (..., nb, Kx) (``ops/waterfall.py`` ``_block_spectrum``): (..., K,
     174)."""
     return _powers_to_llrs(_mf_block_powers(spec, abs_time, abs_freq,
-                                            time_osr, freq_osr), gray_map)
+                                            time_osr, freq_osr))
 
 
 def extract_llrs_matched_blocks_stacked(spec: torch.Tensor,
                                         abs_time: torch.Tensor,
                                         abs_freq: torch.Tensor,
-                                        time_osr: int, freq_osr: int,
-                                        gray_map=None) -> torch.Tensor:
+                                        time_osr: int, freq_osr: int
+                                        ) -> torch.Tensor:
     """Repeat-stacked matched-filter LLRs from (R, nb, Kx) complex block
     spectra of R slot-aligned repeats of one transmission: the per-tone
     symbol powers are averaged over the repeats in the linear domain (the
@@ -290,7 +283,7 @@ def extract_llrs_matched_blocks_stacked(spec: torch.Tensor,
     r = spec.shape[0]
     pw = _mf_block_powers(spec, abs_time.expand(r, -1),
                           abs_freq.expand(r, -1), time_osr, freq_osr)
-    return _powers_to_llrs(pw.mean(0), gray_map)
+    return _powers_to_llrs(pw.mean(0))
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +337,6 @@ class _MFTables(NamedTuple):
     mix_cos: torch.Tensor     # (sps*phi,) float32
     mix_sin: torch.Tensor
     tones: torch.Tensor       # (2*sps, 16) float64 block of the integer tones
-    gray_map: torch.Tensor    # (8,) int64
 
 
 @functools.lru_cache(maxsize=16)
@@ -352,18 +344,31 @@ def _mf_tables(sps: int, phi: int, device: torch.device) -> _MFTables:
     """The constants of (sps, phi) on ``device``, built once."""
     t = lambda a: torch.as_tensor(a, device=device)
     return _MFTables(*map(t, _mf_mix_tables(sps, phi)),
-                     t(_tone_block(*_mf_tone_matrices(sps))),
-                     t(np.asarray(C.GRAY_MAP, np.int64)))
+                     t(_tone_block(*_mf_tone_matrices(sps))))
+
+
+@functools.lru_cache(maxsize=8)
+def _costas(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The frame positions of the 21 Costas symbols and their tones, int64
+    on ``device``, built once."""
+    pos = np.flatnonzero(C.FRAME_IS_COSTAS)
+    return (torch.as_tensor(pos, dtype=torch.int64, device=device),
+            torch.as_tensor(C.FRAME_COSTAS_TONE[pos], dtype=torch.int64,
+                            device=device))
 
 
 @functools.lru_cache(maxsize=16)
-def _refine_blocks(sps: int, phi: int, nf: int,
-                   device: torch.device) -> torch.Tensor:
-    """The refined search's (2*sps, nf*16) float64 tone blocks on
-    ``device``, built once."""
-    return torch.as_tensor(np.concatenate(
+def _refine_tables(sps: int, hop: int, phi: int, nt: int, nf: int,
+                   device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The refined search's (2*sps, nf*16) float64 tone blocks and its nt
+    dt offsets (int64 samples) on ``device``, built once."""
+    blocks = torch.as_tensor(np.concatenate(
         [_tone_block(tc, ts) for tc, ts in
          _refine_tone_matrices(sps, phi, nf)], -1), device=device)
+    t_fr = [(i + 0.5) / nt - 0.5 for i in range(nt)]
+    dts = torch.as_tensor([int(round(f * hop)) for f in t_fr],
+                          dtype=torch.int64, device=device)
+    return blocks, dts
 
 
 def _tone_dft(xr: torch.Tensor, xi: torch.Tensor,
@@ -428,22 +433,14 @@ def _mix(wr, wi, mc, ms):
     return wr * mc - wi * ms, wr * ms + wi * mc
 
 
-def _positions(rows, device) -> torch.Tensor:
-    """Symbol positions as an int64 tensor on ``device`` (a tensor passes
-    through)."""
-    if isinstance(rows, torch.Tensor):
-        return rows
-    return torch.as_tensor(np.asarray(rows, np.int64), device=device)
-
-
-def _tone_corr(xp, starts: torch.Tensor, rows, mixes, block: torch.Tensor,
-               sps: int) -> torch.Tensor:
+def _tone_corr(xp, starts: torch.Tensor, rows: torch.Tensor, mixes,
+               block: torch.Tensor, sps: int) -> torch.Tensor:
     """Padded audio (real, imaginary or None) (R..., L) + window starts
-    (S..., K) + symbol positions ``rows`` + the candidates' (K, sps) mixes
-    -> [re, im] tone correlations (R..., S..., K, P, block columns)."""
-    pos = _positions(rows, starts.device)
-    wr = _windows(xp[0], starts, pos, sps)
-    wi = None if xp[1] is None else _windows(xp[1], starts, pos, sps)
+    (S..., K) + symbol positions ``rows`` (P,) int64 + the candidates' (K,
+    sps) mixes -> [re, im] tone correlations (R..., S..., K, P, block
+    columns)."""
+    wr = _windows(xp[0], starts, rows, sps)
+    wi = None if xp[1] is None else _windows(xp[1], starts, rows, sps)
     return _tone_dft(*_mix(wr, wi, *mixes), block)
 
 
@@ -456,7 +453,7 @@ def _mf_direct_powers(wave: torch.Tensor, abs_time: torch.Tensor,
     tables = _mf_tables(sps, freq_osr, dev)
     starts = abs_time.to(dev, torch.int64) * hop + C.NUM_SYMBOLS * sps
     y = _tone_corr(_padded(wave, sps, is_complex), starts,
-                   C.DATA_SYMBOL_POSITIONS,
+                   device_table("DATA_SYMBOL_POSITIONS", dev),
                    _mixes(abs_freq.to(dev), sps, freq_osr, tables),
                    tables.tones, sps)
     re, im = y[..., :8], y[..., 8:]
@@ -476,10 +473,8 @@ def extract_llrs_matched(wave: torch.Tensor, abs_time: torch.Tensor,
     ``wave``: (n,) real or (n, 2) [re, im] with ``is_complex``.  Samples
     before or past the audio read zero.
     """
-    tables = _mf_tables(sps, freq_osr, wave.device)
     return _powers_to_llrs(_mf_direct_powers(
-        wave, abs_time, abs_freq, sps, hop, freq_osr, is_complex),
-        tables.gray_map)
+        wave, abs_time, abs_freq, sps, hop, freq_osr, is_complex))
 
 
 def extract_llrs_matched_stacked(waves: torch.Tensor, abs_time: torch.Tensor,
@@ -489,10 +484,8 @@ def extract_llrs_matched_stacked(waves: torch.Tensor, abs_time: torch.Tensor,
     """Repeat-stacked matched-filter LLRs straight from (R, n[, 2]) audio:
     the direct form of :func:`extract_llrs_matched_blocks_stacked` for the
     geometries the block decomposition does not cover."""
-    tables = _mf_tables(sps, freq_osr, waves.device)
     return _powers_to_llrs(_mf_direct_powers(
-        waves, abs_time, abs_freq, sps, hop, freq_osr, is_complex).mean(0),
-        tables.gray_map)
+        waves, abs_time, abs_freq, sps, hop, freq_osr, is_complex).mean(0))
 
 
 def extract_llrs_matched_refined(wave: torch.Tensor, abs_time: torch.Tensor,
@@ -519,43 +512,80 @@ def extract_llrs_matched_refined(wave: torch.Tensor, abs_time: torch.Tensor,
     phi = freq_osr
     k = abs_freq.shape[0]
     tables = _mf_tables(sps, phi, dev)
-    blocks = _refine_blocks(sps, phi, nf, dev)
+    blocks, dts = _refine_tables(sps, hop, phi, nt, nf, dev)
     xp = _padded(wave, sps, is_complex)
-    t_fr = [(i + 0.5) / nt - 0.5 for i in range(nt)]
-    dts = torch.as_tensor([int(round(f * hop)) for f in t_fr],
-                          dtype=torch.int64, device=dev)
     s0 = abs_time.to(dev, torch.int64) * hop + C.NUM_SYMBOLS * sps
     mixes = _mixes(abs_freq.to(dev), sps, phi, tables)
     tone_corr = lambda starts, rows, block: _tone_corr(xp, starts, rows,
                                                        mixes, block, sps)
 
     # stage 1: every offset scored on the 21 Costas symbols
-    costas_pos = np.flatnonzero(C.FRAME_IS_COSTAS)
+    costas_pos, tone = _costas(dev)
     y = tone_corr(s0 + dts[:, None], costas_pos, blocks)
     y = y.reshape(nt, k, len(costas_pos), nf, 16).transpose(2, 3)
     pw = y[..., :8] ** 2 + y[..., 8:] ** 2                # (nt, K, nf, 21, 8)
-    tone = _positions(C.FRAME_COSTAS_TONE[costas_pos], dev)
     on = pw[..., torch.arange(len(costas_pos), device=dev), tone]
     scores = (on - pw.mean(-1)).sum(-1)                   # (nt, K, nf)
     best = torch.argmax(scores.transpose(1, 2).reshape(nt * nf, k), dim=0)
     dt_best = dts[best // nf]
     df_idx = best % nf
 
-    sym = C.DATA_SYMBOL_POSITIONS
+    sym = device_table("DATA_SYMBOL_POSITIONS", dev)
     centre = blocks[:, (nf // 2) * 16: (nf // 2 + 1) * 16]
     y0 = tone_corr(s0, sym, centre)
-    base = _powers_to_llrs(y0[..., :8] ** 2 + y0[..., 8:] ** 2,
-                           tables.gray_map)
+    base = _powers_to_llrs(y0[..., :8] ** 2 + y0[..., 8:] ** 2)
     yb = tone_corr(s0 + dt_best, sym, blocks)
     yb = yb.reshape(k, len(sym), nf, 16)[torch.arange(k, device=dev), :,
                                          df_idx]          # (K, 58, 16)
-    return base, _powers_to_llrs(yb[..., :8] ** 2 + yb[..., 8:] ** 2,
-                                 tables.gray_map)
+    return base, _powers_to_llrs(yb[..., :8] ** 2 + yb[..., 8:] ** 2)
 
 
 # ---------------------------------------------------------------------------
 # coherent matched-filter LLRs
 # ---------------------------------------------------------------------------
+
+class _CoherentTables(NamedTuple):
+    """The coherent track search's constants of one (hop, freq_osr,
+    num_branches) on one device."""
+
+    costas_rows: torch.Tensor  # (21,) int64 frame positions of the Costas
+    costas_tone: torch.Tensor  # (21,) int64 their tones
+    costas_pos: torch.Tensor   # (21,) float32 the positions
+    frame_rows: torch.Tensor   # (79,) int64 every frame position
+    dts: torch.Tensor          # (9,) int64 the dt grid over +-hop/2
+    deltas: torch.Tensor       # (D,) float32 the coarse df grid
+    spec_block: torch.Tensor   # (42, 2D) float64 its Costas ramps
+    step: torch.Tensor         # (B,) float32 the branches' df offsets
+    fine_d: torch.Tensor       # (11,) float32 the fine df grid
+    fine_t: torch.Tensor       # (5,) float32 the fine dt grid
+
+
+@functools.lru_cache(maxsize=16)
+def _coherent_tables(hop: int, phi: int, num_branches: int,
+                     device: torch.device) -> _CoherentTables:
+    """The coherent search's constants on ``device``, built once."""
+    rows, tone = _costas(device)
+    cpos = rows.to(torch.float32)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+    half_row = 0.5 / phi + 0.02
+    n_coarse = int(np.ceil(2 * half_row * 4 * C.NUM_SYMBOLS)) | 1
+    deltas = _linspace_f32(f32(-half_row), f32(half_row), n_coarse)
+    ramp = (-2.0 * np.pi * deltas[:, None]) * cpos[None, :]    # (D, 21)
+    rc, rs = torch.cos(ramp), torch.sin(ramp)
+    order = [0, 1, -1, 2, -2, 3, -3][:num_branches]
+    return _CoherentTables(
+        costas_rows=rows, costas_tone=tone, costas_pos=cpos,
+        frame_rows=torch.arange(C.NUM_SYMBOLS, device=device),
+        dts=torch.as_tensor(np.round(np.linspace(-hop // 2, hop // 2, 9))
+                            .astype(np.int64), device=device),
+        deltas=deltas,
+        spec_block=torch.cat([torch.cat([rc.T, rs.T], 1),
+                              torch.cat([-rs.T, rc.T], 1)], 0).double(),
+        step=torch.tensor([m * (1.0 / 36.0) for m in order],
+                          dtype=torch.float32, device=device),
+        fine_d=_linspace_f32(f32(-0.016), f32(0.016), 11),
+        fine_t=_linspace_f32(f32(-0.06), f32(0.06), 5))
+
 
 def extract_llrs_coherent(wave: torch.Tensor, abs_time: torch.Tensor,
                           abs_freq: torch.Tensor, sps: int, hop: int,
@@ -593,16 +623,9 @@ def extract_llrs_coherent_stacked(waves: torch.Tensor, abs_time: torch.Tensor,
     phi = freq_osr
     k = abs_freq.shape[0]
     tables = _mf_tables(sps, phi, dev)
+    ct = _coherent_tables(hop, phi, num_branches, dev)
     n_sig = C.NUM_SYMBOLS * sps
-    costas_pos = np.flatnonzero(C.FRAME_IS_COSTAS)
-    n_costas = len(costas_pos)
-    # the host tables' copies to the card, each a wait
-    with host_wait("ft8.coherent.wait", 4):
-        cpos = _positions(costas_pos, dev).to(torch.float32)
-        ctone = _positions(C.FRAME_COSTAS_TONE[costas_pos], dev)
-        dts_d = _positions(np.round(np.linspace(-hop // 2, hop // 2, 9))
-                           .astype(np.int64), dev)
-        data_pos = _positions(C.DATA_SYMBOL_POSITIONS, dev)
+    n_costas = len(ct.costas_rows)
     c_idx = torch.arange(n_costas, device=dev)
     two_pi = 2.0 * np.pi
 
@@ -618,11 +641,10 @@ def extract_llrs_coherent_stacked(waves: torch.Tensor, abs_time: torch.Tensor,
         torch.float32) * np.float32(1.0 / phi)
     s0 = abs_time.to(dev, torch.int64) * hop + n_sig
 
-    def complex_syms(dt, rows):
-        """Window offsets dt (broadcast to (..., K)) -> (R, ..., K, P, 8)
-        complex tone correlations, the base-row phase step removed."""
-        with host_wait("ft8.coherent.wait"):
-            pos = _positions(rows, dev)
+    def complex_syms(dt, pos):
+        """Window offsets dt (broadcast to (..., K)) + symbol positions
+        (P,) -> (R, ..., K, P, 8) complex tone correlations, the base-row
+        phase step removed."""
         y = _tone_corr(xp, s0 + dt, pos, mixes, tables.tones, sps)
         re, im = y[..., :8], y[..., 8:]
         ang0 = (-two_pi * q_frac[:, None]) * pos.to(torch.float32)
@@ -632,49 +654,35 @@ def extract_llrs_coherent_stacked(waves: torch.Tensor, abs_time: torch.Tensor,
 
     def costas_z(re, im):
         """On-track Costas values (..., 21) from (..., 21, 8)."""
-        return re[..., c_idx, ctone], im[..., c_idx, ctone]
+        return re[..., c_idx, ct.costas_tone], im[..., c_idx, ct.costas_tone]
 
     # stage 1: the dt grid, scored by the coarse-df coherence metric
-    half_row = 0.5 / phi + 0.02
-    n_coarse = int(np.ceil(2 * half_row * 4 * C.NUM_SYMBOLS)) | 1
-
-    def f32(x):
-        with host_wait("ft8.coherent.wait"):
-            return torch.tensor(x, dtype=torch.float32, device=dev)
-
-    deltas = _linspace_f32(f32(-half_row), f32(half_row), n_coarse)
-    ramp = (-two_pi * deltas[:, None]) * cpos[None, :]    # (D, 21)
-    rc, rs = torch.cos(ramp), torch.sin(ramp)
-    spec_block = torch.cat([torch.cat([rc.T, rs.T], 1),
-                            torch.cat([-rs.T, rc.T], 1)], 0).double()
+    n_coarse = ct.deltas.shape[0]
 
     def spectrum(zr, zi):
         """Coherence spectrum summed over the repeats: (R, ..., 21) ->
         (..., D)."""
-        s = (torch.cat([zr, zi], -1).double() @ spec_block).float()
+        s = (torch.cat([zr, zi], -1).double() @ ct.spec_block).float()
         sr, si = s[..., :n_coarse], s[..., n_coarse:]
         return (sr * sr + si * si).sum(0)
 
-    re, im = complex_syms(dts_d[:, None], costas_pos)
+    re, im = complex_syms(ct.dts[:, None], ct.costas_rows)
     mets = spectrum(*costas_z(re, im)).amax(-1)           # (9, K)
-    dt_sel = dts_d[torch.argmax(mets, dim=0)]
+    dt_sel = ct.dts[torch.argmax(mets, dim=0)]
 
     # the 79 symbols at each candidate's dt; stage 2: the centre branch
-    re79, im79 = complex_syms(dt_sel, np.arange(C.NUM_SYMBOLS))
-    zr79, zi79 = costas_z(re79[..., costas_pos, :], im79[..., costas_pos, :])
-    d_centre = deltas[torch.argmax(spectrum(zr79, zi79), dim=-1)]   # (K,)
+    re79, im79 = complex_syms(dt_sel, ct.frame_rows)
+    zr79, zi79 = costas_z(re79[..., ct.costas_rows, :],
+                          im79[..., ct.costas_rows, :])
+    d_centre = ct.deltas[torch.argmax(spectrum(zr79, zi79), dim=-1)]  # (K,)
 
     # stages 3-4: every branch's fine (df, dt) track and projection
-    order = [0, 1, -1, 2, -2, 3, -3][:num_branches]
-    with host_wait("ft8.coherent.wait"):
-        step = torch.tensor([m * (1.0 / 36.0) for m in order],
-                            dtype=torch.float32, device=dev)
-    fine_d = _linspace_f32(f32(-0.016), f32(0.016), 11)
-    fine_t = _linspace_f32(f32(-0.06), f32(0.06), 5)
+    fine_t = ct.fine_t
     t2 = fine_t.shape[0]
-    d_all = (d_centre[None, :] + step[:, None])[..., None] + fine_d  # (B,K,F)
-    angf = ((-two_pi * d_all)[..., None, None] * cpos) \
-        - (two_pi * fine_t)[:, None] * ctone.to(torch.float32)
+    d_all = (d_centre[None, :] + ct.step[:, None])[..., None] \
+        + ct.fine_d                                       # (B, K, F)
+    angf = ((-two_pi * d_all)[..., None, None] * ct.costas_pos) \
+        - (two_pi * fine_t)[:, None] * ct.costas_tone.to(torch.float32)
     angf = angf.reshape(*d_all.shape[:2], -1, n_costas)  # (B, K, F*T2, 21)
     cf, sf = torch.cos(angf), torch.sin(angf)
     w = torch.cat([torch.cat([cf, -sf], -1), torch.cat([sf, cf], -1)],
@@ -696,6 +704,7 @@ def extract_llrs_coherent_stacked(waves: torch.Tensor, abs_time: torch.Tensor,
         + (two_pi * t_fin)[..., None, None] * tone8       # (R, B, K, 79, 8)
     proj = re79[:, None] * torch.cos(track) + im79[:, None] * torch.sin(track)
     proj = torch.clamp(proj, min=0.0)
-    powers = (proj * proj).sum(0)[:, :, data_pos]        # (B, K, 58, 8)
-    llr = _llr_from_powers(powers[..., tables.gray_map])
-    return normalize_llrs(llr.reshape(len(order), k, C.LDPC_N))
+    powers = (proj * proj).sum(0)[
+        :, :, device_table("DATA_SYMBOL_POSITIONS", dev)]  # (B, K, 58, 8)
+    llr = _llr_from_powers(powers[..., device_table("GRAY_MAP", dev)])
+    return normalize_llrs(llr.reshape(ct.step.shape[0], k, C.LDPC_N))

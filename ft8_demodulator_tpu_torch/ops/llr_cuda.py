@@ -12,9 +12,9 @@ kernel: the JAX package reads these cells through one-hot matmuls.
 
 What bounds it on the card: bytes (:func:`llr_bound`); the plain version
 (``ops/llr.py`` ``_hann_llrs_plain`` / ``_grid_llrs_plain``, then
-``normalize_llrs``) is ~45 small launches and seven host-to-card copies a
-call.  :func:`llr_kernel` launches the kernel on a CUDA tensor or raises,
-and counts the launch in ``k8.launches`` (``utils/profiling.py``).
+``normalize_llrs``) is ~45 small launches a call.  :func:`llr_kernel`
+launches the kernel on a CUDA tensor or raises, and counts the launch in
+``k8.launches`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import functools
 import torch
 
 from ..protocol import constants as C
-from ..utils.profiling import count, host_wait
+from ..utils.profiling import count
 
 __all__ = ["llr_kernel", "llr_bound"]
 
@@ -56,16 +56,9 @@ def _library():
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _protocol_gray_map(device: torch.device) -> torch.Tensor:
-    """The protocol's Gray map (8,) int64 on ``device``, copied once."""
-    with host_wait("ft8.llrs.wait"):
-        return torch.as_tensor(C.GRAY_MAP, dtype=torch.int64, device=device)
-
-
 def llr_kernel(grid: torch.Tensor, abs_time: torch.Tensor,
                abs_freq: torch.Tensor, time_osr: int, freq_osr: int,
-               num_blocks: int, matched: bool, gray_map=None
+               num_blocks: int, matched: bool, gray_map: torch.Tensor
                ) -> torch.Tensor:
     """Grid (..., T, F) float32 on a card, any strides + candidates
     (..., K) integer -> LLRs (..., K, 174) float32, each row scaled to
@@ -74,8 +67,8 @@ def llr_kernel(grid: torch.Tensor, abs_time: torch.Tensor,
     ``matched`` False: the dB grid's Hann LLRs (symbols outside
     ``num_blocks`` blocks give 0); True: the boxcar power grid's matched
     LLRs (rows outside the grid read power 0; ``num_blocks`` unread).
-    ``gray_map``: (8,) integer tones on the same card, or None (the
-    protocol's, copied to the card once).  Candidates are read as int32.
+    ``gray_map``: (8,) integer tones on the same card (the caller's
+    ``protocol/tables.py`` copy).  Candidates are read as int32.
     A bad argument (a grid of more than 2^31 - 1 cells a slot among them)
     or a refused launch raises.
     """
@@ -95,7 +88,7 @@ def llr_kernel(grid: torch.Tensor, abs_time: torch.Tensor,
     if not (1 <= time_osr <= _MAX_INT and 1 <= freq_osr <= _MAX_INT
             and abs(num_blocks) <= _MAX_INT):
         raise ValueError(f"osr {time_osr}x{freq_osr}, {num_blocks} blocks")
-    if gray_map is not None and tuple(gray_map.shape) != (8,):
+    if tuple(gray_map.shape) != (8,):
         raise ValueError(f"gray_map must be (8,), got "
                          f"{tuple(gray_map.shape)}")
     if frames * bins > _MAX_INT:            # the kernel divides in 32 bits
@@ -105,7 +98,7 @@ def llr_kernel(grid: torch.Tensor, abs_time: torch.Tensor,
         raise ValueError(f"no kernel for device {grid.device}")
     dev = grid.device
     if abs_time.device != dev or abs_freq.device != dev \
-            or (gray_map is not None and gray_map.device != dev):
+            or gray_map.device != dev:
         raise ValueError(f"candidates on {abs_time.device} / "
                          f"{abs_freq.device}, grid on {dev}")
     k = abs_time.shape[-1]
@@ -118,8 +111,7 @@ def llr_kernel(grid: torch.Tensor, abs_time: torch.Tensor,
     cells = grid.reshape(-1, frames, bins)
     at = abs_time.to(torch.int32).contiguous()
     af = abs_freq.to(torch.int32).contiguous()
-    gray = _protocol_gray_map(dev) if gray_map is None \
-        else gray_map.to(torch.int64).contiguous()
+    gray = gray_map.to(torch.int64).contiguous()
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

@@ -41,7 +41,7 @@ from ..protocol import constants as C
 from ..utils.profiling import count, count_on_card, host_wait, span
 from .osd_cuda import _pack, reduce_basis_from_order
 
-__all__ = ["OSDTables", "make_osd_tables", "osd_tables", "osd_decode_batch",
+__all__ = ["OSDTables", "osd_tables", "osd_decode_batch",
            "osd_decode_masked", "DEFAULT_LAMBDA", "DEFAULT_ORDER2",
            "DEFAULT_ORDER3"]
 
@@ -92,11 +92,12 @@ class OSDTables(NamedTuple):
     basis_cols: torch.Tensor
 
 
-def make_osd_tables(basis, row_syndromes, device) -> OSDTables:
+@functools.lru_cache(maxsize=8)
+def osd_tables(device: torch.device) -> OSDTables:
     """OSDTables on ``device`` from the (91, 174) basis bits and the
-    (91, 14) row syndromes (numpy)."""
-    bits = np.asarray(basis, np.uint8)
-    syn = np.asarray(row_syndromes).astype(np.int64)
+    (91, 14) row syndromes, built once per device."""
+    bits = _basis()
+    syn = _ROW_SYNDROMES_NP.astype(np.int64)
     word = (syn << (_SYND_SHIFT + np.arange(C.CRC_BITS))).sum(-1)
     groups = -(-_K // 32)
     rows = np.zeros((groups * 32, _N), np.int64)
@@ -111,9 +112,10 @@ def make_osd_tables(basis, row_syndromes, device) -> OSDTables:
 
 
 @functools.lru_cache(maxsize=8)
-def osd_tables(device: torch.device) -> OSDTables:
-    """The tables built by this module, cached per device."""
-    return make_osd_tables(_basis(), _ROW_SYNDROMES_NP, device)
+def _triples(q: int, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """:func:`_triple_indices` of ``q`` on ``device``, built once."""
+    return tuple(torch.as_tensor(t, device=device)
+                 for t in _triple_indices(q))
 
 
 def _unpack(words: torch.Tensor) -> torch.Tensor:
@@ -205,8 +207,7 @@ def _osd_tail(llr_sorted: torch.Tensor, order: torch.Tensor, a: torch.Tensor,
         crc_ok = torch.cat([crc_ok, ok2.reshape(b, p * p)], dim=1)
 
     if order3 > 0:
-        ti, tj, tk = (torch.as_tensor(t, device=dev)
-                      for t in _triple_indices(order3))
+        ti, tj, tk = _triples(order3, dev)
         a3 = a_sub[:, :order3]
         ov3, ov23 = ov[:, :order3, :order3], ov2[:, :order3, :order3]
         d3, dn3 = d_sub[:, :order3], dn_sub[:, :order3]
@@ -261,8 +262,7 @@ def _check_orders(order2: int, order3: int) -> int:
 
 
 def _osd_rows(flat: torch.Tensor, lam: float, order2: int, order3: int,
-              tables: OSDTables, chunk: int
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+              chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(R, 174) LLRs -> (plain (R, 174) int32, ok (R,) bool).
 
     Reliability sort -> reduced bases (one kernel launch for all R rows)
@@ -277,7 +277,7 @@ def _osd_rows(flat: torch.Tensor, lam: float, order2: int, order3: int,
                             device=flat.device))
     order = torch.sort(-flat.abs(), dim=-1, stable=True).indices
     llr_sorted = torch.gather(flat, 1, order)
-    red, pcol = reduce_basis_from_order(order, tables)
+    red, pcol = reduce_basis_from_order(order, osd_tables(flat.device))
     parts = [_osd_tail(llr_sorted[i: i + chunk], order[i: i + chunk],
                        red[i: i + chunk], pcol[i: i + chunk], lam, order2,
                        order3)
@@ -288,20 +288,18 @@ def _osd_rows(flat: torch.Tensor, lam: float, order2: int, order3: int,
 
 def osd_decode_batch(llrs: torch.Tensor, lam: float = DEFAULT_LAMBDA,
                      order2: int = DEFAULT_ORDER2,
-                     order3: int = DEFAULT_ORDER3,
-                     tables: OSDTables | None = None
+                     order3: int = DEFAULT_ORDER3
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """(..., 174) LLRs -> (plain (..., 174) int32, accepted (...,) bool).
 
     order2: number of least reliable pivot rows whose XOR-pairs are also
     searched (0: the pure order-1 search).  order3 (<= order2): XOR-triples
     of the order3 least reliable pivot rows (values below 3 have no
-    triples).  ``tables``: the basis constants on the device of ``llrs``;
-    None takes :func:`osd_tables`.
+    triples).
     """
     order3 = _check_orders(order2, order3)
     plain, ok = _osd_rows(llrs.reshape(-1, _N), lam, order2, order3,
-                          tables or osd_tables(llrs.device), DEFAULT_CHUNK)
+                          DEFAULT_CHUNK)
     return plain.reshape(llrs.shape), ok.reshape(llrs.shape[:-1])
 
 
@@ -310,7 +308,6 @@ def osd_decode_masked(llrs: torch.Tensor, need: torch.Tensor,
                       lam: float = DEFAULT_LAMBDA,
                       order2: int = DEFAULT_ORDER2,
                       order3: int = DEFAULT_ORDER3,
-                      tables: OSDTables | None = None,
                       chunk: int = DEFAULT_CHUNK
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """OSD only the rows where ``need`` is True.
@@ -333,7 +330,6 @@ def osd_decode_masked(llrs: torch.Tensor, need: torch.Tensor,
     count("osd.rows", idx.numel())
     if idx.numel():
         plain[idx], ok[idx] = _osd_rows(flat[idx], lam, order2, order3,
-                                        tables or osd_tables(llrs.device),
                                         chunk)
         count_on_card("osd.accepted", ok)
     return plain.reshape(llrs.shape), ok.reshape(need.shape)

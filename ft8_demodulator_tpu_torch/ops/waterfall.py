@@ -109,6 +109,15 @@ def _dft_matrices(nperseg: int, nfft: int) -> tuple[np.ndarray, np.ndarray]:
     return cos_m, sin_m
 
 
+@functools.lru_cache(maxsize=8)
+def _window(nperseg: int, device: torch.device,
+            dtype: torch.dtype) -> torch.Tensor:
+    """JAX's float32 periodic Hann window as ``dtype`` on ``device``, built
+    once."""
+    return torch.as_tensor(_hann_periodic(nperseg).astype(np.float32),
+                           dtype=dtype, device=device)
+
+
 @functools.lru_cache(maxsize=4)
 def _matmul_constants(p: WaterfallParams, device: torch.device):
     """(cos, sin) float64 copies of :func:`_dft_matrices` on ``device``."""
@@ -304,8 +313,7 @@ def _power_spectrum(frames: torch.Tensor, p: WaterfallParams,
         # window, each value rounded once: complex64 FFTs differ between
         # the card and the CPU by up to 1.4e-3 dB in the grid's low cells
         # at an odd nfft (32,768 Hz, NVIDIA H100)
-        win = torch.as_tensor(_hann_periodic(p.nperseg).astype(np.float32),
-                              dtype=torch.float64, device=frames.device)
+        win = _window(p.nperseg, frames.device, torch.float64)
         if frames.is_complex():
             x = torch.fft.fft(frames.to(torch.complex128) * win, n=p.nfft,
                               dim=-1)
@@ -428,8 +436,7 @@ def calculate_spectrogram(wave_data, sample_rate: float,
         return np.array([[]]), np.array([]), np.array([])
     t_frames = p.num_frames(wave.shape[-1])
     x = _on_device(wave, device)
-    win = torch.as_tensor(_hann_periodic(p.nperseg).astype(np.float32),
-                          device=x.device)
+    win = _window(p.nperseg, x.device, torch.float32)
     z = frame_signal(x, p.nperseg, p.hop, t_frames) * win
     spec = torch.fft.fft(z.to(torch.complex64), n=p.nfft, dim=-1)
     power = spec.real * spec.real + spec.imag * spec.imag

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..demod.decode import finish_decode, slot_decoder
+from ..demod.decode import finish_decode
 from ..demod.types import FT8Decode, SlotDecodeResult
 from ..ops.waterfall import WaterfallParams, waterfall_params
 from ..utils.device import entry_device
@@ -53,8 +53,7 @@ def _decode_block_tp(extended: torch.Tensor, p: WaterfallParams,
     g_full = _local_grid(p, block_frames, ext_frames)
     front = _band_front(extended, p, ext_frames, g_full, mesh,
                         max_candidates, min_score)
-    return finish_decode(*front, max_iterations, False,
-                         slot_decoder(p, ext_frames, extended.device))
+    return finish_decode(*front, max_iterations, False)
 
 
 def decode_stream_composed_sharded(audio, p: WaterfallParams, mesh,

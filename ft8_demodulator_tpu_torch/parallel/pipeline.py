@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ..demod.decode import finish_decode, slot_decoder
+from ..demod.decode import finish_decode
 from ..demod.types import SlotDecodeResult
 from ..ops.llr import extract_llrs
 from ..ops.sync import find_candidates, search_grid
@@ -91,11 +91,10 @@ def decode_slots_pipelined(waves, p: WaterfallParams, num_frames: int, mesh,
             wait()
         packed = empty
     else:
-        decoder = slot_decoder(p, num_frames, device)
         like = torch.empty((k, C.LDPC_N + 4), dtype=torch.int32,
                            device=device)
         packed = torch.stack([col.pack_result(finish_decode(
             *_unpack_packet(col.recv(like, mesh, "stage", 0)),
-            max_iterations, use_osd, decoder)) for _ in range(m)]) \
+            max_iterations, use_osd)) for _ in range(m)]) \
             if m else empty
     return col.unpack_result(col.broadcast(packed, mesh, "stage", 1))

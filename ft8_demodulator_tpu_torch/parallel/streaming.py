@@ -13,10 +13,10 @@ the rare double decode of one transmission at slightly different offsets.
 Every rank of the mesh holds the same full capture (as every JAX process
 passes the same host audio), copies only its shard to its device, decodes
 it there (the frequency-major sync kernel K6 once per channel row, the OSD
-kernel K4 under ``use_osd``) with one ``SlotDecoder`` per geometry and
-device (``demod/decode.py slot_decoder``), and the results are gathered
-over ``stream`` and ``channel`` in mesh order, so every rank formats the
-same rows.  The yield counter is a sum over both.
+kernel K4 under ``use_osd``; the constants reach each device once,
+through the caches of ``ops/``), and the results are gathered over
+``stream`` and ``channel`` in mesh order, so every rank formats the same
+rows.  The yield counter is a sum over both.
 
 Left out of the JAX function: the ``lax.map`` chunking of wide channel
 vmaps (``:184-196``, an XLA workaround: the port decodes a rank's rows one
@@ -30,8 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..demod.decode import (SlotDecoder, decode_waterfall,
-                            decode_waterfall_mf, mf_retry, slot_decoder)
+from ..demod.decode import decode_waterfall, decode_waterfall_mf, mf_retry
 from ..demod.types import FT8Decode, FT8DecodeStatus, FT8Message, \
     SlotDecodeResult
 from ..ops.sync import PRE_ROLL_SYMBOLS, SearchGrid
@@ -69,19 +68,19 @@ def _local_grid(p: WaterfallParams, block_frames: int,
 def _decode_wave(wave: torch.Tensor, p: WaterfallParams, g: SearchGrid,
                  max_candidates: int, min_score: float, max_iterations: int,
                  use_mf: bool, use_osd: bool, mf_first: bool,
-                 mf_refine: bool, decoder: SlotDecoder) -> SlotDecodeResult:
+                 mf_refine: bool) -> SlotDecodeResult:
     """One row's decode over grid ``g``: waterfall -> K6 -> top-K -> LLRs
     -> BP (+ OSD), or the MF-first decode, (+ the MF retry)."""
     mag = waterfall_real(wave, p, p.num_frames(wave.shape[-1]))
     if mf_first:
         return decode_waterfall_mf(mag, wave, p, g, 0, 0, max_candidates,
                                    min_score, max_iterations, use_osd,
-                                   mf_refine=mf_refine, decoder=decoder)
+                                   mf_refine=mf_refine)
     res = decode_waterfall(mag, g, max_candidates, min_score,
-                           max_iterations, use_osd, decoder=decoder)
+                           max_iterations, use_osd)
     if use_mf:
         res = mf_retry(wave, p, res, 0, 0, max_iterations, use_osd,
-                       mf_refine=mf_refine, decoder=decoder)
+                       mf_refine=mf_refine)
     return res
 
 
@@ -91,14 +90,12 @@ def _decode_block(block: torch.Tensor, halo: torch.Tensor,
                   use_osd: bool = False, mf_first: bool = False,
                   mf_refine: bool = False) -> SlotDecodeResult:
     """One row of a rank's block: extend with the right halo, decode the
-    locally owned start times (``streaming.py:70``) with the cached
-    decoder of the block geometry on this rank's device."""
+    locally owned start times (``streaming.py:70``)."""
     extended = torch.cat([block, halo], dim=-1)
     ext_frames = p.num_frames(extended.shape[-1])
     g = _local_grid(p, block.shape[-1] // p.hop, ext_frames)
     return _decode_wave(extended, p, g, max_candidates, min_score,
-                        max_iterations, use_mf, use_osd, mf_first, mf_refine,
-                        slot_decoder(p, ext_frames, extended.device))
+                        max_iterations, use_mf, use_osd, mf_first, mf_refine)
 
 
 def _decode_preroll(audio, p: WaterfallParams, max_candidates: int,
@@ -124,10 +121,9 @@ def _decode_preroll(audio, p: WaterfallParams, max_candidates: int,
         t_start=-pre, num_times=pre,
         num_freqs=max(0, p.num_freq_bins - 7 * p.freq_osr),
     )
-    decoder = slot_decoder(p, num_frames, device)
     rows = [_decode_wave(wave, p, g, max_candidates, min_score,
                          max_iterations, use_mf, use_osd, mf_first,
-                         mf_refine, decoder) for wave in audio]
+                         mf_refine) for wave in audio]
     return SlotDecodeResult(*(torch.stack(f) for f in zip(*rows)))
 
 

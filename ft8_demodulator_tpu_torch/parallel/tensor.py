@@ -27,8 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from ..demod.decode import SlotDecoder, finish_decode, mf_retry, \
-    slot_decoder
+from ..demod.decode import finish_decode, mf_retry
 from ..demod.types import SlotDecodeResult
 from ..ops.llr import extract_llrs
 from ..ops.sync import SearchGrid, _top_k_stable, find_candidates, \
@@ -80,30 +79,26 @@ def decode_slot_tp(wave, p: WaterfallParams, num_frames: int, mesh,
                    max_candidates: int = 20, min_score: float = 10.0,
                    max_iterations: int = 20, use_osd: bool = False,
                    use_mf: bool = False, mf_refine: bool = False,
-                   device: str | torch.device = "cuda",
-                   decoder: SlotDecoder | None = None
+                   device: str | torch.device = "cuda"
                    ) -> SlotDecodeResult | None:
     """Audio (n,) real -> SlotDecodeResult (K rows), the frequency grid
     split over ``mesh`` (one dimension named ``freq``; None: this process
     alone) (``tensor.py:51``).
 
     ``wave`` (numpy or a tensor) is the same on every rank; each decodes
-    on ``device`` (the card unless the caller asks for the CPU) with
-    ``decoder`` (default: the cached one of this geometry).  Every rank of
-    the mesh returns the same result, which equals the one-rank decoder's;
-    a rank outside the mesh returns None.
+    on ``device`` (the card unless the caller asks for the CPU).  Every
+    rank of the mesh returns the same result, which equals the one-rank
+    decoder's; a rank outside the mesh returns None.
     """
     device = entry_device(device)
     if axis(mesh, "freq")[1] is None:
         return None
     wave = torch.as_tensor(wave, dtype=torch.float32, device=device)
-    if decoder is None:
-        decoder = slot_decoder(p, num_frames, device)
     g_full = search_grid(p.num_freq_bins, num_frames, p.time_osr, p.freq_osr)
     front = _band_front(wave, p, num_frames, g_full, mesh, max_candidates,
                         float(min_score))
-    res = finish_decode(*front, max_iterations, use_osd, decoder)
+    res = finish_decode(*front, max_iterations, use_osd)
     if use_mf:
         res = mf_retry(wave, p, res, 0, 0, max_iterations, use_osd,
-                       mf_refine=mf_refine, decoder=decoder)
+                       mf_refine=mf_refine)
     return res

@@ -8,13 +8,11 @@ device of its input.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
-from ..utils.profiling import host_wait
 from . import constants as C
+from .tables import device_table
 
 __all__ = [
     "payload_to_bits",
@@ -27,13 +25,6 @@ __all__ = [
     "crc_generator",
     "check_crc",
 ]
-
-
-@functools.lru_cache(maxsize=8)
-def _table(name: str, device: torch.device) -> torch.Tensor:
-    """A protocol table of ``C`` as an int64 tensor on ``device``."""
-    return torch.as_tensor(np.asarray(getattr(C, name)), dtype=torch.int64,
-                           device=device)
 
 
 def _gf2_matvec(bits: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
@@ -73,7 +64,7 @@ def crc14(bits77: torch.Tensor) -> torch.Tensor:
     Returns the checksum as an int64 per leading index.
     """
     crc_bits = _gf2_matvec(bits77.to(torch.int64),
-                           _table("CRC_MATRIX_77", bits77.device))
+                           device_table("CRC_MATRIX_77", bits77.device))
     return (crc_bits * _msb_weights(C.CRC_BITS, bits77.device)).sum(-1)
 
 
@@ -83,27 +74,23 @@ def encode_codeword(bits77: torch.Tensor) -> torch.Tensor:
     codeword = [payload77 | crc14 | parity83], one GF(2) product.
     """
     return _gf2_matvec(bits77.to(torch.int64),
-                       _table("ENCODE_MATRIX", bits77.device))
+                       device_table("ENCODE_MATRIX", bits77.device))
 
 
 def codeword_to_tones(codeword: torch.Tensor) -> torch.Tensor:
     """(..., 174) codeword bits -> (..., 58) Gray-coded 8-FSK tone ids."""
     groups = codeword.reshape(*codeword.shape[:-1], C.NUM_DATA_SYMBOLS, 3)
     vals = groups[..., 0] * 4 + groups[..., 1] * 2 + groups[..., 2]
-    return _table("GRAY_MAP", codeword.device)[vals]
+    return device_table("GRAY_MAP", codeword.device)[vals]
 
 
 def frame_tones(data_tones: torch.Tensor) -> torch.Tensor:
     """(..., 58) data tones -> (..., 79) frame with 3 Costas blocks."""
     dev = data_tones.device
-    # copied from host memory on every call; on the host API's path inside
-    # the SNR estimate
-    with host_wait("ft8.snr.wait", 2):
-        data_idx = torch.as_tensor(np.maximum(C.FRAME_DATA_INDEX, 0),
-                                   dtype=torch.int64, device=dev)
-        is_costas = torch.as_tensor(C.FRAME_IS_COSTAS, device=dev)
+    data_idx = device_table("FRAME_DATA_INDEX", dev).clamp(min=0)
     gathered = data_tones[..., data_idx]
-    return torch.where(is_costas, _table("FRAME_COSTAS_TONE", dev), gathered)
+    return torch.where(device_table("FRAME_IS_COSTAS", dev, torch.bool),
+                       device_table("FRAME_COSTAS_TONE", dev), gathered)
 
 
 def encode_tones(payload: torch.Tensor) -> torch.Tensor:

@@ -33,18 +33,16 @@ def host(res):
         SlotDecodeResult(*(f.cpu().numpy() for f in res))
 
 
-def _tp(inp, name, n_f, device, decoder=None, **kw):
+def _tp(inp, name, n_f, device, **kw):
     wave = inp[name]
     p = waterfall_params(inp[name + "_fs"], *inp[name + "_osr"])
     return host(decode_slot_tp(wave, p, p.num_frames(len(wave)),
                                make_freq_mesh(n_f, device=device),
-                               device=device, decoder=decoder, **kw))
+                               device=device, **kw))
 
 
 def cpu_cases(device, inp):
     """The non-slow cases of test_torch_parallel.py on 8 ranks."""
-    from ft8_demodulator_tpu_torch.demod.decode import SlotDecoder
-
     out = {}
     stream8 = make_mesh(stream=8, channel=1, device=device)
     out["boundaries"] = decode_stream(inp["boundaries"], FS, mesh=stream8,
@@ -75,10 +73,6 @@ def cpu_cases(device, inp):
     out["tp_osd_mf"] = _tp(inp, "tp_osd_mf", 4, device, max_candidates=8,
                            min_score=4.0, use_osd=True, use_mf=True,
                            mf_refine=True)
-    out["tp_jax_arrays"] = _tp(
-        inp, "tp", 2, device,
-        decoder=SlotDecoder.from_arrays(inp["tp_jax_arrays"], device),
-        max_candidates=16, min_score=4.0)
 
     pp = waterfall_params(FS, 2, 2)
     nf = pp.num_frames(inp["pp"].shape[1])

@@ -165,9 +165,8 @@ def test_bp_kernel_matches_plain_bit_for_bit(cuda, rows, max_iterations):
     """K7 against the plain loop on the card: plain bits, min_errors, both
     CRCs and each row's iterations equal (torch.equal)."""
     llrs = _bp_rows(rows, rows + max_iterations, cuda)
-    tables = tbp.bp_tables(cuda)
-    got = tbp.bp_crc_batch(llrs, max_iterations, tables)
-    want = tbp.bp_crc_batch_plain(llrs, max_iterations, tables)
+    got = tbp.bp_crc_batch(llrs, max_iterations)
+    want = tbp.bp_crc_batch_plain(llrs, max_iterations)
     torch.cuda.synchronize()
     for name, g, w in zip(want._fields, got, want):
         assert g.is_cuda and g.dtype == torch.int32, name
@@ -994,7 +993,9 @@ def _k8_front(kind, cuda):
     the decoders hand the layer.  Returns the route's arguments and the
     rest of the front for finish_decode."""
     from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_real
+    from ft8_demodulator_tpu_torch.protocol.tables import device_table
 
+    gray = device_table("GRAY_MAP", cuda)
     cs = _chip_smoke()
     if kind == "station":
         p = waterfall_params(cs.FS, 2, 2)
@@ -1005,8 +1006,7 @@ def _k8_front(kind, cuda):
         at, af, score, valid = tsync.find_candidates(
             tsc.sync_scores_kernel(mag, g), g, 20, 10.0)
         return dict(grid=mag.transpose(-1, -2), at=at, af=af, score=score,
-                    valid=valid, g=g, matched=False, gray=None,
-                    decoder=tdec.slot_decoder(p, nf, cuda))
+                    valid=valid, g=g, matched=False, gray=gray)
     deep = kind == "deep"
     p = waterfall_params(cs.FS, *((4, 4) if deep else (2, 2)))
     waves, _ = cs._synth_slots(cuda, batch=8 if deep else 16)
@@ -1019,19 +1019,18 @@ def _k8_front(kind, cuda):
     else:
         grid = mags = twc.block_waterfall_tf_fused_batch(waves, p, nf, consts)
     at, af, score, valid = tdec._candidates(
-        mags, decoder.g, 40 if deep else 20, 1.0 if deep else 10.0, decoder)
+        mags, decoder.g, 40 if deep else 20, 1.0 if deep else 10.0)
     return dict(grid=grid, at=at, af=af, score=score, valid=valid,
-                g=decoder.g, matched=deep, gray=decoder.gray_map,
-                decoder=decoder)
+                g=decoder.g, matched=deep, gray=gray)
 
 
 def _k8_plain_raw(x):
     g = x["g"]
     if x["matched"]:
         return tllr._grid_llrs_plain(x["grid"], x["at"], x["af"], g.time_osr,
-                                     g.freq_osr, x["gray"])
+                                     g.freq_osr)
     return tllr._hann_llrs_plain(x["grid"], x["at"], x["af"], g.time_osr,
-                                 g.freq_osr, g.num_blocks, x["gray"])
+                                 g.freq_osr, g.num_blocks)
 
 
 @pytest.mark.parametrize("kind", ["standard", "deep", "station"])
@@ -1049,7 +1048,7 @@ def test_k8_matches_plain_route(cuda, kind):
     g = x["g"]
     args = (x["grid"], x["at"], x["af"], g.time_osr, g.freq_osr,
             g.num_blocks, x["matched"], x["gray"])
-    tlk.llr_kernel(*args)               # the station's Gray map, copied once
+    tlk.llr_kernel(*args)               # the kernel library, loaded once
     torch.cuda.synchronize()
     before = counters()
     llrs = tlk.llr_kernel(*args)
@@ -1070,24 +1069,21 @@ def test_k8_matches_plain_route(cuda, kind):
     before = counters().get("k8.launches", 0)
     if x["matched"]:
         routed = tllr.extract_llrs_matched_grid(x["grid"], x["at"], x["af"],
-                                                g.time_osr, g.freq_osr,
-                                                x["gray"])
+                                                g.time_osr, g.freq_osr)
     elif kind == "station":
         routed = tllr.extract_llrs(x["grid"].transpose(-1, -2), x["at"],
                                    x["af"], g.time_osr, g.freq_osr,
                                    g.num_blocks)
     else:
         routed = tllr.extract_llrs_tf(x["grid"], x["at"], x["af"],
-                                      g.time_osr, g.freq_osr, g.num_blocks,
-                                      x["gray"])
+                                      g.time_osr, g.freq_osr, g.num_blocks)
     assert counters().get("k8.launches", 0) == before + 1
     assert torch.equal(routed, llrs)
     # the same decodes through finish_decode (BP + CRC, OSD on DEEP)
     front = [a.reshape(-1, *a.shape[x["at"].dim():])
              for a in (x["at"], x["af"], x["score"], x["valid"])]
     use_osd = x["matched"]
-    got, ref = (tdec.finish_decode(v.reshape(-1, 174), *front, 20, use_osd,
-                                   x["decoder"])
+    got, ref = (tdec.finish_decode(v.reshape(-1, 174), *front, 20, use_osd)
                 for v in (llrs, tllr.normalize_llrs(want)))
     lift = lambda r: tdec.SlotDecodeResult(*(a[None] for a in r))
     assert _decode_sets(lift(got), 0) == _decode_sets(lift(ref), 0)

@@ -24,16 +24,13 @@ import jax.numpy as jnp
 
 from ft8_demodulator_tpu import config as jconfig
 from ft8_demodulator_tpu.demod import decode as jdec
-from ft8_demodulator_tpu.ops import ldpc_decode as jbp
 from ft8_demodulator_tpu.ops import llr as jllr
-from ft8_demodulator_tpu.ops import osd as josd
 from ft8_demodulator_tpu.ops import sync as jsync
 from ft8_demodulator_tpu.ops import waterfall as jwf
 from ft8_demodulator_tpu.ops.waterfall_pallas import \
     block_waterfall_mf_tf_fused_batch as jax_mf_batch
 from ft8_demodulator_tpu.ops.waterfall_pallas import \
     block_waterfall_tf_fused_batch as jax_fused_batch
-from ft8_demodulator_tpu.protocol import constants as JC
 from ft8_demodulator_tpu_torch import config as tconfig
 from ft8_demodulator_tpu_torch.demod import decode as tdec
 from ft8_demodulator_tpu_torch.ops.gfsk import ft8_passband
@@ -116,44 +113,40 @@ def test_decode_slots_matches_jax_decode_slots(slots, port_result):
             {d[0] for d in _decodes(want, b)}, f"slot {b}"
 
 
-def _jax_arrays(p, num_frames):
-    """The decoder constants as the JAX package builds them."""
+def _jax_geometry_arrays(p):
+    """A geometry's waterfall constants as the JAX package builds them."""
     dft_cos, dft_sin = jwf._block_dft_matrices(p.hop, p.nfft,
                                                p.num_freq_bins, p.freq_osr)
     combine_cos, combine_sin = jwf._block_combine_phases(p)
-    var_of_mi, nj_of_mi, mi_of_nj, mi_mask = jbp._build_routing()
-    return {
-        "fs": np.asarray(p.fs), "freq_osr": np.asarray(p.freq_osr),
-        "time_osr": np.asarray(p.time_osr),
-        "num_frames": np.asarray(num_frames),
-        "dft_cos": dft_cos, "dft_sin": dft_sin,
-        "combine_cos": combine_cos, "combine_sin": combine_sin,
-        "var_of_mi": var_of_mi, "nj_of_mi": nj_of_mi, "mi_of_nj": mi_of_nj,
-        "mi_mask": mi_mask,
-        "parity_check": JC.PARITY_CHECK, "crc_matrix_77": JC.CRC_MATRIX_77,
-        "gray_map": JC.GRAY_MAP,
-        "osd_basis": josd._basis(),
-        "osd_row_syndromes": josd._ROW_SYNDROMES_NP,
-    }
+    return {"dft_cos": dft_cos, "dft_sin": dft_sin,
+            "combine_cos": combine_cos, "combine_sin": combine_sin}
 
 
-def test_decoder_from_jax_arrays_decodes_identically(slots, port_result):
-    waves, _ = slots
-    p = waterfall_params(FS, 2, 2)
-    nf = p.num_frames(N)
-    jax_arrays = _jax_arrays(jwf.waterfall_params(FS, 2, 2), nf)
-    own = tdec.decoder_arrays(p, nf)
-    assert sorted(own) == sorted(jax_arrays)
-    for key, want in jax_arrays.items():
-        assert own[key].dtype == want.dtype, key
-        np.testing.assert_array_equal(own[key], want, err_msg=key)
+def _assert_geometry_matches_jax(osr):
+    """decoder_arrays equal the JAX package's arrays bit for bit, and the
+    cached decoder's buffers are those arrays in the kernels' dtypes."""
+    p = waterfall_params(FS, *osr)
+    want = _jax_geometry_arrays(jwf.waterfall_params(FS, *osr))
+    own = tdec.decoder_arrays(p)
+    assert sorted(own) == sorted(want)
+    for key, w in want.items():
+        assert own[key].dtype == w.dtype, key
+        np.testing.assert_array_equal(own[key], w, err_msg=key)
+    dec = tdec.slot_decoder(p, p.num_frames(N), torch.device("cpu"))
+    assert sorted(name for name, _ in dec.named_buffers()) == sorted(want)
+    for key, dtype in (("dft_cos", torch.bfloat16),
+                       ("dft_sin", torch.bfloat16),
+                       ("combine_cos", torch.float32),
+                       ("combine_sin", torch.float32)):
+        torch.testing.assert_close(getattr(dec, key),
+                                   torch.as_tensor(want[key]).to(dtype),
+                                   rtol=0, atol=0, msg=key)
 
-    dec = tdec.SlotDecoder.from_arrays(jax_arrays, "cpu")
-    res = tdec.decode_slots(torch.as_tensor(waves), p, nf, max_candidates=K,
-                            min_score=MIN_SCORE, chunk=2, bp_chunk=4,
-                            decoder=dec)
-    for name, got, want in zip(res._fields, res, port_result):
-        torch.testing.assert_close(got, want, rtol=0, atol=0, msg=name)
+
+def test_decoder_from_jax_arrays_decodes_identically():
+    """The STANDARD geometry (2x2): the decoder holds the JAX package's
+    waterfall constants and nothing else."""
+    _assert_geometry_matches_jax((2, 2))
 
 
 def test_decode_slot_equals_decode_slots(slots, port_result):
@@ -330,14 +323,6 @@ def test_deep_search_preset_matches_jax_decode_slot(slots):
             jax.tree_util.tree_map(lambda a: a[None], want), 0)}, f"slot {b}"
 
 
-def test_deep_decoder_from_jax_arrays_decodes_identically(slots,
-                                                          deep_result):
-    waves, _ = slots
-    p = waterfall_params(FS, 4, 4)
-    nf = p.num_frames(N)
-    dec = tdec.SlotDecoder.from_arrays(
-        _jax_arrays(jwf.waterfall_params(FS, 4, 4), nf), "cpu")
-    res = tdec.decode_slots(torch.as_tensor(waves), p, nf, chunk=2,
-                            bp_chunk=4, decoder=dec, **DEEP)
-    for name, got, want in zip(res._fields, res, deep_result):
-        torch.testing.assert_close(got, want, rtol=0, atol=0, msg=name)
+def test_deep_decoder_from_jax_arrays_decodes_identically():
+    """The DEEP geometry (4x4), as the STANDARD one."""
+    _assert_geometry_matches_jax((4, 4))

@@ -1,5 +1,6 @@
 """The PyTorch port imports without JAX and names no JAX-package import."""
 
+import ast
 import importlib
 import json
 import os
@@ -9,11 +10,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "ft8_demodulator_tpu_torch"
 JAX_PACKAGE = REPO / "ft8_demodulator_tpu"
-# names a port subpackage exports beyond the JAX package's: the decoder's
-# constants module and the BP + CRC tail it feeds
+# names a port subpackage exports beyond the JAX package's: the geometry's
+# waterfall constants module and the BP + CRC tail it feeds
 PORT_ONLY = {"demod": {"SlotDecoder", "finish_decode"}}
 
 
@@ -167,3 +170,73 @@ def test_torch_subpackage_exports_match_jax():
             assert len(got[sub]) == len(set(got[sub])), sub
             assert set(got[sub]) - PORT_ONLY.get(sub, set()) \
                 == set(want[sub]), sub
+
+
+def _parameters(path: Path, name: str) -> list[str]:
+    """The parameter names of the module-level function ``name`` in
+    ``path``, in order (read from the source: no import)."""
+    tree = ast.parse(path.read_text())
+    fn, = (n for n in tree.body
+           if isinstance(n, ast.FunctionDef) and n.name == name)
+    a = fn.args
+    return [p.arg for p in a.posonlyargs + a.args + a.kwonlyargs]
+
+
+# (module, function, the port's parameters for JAX's): the public
+# signatures that take what JAX's take, each known difference written out
+SAME = {"demod/decode.py": ["finish_decode", "mf_retry", "coherent_retry",
+                            "variant_retry", "ap_retry_llrs",
+                            "decode_waterfall", "decode_waterfall_mf",
+                            "decode_slot", "decode_slots"],
+        "ops/llr.py": ["extract_llrs", "extract_llrs_tf",
+                       "extract_llrs_matched_grid"],
+        "ops/ldpc_decode.py": ["bp_decode_batch", "bp_decode",
+                               "ldpc_check"]}
+SIGNATURES = [(mod, fn, {}) for mod, fns in SAME.items() for fn in fns] + [
+    ("parallel/tensor.py", "decode_slot_tp", {"+": ["device"]}),
+    ("demod/stack.py", "decode_slot_stacked", {"+": ["device"]}),
+    ("ops/llr.py", "extract_llrs_matched_blocks",
+     {"spec_re": "spec", "spec_im": None}),
+    ("ops/llr.py", "extract_llrs_matched_blocks_stacked",
+     {"spec_re": "spec", "spec_im": None}),
+    ("ops/osd.py", "osd_decode_batch", {"force_jnp": None}),
+    ("ops/osd.py", "osd_decode_masked", {"force_jnp": None}),
+]
+
+
+@pytest.mark.parametrize("module,name,known", SIGNATURES,
+                         ids=[f"{m}:{f}" for m, f, _ in SIGNATURES])
+def test_public_signature_matches_jax(module, name, known):
+    """The port's parameter list is the JAX function's, name for name,
+    apart from the differences written out: a renamed (``spec`` for
+    ``spec_re``) or dropped (``spec_im``, OSD's ``force_jnp``) JAX
+    parameter, and the port's own trailing ``device``."""
+    want = [known.get(p, p) for p in _parameters(JAX_PACKAGE / module, name)]
+    want = [p for p in want if p is not None] + known.get("+", [])
+    assert _parameters(PORT / module, name) == want
+
+
+# the kernel wrappers and the private helpers that receive a table their op
+# resolved: the only functions that take a constant as an argument
+TABLE_TAKERS = {"_bp_iteration", "_mixes"}
+
+
+def test_no_function_above_the_kernel_wrappers_takes_a_constant():
+    """No function of the port outside ``ops/*_cuda.py`` has a parameter
+    named ``decoder``, ``gray_map``, ``crc_t`` or ``tables``, besides the
+    private helpers of TABLE_TAKERS."""
+    offenders = []
+    for path in PORT.rglob("*.py"):
+        if path.parent.name == "ops" and path.stem.endswith("_cuda"):
+            continue
+        for fn in ast.walk(ast.parse(path.read_text())):
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                    and fn.name not in TABLE_TAKERS:
+                a = fn.args
+                names = {p.arg for p in a.posonlyargs + a.args
+                         + a.kwonlyargs}
+                for bad in names & {"decoder", "gray_map", "crc_t",
+                                    "tables"}:
+                    offenders.append(f"{path.relative_to(REPO)}:"
+                                     f"{fn.name}({bad})")
+    assert offenders == []

@@ -9,6 +9,8 @@ against the JAX package on those cases (the cases of
 wrapper's refusals, which need no card.  The kernel itself runs in
 ``test_torch_cuda.py``."""
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -16,8 +18,10 @@ import torch
 import jax.numpy as jnp
 
 from ft8_demodulator_tpu.ops import llr as jllr
+from ft8_demodulator_tpu.protocol import constants as JC
 from ft8_demodulator_tpu_torch.ops import llr as tllr
 from ft8_demodulator_tpu_torch.ops import llr_cuda as tlk
+from ft8_demodulator_tpu_torch.protocol import tables
 
 import _torch_k8_model as k8
 
@@ -167,19 +171,25 @@ def test_plain_route_matches_jax_on_crops_and_constant_rows(rng, matched):
 
 
 def test_gray_map_argument_is_read(rng):
-    """A Gray map passed in is the one read, on the route and in the
-    model alike (K8 reads a passed map from the card)."""
-    grid = _grid(rng, False)
-    t, f = _candidates(rng, FRAMES, 2, 2, BINS)
-    gray = np.array([7, 6, 5, 4, 3, 2, 1, 0])
-    raw = tllr._hann_llrs_plain(torch.as_tensor(grid), torch.as_tensor(t),
-                                torch.as_tensor(f), 2, 2, FRAMES // 2,
-                                torch.as_tensor(gray))
+    """The Gray map that the plain routes and K8's model read is the
+    protocol's, equal to the JAX package's ``C.GRAY_MAP``: both routes
+    equal the model given JAX's map, and not the model given another."""
+    gray = tables.device_table("GRAY_MAP", torch.device("cpu"))
+    np.testing.assert_array_equal(gray.numpy(), JC.GRAY_MAP)
     np.testing.assert_array_equal(
-        raw.numpy(), k8.bit_llrs(grid, t, f, 2, 2, FRAMES // 2, False,
-                                 gray))
-    assert not np.array_equal(
-        raw.numpy(), k8.bit_llrs(grid, t, f, 2, 2, FRAMES // 2, False))
+        inspect.signature(k8.bit_llrs).parameters["gray"].default,
+        JC.GRAY_MAP)
+    t, f = _candidates(rng, FRAMES, 2, 2, BINS)
+    for matched in (False, True):
+        grid = _grid(rng, matched)
+        _, raw = _route(torch.as_tensor(grid), t, f, 2, 2, matched)
+        want = k8.bit_llrs(grid, t, f, 2, 2, FRAMES // 2, matched,
+                           JC.GRAY_MAP)
+        np.testing.assert_allclose(raw.numpy(), want, rtol=0,
+                                   atol=2e-5 if matched else 0)
+        other = k8.bit_llrs(grid, t, f, 2, 2, FRAMES // 2, matched,
+                            JC.GRAY_MAP[::-1])
+        assert np.abs(raw.numpy() - other).max() > 1e-3
 
 
 _BAD = {
@@ -216,7 +226,8 @@ def test_wrapper_refuses(case):
     """The wrapper's checks run before it looks for a card: a bad shape or
     type, and on valid arguments a CPU tensor, raise ValueError."""
     grid, t, f, kw = _BAD[case]
-    args = dict(time_osr=2, freq_osr=2, num_blocks=4, matched=False)
+    args = dict(time_osr=2, freq_osr=2, num_blocks=4, matched=False,
+                gray_map=torch.arange(8))
     args.update(kw)
     match = "no kernel for device cpu" if case == "cpu tensors" else None
     with pytest.raises(ValueError, match=match):

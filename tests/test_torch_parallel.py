@@ -35,11 +35,8 @@ import torch
 
 from ft8_demodulator_tpu import parallel as jpar
 from ft8_demodulator_tpu.demod import decode_ft8_message as jax_message
-from ft8_demodulator_tpu.ops import ldpc_decode as jbp
-from ft8_demodulator_tpu.ops import osd as josd
 from ft8_demodulator_tpu.ops import waterfall as jwf
 from ft8_demodulator_tpu.ops.gfsk import ft8_passband
-from ft8_demodulator_tpu.protocol import constants as JC
 from ft8_demodulator_tpu_torch import parallel as tpar
 from ft8_demodulator_tpu_torch.demod import decode as tdec
 from ft8_demodulator_tpu_torch.ops import sync as tsync
@@ -179,40 +176,17 @@ def _multihost():                                  # _multihost_worker.py:42
     return stream
 
 
-def _jax_arrays(p, num_frames):
-    """The decoder constants as the JAX package builds them."""
-    dft_cos, dft_sin = jwf._block_dft_matrices(p.hop, p.nfft,
-                                               p.num_freq_bins, p.freq_osr)
-    combine_cos, combine_sin = jwf._block_combine_phases(p)
-    var_of_mi, nj_of_mi, mi_of_nj, mi_mask = jbp._build_routing()
-    return {
-        "fs": np.asarray(p.fs), "freq_osr": np.asarray(p.freq_osr),
-        "time_osr": np.asarray(p.time_osr),
-        "num_frames": np.asarray(num_frames),
-        "dft_cos": dft_cos, "dft_sin": dft_sin,
-        "combine_cos": combine_cos, "combine_sin": combine_sin,
-        "var_of_mi": var_of_mi, "nj_of_mi": nj_of_mi, "mi_of_nj": mi_of_nj,
-        "mi_mask": mi_mask,
-        "parity_check": JC.PARITY_CHECK, "crc_matrix_77": JC.CRC_MATRIX_77,
-        "gray_map": JC.GRAY_MAP,
-        "osd_basis": josd._basis(),
-        "osd_row_syndromes": josd._ROW_SYNDROMES_NP,
-    }
-
-
 TP_EVENTS = [(PAYLOAD_A, 1.0, 400.0), (PAYLOAD_B, 0.5, 810.0)]
 
 
 @pytest.fixture(scope="module")
 def inputs():
     tp = _slot(FS, TP_EVENTS)
-    p = jwf.waterfall_params(FS, 2, 2)
     return {
         "boundaries": _boundaries(), "multi_channel": _multi_channel(),
         "chunked_rows": _chunked_rows(), "clipped": _clipped(),
         "osd_mf_first": _osd_mf_first(),
         "tp": tp, "tp_fs": FS, "tp_osr": (2, 2),
-        "tp_jax_arrays": _jax_arrays(p, p.num_frames(len(tp))),
         "tp_deep": _slot(10500.0, [(PAYLOAD_A, 1.0, 900.0)]),
         "tp_deep_fs": 10500.0, "tp_deep_osr": (4, 4),
         "tp_osd_mf": _slot(FS, [(PAYLOAD_A, 1.0, 400.0)]),
@@ -372,12 +346,6 @@ def test_tp_equals_jax_and_one_rank(port, inputs, case, n_f, kw):
     assert bytes(PAYLOAD_A.tolist()) in decoded
     if name == "tp":
         assert bytes(PAYLOAD_B.tolist()) in decoded
-
-
-def test_tp_with_the_jax_packages_constants(port):
-    """SlotDecoder.from_arrays with the JAX package's arrays on every rank
-    decodes identically to the port's own constants."""
-    _assert_result(_rank0(port, "tp_jax_arrays"), _rank0(port, "tp_2"))
 
 
 # ---- tests/test_pipeline.py ---------------------------------------------

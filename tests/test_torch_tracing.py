@@ -59,11 +59,14 @@ def _fresh_counters():
     profiling.reset_counters()
 
 
-@pytest.mark.parametrize("wait,stage", [("ft8.decode.wait", "ft8.decode"),
-                                        ("ft8.llrs.wait", "ft8.llrs")])
-def test_wait_spans_nest_in_their_stage(wait, stage):
+@pytest.mark.parametrize("wait,stage,osr,kw", [
+    pytest.param("ft8.decode.wait", "ft8.decode", 2, STANDARD,
+                 id="ft8.decode.wait-ft8.decode"),
+    pytest.param("ft8.osd.wait", "ft8.osd", 4, DEEP,
+                 id="ft8.osd.wait-ft8.osd")])
+def test_wait_spans_nest_in_their_stage(wait, stage, osr, kw):
     with _profile() as prof:
-        _decode(2, **STANDARD)
+        _decode(osr, **kw)
     spans = [(e.time_range.start, e.time_range.end, e.name)
              for e in prof.events() if e.name.startswith("ft8.")]
     waits = [(a, b) for a, b, name in spans if name == wait]
@@ -92,9 +95,9 @@ def test_osd_counts_rows_bp_left_and_rows_accepted(monkeypatch):
     monkeypatch.setattr(tosd, "osd_decode_masked", keep_ok)
     with _profile():
         _decode(4, **DEEP)
-    (llrs, t, f, score, valid, iters, use_osd, decoder), = fronts
+    (llrs, t, f, score, valid, iters, use_osd), = fronts
     assert use_osd
-    bp_only = finish(llrs, t, f, score, valid, iters, False, decoder)
+    bp_only = finish(llrs, t, f, score, valid, iters, False)
     failed = int((valid & ~bp_only.success).sum())
     accepted = int(taken[0].sum())
     assert failed > 0 and accepted > 0
@@ -197,3 +200,35 @@ def test_trace_writes_its_counters(tmp_path):
     # reset on entry: the count before the trace is not in it
     assert got["waits"] == profiling.counters()["waits"]
     assert got["bp.calls"] == 1 and 1 <= got["bp.iterations"] <= 20
+
+
+def _stacked_coherent():
+    from ft8_demodulator_tpu_torch.demod import decode_ft8_stacked
+
+    return decode_ft8_stacked(_slots().numpy(), FS, use_osd=True,
+                              coherent=True, device="cpu")
+
+
+def _capture(**kw):
+    return lambda: tdec.decode_ft8_message(_slots()[0].numpy(), FS,
+                                           device="cpu", **kw)
+
+
+@pytest.mark.parametrize("call,stages", [
+    (_stacked_coherent, {"ft8.llrs", "ft8.coherent", "ft8.snr"}),
+    (_capture(), {"ft8.llrs", "ft8.snr"}),
+    (_capture(use_osd=True, use_mf=True, coherent=True),
+     {"ft8.llrs", "ft8.coherent", "ft8.snr"}),
+], ids=["stacked_coherent", "capture", "capture_mf_coherent"])
+def test_no_wait_for_a_constant_on_a_second_call(call, stages):
+    """A second call of the stacked path with the coherent retry, and of
+    the host API, opens its LLR, coherent and SNR stages and no wait span
+    inside them: the constants they read reached the device at the first
+    call."""
+    call()
+    with _profile() as prof:
+        call()
+    names = {e.name for e in prof.events() if e.name.startswith("ft8.")}
+    assert stages <= names
+    assert not names & {"ft8.llrs.wait", "ft8.snr.wait",
+                        "ft8.coherent.wait"}
