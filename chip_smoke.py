@@ -221,7 +221,20 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    and requires them: one a chunk of decode_slots' time-major routes
    (phases 4, 6, 9 and 19's slot batches), and elsewhere one a
    frequency-major sync launch on the Hann route and none on the
-   matched-filter-first one (phases 12, 16, 18 and 19's trials).
+   matched-filter-first one (phases 12, 16, 18 and 19's trials);
+22. the candidate top-K (K9, csrc/topk_select.cu) on K5's scores of the
+   first chunk of phase 4's STANDARD decode (16 x 88 x 1,906, K 20) and
+   of phase 9's DEEP one (8 x 176 x 3,812, K 40): K9's four outputs ==
+   the plain route's (ops/sync.py find_candidates_plain) bit for bit, the
+   largest |score difference| (the record's max_abs_err, 0); device time
+   of K9 and of the plain route (as in phase 6) beside K9's bound
+   (ops/topk_cuda.py topk_bound: the score grid read once); ptxas's
+   report of K9 (a spill raises).  Every phase that decodes on the card
+   with the counters zeroed just before reads K9's launches there and
+   requires one a sync launch: a chunk of decode_slots, a capture and
+   pass, a stream block, a decode_slot, a rank's band or slot; a
+   BeaconSession's stacked decodes launch it too (R > 1 without a sync
+   kernel).
 
 Then one JSON line with the kernels (each with its launches on the main
 path, device ms, plain ms, bound ms and what bounds it, and the library
@@ -381,9 +394,10 @@ def _kernel_name(fn: str) -> str:
     """A hand kernel's name from its mangled entry: waterfall_kernel<true>,
     sync_kernel<false,4,4> (layout, then the osr it is built for; 0: any),
     osd_eliminate_kernel, ldpc_bp_kernel, llr_kernel<true> (the boxcar
-    route); other names as they are."""
+    route), topk_select_kernel; other names as they are."""
     m = re.search(r"(waterfall_pack_kernel|osd_eliminate_kernel|"
-                  r"ldpc_bp_kernel|llr_kernel|waterfall_kernel|sync_kernel)"
+                  r"ldpc_bp_kernel|llr_kernel|waterfall_kernel|sync_kernel|"
+                  r"topk_select_kernel)"
                   r"(?:ILb([01])E((?:Li\d+E)*))?", fn)
     if not m:
         return fn
@@ -905,12 +919,15 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     osd_rows = _counter("osd.rows")
     bp_launches = _counter("k7.launches")
     llr_launches = _counter("k8.launches")
+    topk_launches = _counter("k9.launches")
     if mf_launches != BATCH // DEEP_CHUNK \
             or k5_launches != BATCH // DEEP_CHUNK \
-            or llr_launches != BATCH // DEEP_CHUNK:
-        raise RuntimeError(f"dual-output / sync / LLR kernels launched "
-                           f"{mf_launches} / {k5_launches} / {llr_launches} "
-                           f"times, want {BATCH // DEEP_CHUNK}")
+            or llr_launches != BATCH // DEEP_CHUNK \
+            or topk_launches != BATCH // DEEP_CHUNK:
+        raise RuntimeError(f"dual-output / sync / LLR / top-K kernels "
+                           f"launched {mf_launches} / {k5_launches} / "
+                           f"{llr_launches} / {topk_launches} times, want "
+                           f"{BATCH // DEEP_CHUNK}")
     if bp_launches != BATCH // BP_CHUNK:
         raise RuntimeError(f"BP + CRC kernel launched {bp_launches} times, "
                            f"want one a BP group, {BATCH // BP_CHUNK}")
@@ -1236,14 +1253,16 @@ def _api_phase(dev) -> tuple[int, dict]:
         k4 = _counter("k4.launches")
         k7 = _counter("k7.launches")
         k8 = _counter("k8.launches")
+        k9 = _counter("k9.launches")
         k6_total += k6
         host = decode_ft8_message(wave, FS, device="cpu", **kw)
         got = [r.message.payload for r in card]
         if k6 < 1 or k7 < 1 or (kw.get("use_osd") and k4 < 1) \
-                or k8 != _k8_want(k6, kw.get("mf_first", False)):
+                or k8 != _k8_want(k6, kw.get("mf_first", False)) \
+                or k9 != k6:
             raise RuntimeError(f"{name}: sync kernel {k6}, OSD kernel {k4}, "
-                               f"BP + CRC kernel {k7}, LLR kernel {k8} "
-                               "launches")
+                               f"BP + CRC kernel {k7}, LLR kernel {k8}, "
+                               f"top-K kernel {k9} launches")
         _check_api_rows(name, card, host)
         unplanted = [pl for pl in got if pl not in planted]
         missed = sorted(s for pl, s in planted.items()
@@ -1262,7 +1281,8 @@ def _api_phase(dev) -> tuple[int, dict]:
         lines.append(f"{name}: {len(card)} rows, all planted >= {min_snr:g} "
                      f"dB decoded (weakest decoded "
                      f"{min(planted[pl] for pl in got):.1f} dB), sync kernel "
-                     f"launches {k6}, OSD kernel launches {k4}, LLR kernel "
+                     f"launches {k6}, top-K kernel launches {k9}, OSD kernel "
+                     f"launches {k4}, LLR kernel "
                      f"launches {k8}, BP + CRC kernel launches {k7}, first "
                      f"call {card_s * 1e3:.0f} ms")
     # osr 10x10 (the generic sync instance on a shrunk tile; the plain
@@ -1281,20 +1301,23 @@ def _api_phase(dev) -> tuple[int, dict]:
     k6 = _counter("k6.launches")
     k7 = _counter("k7.launches")
     k8 = _counter("k8.launches")
+    k9 = _counter("k9.launches")
     k6_total += k6
     t0 = time.perf_counter()
     host = decode_ft8_message(wave, FS, device="cpu", **band)
     host_s = time.perf_counter() - t0
-    if k6 != 1 or k7 < 1 or k8 != 1 or bytes(payloads[strong]) not in {
-            r.message.payload for r in card}:
+    if k6 != 1 or k7 < 1 or k8 != 1 or k9 != 1 \
+            or bytes(payloads[strong]) not in {
+                r.message.payload for r in card}:
         raise RuntimeError(f"osr {HIGH_OSR}x{HIGH_OSR}: sync / BP + CRC / "
-                           f"LLR kernel launches {k6} / {k7} / {k8}, rows "
-                           f"{card}")
+                           f"LLR / top-K kernel launches {k6} / {k7} / {k8} /"
+                           f" {k9}, rows {card}")
     _check_api_rows(f"osr {HIGH_OSR}x{HIGH_OSR}", card, host)
     lines.append(f"osr {HIGH_OSR}x{HIGH_OSR} on {band['freq_min']:.0f}-"
                  f"{band['freq_max']:.0f} Hz: {len(card)} rows (the "
                  f"{snr[strong]:.1f} dB signal decoded), sync kernel "
-                 f"launches {k6}, LLR kernel launches {k8}, BP + CRC kernel "
+                 f"launches {k6}, top-K kernel launches {k9}, LLR kernel "
+                 f"launches {k8}, BP + CRC kernel "
                  f"launches {k7}, first call "
                  f"{card_s * 1e3:.0f} ms (CPU "
                  f"{host_s * 1e3:.0f} ms)")
@@ -1356,14 +1379,15 @@ def _weak_phase(dev) -> int:
         _reset_counts()
         card = decode_ft8_message(wave, FS, device=dev, **kw)
         torch.cuda.synchronize()
-        k6, k4, k7, k8 = (_counter(f"{k}.launches")
-                          for k in ("k6", "k4", "k7", "k8"))
+        k6, k4, k7, k8, k9 = (_counter(f"{k}.launches")
+                              for k in ("k6", "k4", "k7", "k8", "k9"))
         k6_total += k6
         if k6 < 1 or k4 < 1 or k7 < 1 \
-                or k8 != _k8_want(k6, kw.get("mf_first", False)):
+                or k8 != _k8_want(k6, kw.get("mf_first", False)) \
+                or k9 != k6:
             raise RuntimeError(f"weak capture, {name}: sync kernel {k6}, "
                                f"OSD kernel {k4}, BP + CRC kernel {k7}, LLR "
-                               f"kernel {k8} launches")
+                               f"kernel {k8}, top-K kernel {k9} launches")
         _check_api_rows(f"weak capture, {name}", card,
                         decode_ft8_message(wave, FS, device="cpu", **kw))
         found[name] = {r.message.payload for r in card}
@@ -1406,10 +1430,11 @@ def _weak_phase(dev) -> int:
                            **slot_kw, **extra)
         torch.cuda.synchronize()
         launched = {k: _counter(f"{k.lower()}.launches")
-                    for k in ("K1", "K3", "K5", "K6", "K8", "K4", "K7")}
+                    for k in ("K1", "K3", "K5", "K6", "K8", "K9", "K4",
+                              "K7")}
         k6_total += launched["K6"]
         if not all(launched[k] >= 1 for k in used) \
-                or launched["K8"] != k8_want:
+                or launched["K8"] != k8_want or launched["K9"] != 1:
             raise RuntimeError(f"decode_slot {name}: launches {launched}")
         lift = lambda r: type(r)(*(a[None] for a in r))
         sets = _decode_sets(lift(card), 1)
@@ -1783,12 +1808,14 @@ def _beacon_phase(dev, smi: str) -> tuple[int, int]:
     k4_feed = _counter("k4.launches")
     k6_feed = _counter("k6.launches")
     k7_feed = _counter("k7.launches")
+    k9_feed = _counter("k9.launches")
     _reset_counts()
     flushed = card_s.flush()
     torch.cuda.synchronize()
     card_ms = (time.perf_counter() - t0) * 1e3
     k6_flush = _counter("k6.launches")
     k7_flush = _counter("k7.launches")
+    k9_flush = _counter("k9.launches")
     card += flushed
     t0 = time.perf_counter()
     host_s = BeaconSession(fs, device="cpu", **BEACON_SESSION)
@@ -1805,11 +1832,12 @@ def _beacon_phase(dev, smi: str) -> tuple[int, int]:
                            f"depth {first_at} (CPU {host_first}); flushed "
                            f"{[r.message.payload for r in flushed]}")
     if k4_feed < 1 or k6_feed != 0 or k6_flush < 1 or k7_feed < 1 \
-            or k7_flush < 1:
+            or k7_flush < 1 or k9_feed < 1 or k9_flush < k6_flush:
         raise RuntimeError(f"BeaconSession: OSD kernel {k4_feed} launches in"
                            f" the stacked decodes, sync kernel {k6_feed} in "
                            f"them and {k6_flush} in the flush, BP + CRC "
-                           f"kernel {k7_feed} / {k7_flush}")
+                           f"kernel {k7_feed} / {k7_flush}, top-K kernel "
+                           f"{k9_feed} / {k9_flush}")
     # save / load mid-stream resumes with the same rows
     cut = int(4.5 * n)
     first = BeaconSession(fs, device=dev, **BEACON_SESSION)
@@ -1842,7 +1870,9 @@ def _beacon_phase(dev, smi: str) -> tuple[int, int]:
                f"OSD kernel launches in the stacked decodes {k4_feed}, sync "
                f"kernel launches {k6_feed} there and {k6_flush} in the "
                f"flush, BP + CRC kernel launches {k7_feed} there and "
-               f"{k7_flush} in the flush; save/load after 4.5 cycles "
+               f"{k7_flush} in the flush, top-K kernel launches {k9_feed} "
+               f"there and {k9_flush} in the flush; save/load after 4.5 "
+               f"cycles "
                f"resumes with the same "
                f"rows; whole stream card {card_ms:.0f} ms, CPU "
                f"{host_ms:.0f} ms; correct_frequency_drift's fitted rate "
@@ -1900,18 +1930,20 @@ def _beacon_phase(dev, smi: str) -> tuple[int, int]:
         torch.cuda.synchronize()
         k6 = _counter("k6.launches")
         k7 = _counter("k7.launches")
+        k9 = _counter("k9.launches")
         k6_api += k6
         _check_api_rows(f"decode_ft8_message {name}", got,
                         decode_ft8_message(w, rate, device="cpu"))
         found = {r.message.payload for r in got}
-        if k6 < 1 or k7 < 1 or not found <= planted \
+        if k6 < 1 or k7 < 1 or k9 != k6 or not found <= planted \
                 or len(found) < CROWD_SIGNALS // 2:
             raise RuntimeError(f"decode_ft8_message {name}: sync / BP + CRC "
-                               f"kernel {k6} / {k7} launches, {len(found)} "
-                               f"payloads, {len(found - planted)} unplanted")
+                               f"/ top-K kernel {k6} / {k7} / {k9} launches, "
+                               f"{len(found)} payloads, "
+                               f"{len(found - planted)} unplanted")
         api_lines.append(f"{name} {len(found)} planted payloads, sync "
-                         f"kernel launches {k6}, BP + CRC kernel launches "
-                         f"{k7}")
+                         f"kernel launches {k6}, top-K kernel launches {k9}, "
+                         f"BP + CRC kernel launches {k7}")
     # the stacking results' geometry: R = 8 at 2 kHz
     w2k = np.stack([scipy.signal.resample_poly(c.astype(np.float64), 1, 6)
                     for c in _stack2k_cycles()]).astype(np.float32)
@@ -1921,19 +1953,21 @@ def _beacon_phase(dev, smi: str) -> tuple[int, int]:
     torch.cuda.synchronize()
     k4_2k = _counter("k4.launches")
     k7_2k = _counter("k7.launches")
+    k9_2k = _counter("k9.launches")
     _check_beacon_rows("decode_ft8_stacked 2 kHz R 8", got,
                        decode_ft8_stacked(w2k, 2000.0, device="cpu",
                                           **BEACON_DECODE))
-    if k4_2k < 1 or k7_2k < 1:
-        raise RuntimeError(f"decode_ft8_stacked 2 kHz: OSD / BP + CRC "
-                           f"kernel {k4_2k} / {k7_2k}")
+    if k4_2k < 1 or k7_2k < 1 or k9_2k != 1:
+        raise RuntimeError(f"decode_ft8_stacked 2 kHz: OSD / BP + CRC / "
+                           f"top-K kernel {k4_2k} / {k7_2k} / {k9_2k}")
     verdict = "decoded" if beacon in {r.message.payload for r in got} \
         else "missed"
     _phase(14, "decode_ft8_message on phase 12's capture, card == CPU rows: "
                + "; ".join(api_lines) + f"; decode_ft8_stacked at 2 kHz, R "
                f"{BEACON_REPEATS}, {STACK2K_SNR_DB:g} dB, no drift: "
                f"{verdict}, card == CPU rows, OSD kernel launches {k4_2k}, "
-               f"BP + CRC kernel launches {k7_2k}")
+               f"BP + CRC kernel launches {k7_2k}, top-K kernel launches "
+               f"{k9_2k}")
 
     _beacon_times(dev, smi, cycles, corrected, analytic, w48, w2k)
     return k4_feed + k4_2k, k6_flush + k6_api
@@ -2102,6 +2136,7 @@ def _channel_phase(dev, smi: str) -> tuple[int, int]:
     k4 = _counter("k4.launches")
     k6 = _counter("k6.launches")
     k7 = _counter("k7.launches")
+    k9 = _counter("k9.launches")
     t0 = time.perf_counter()
     host = demo.receive(host_noisy, doppler, DEMO_CYCLES, device="cpu",
                         out=host_lines.append)
@@ -2118,15 +2153,17 @@ def _channel_phase(dev, smi: str) -> tuple[int, int]:
                            f"{[unpack_message(r.message.payload) for r in host['rows']]}"
                            f"), detection {det} (CPU "
                            f"{host['dets'][:1]})")
-    if k6 < 1 or k4 < 1 or k7 < 1:
+    if k6 < 1 or k4 < 1 or k7 < 1 or k9 < k6:
         raise RuntimeError(f"demo RX: sync kernel {k6}, OSD kernel {k4}, "
-                           f"BP + CRC kernel {k7} launches")
+                           f"BP + CRC kernel {k7}, top-K kernel {k9} "
+                           "launches")
     _phase(15, f"demo at full size ({DEMO_CYCLES} cycles at {fs / 1000:g} "
                f"kHz, Es/N0 {DEMO_ESN0:g} dB, seed {DEMO_SEED}, decimated "
                f"x{demo.DECIM}): card == CPU rows, path A "
                f"{_demo_rows_text(card['single'])}, path B "
                f"{_demo_rows_text(card['rows'])}; card prints: "
                + " | ".join(card_lines) + f"; sync kernel launches {k6}, "
+               f"top-K kernel launches {k9}, "
                f"OSD kernel launches {k4}, BP + CRC kernel launches {k7}; "
                f"RX card {card_ms:.0f} ms (first "
                f"call), CPU {host_ms:.0f} ms")
@@ -2229,15 +2266,16 @@ def _stream_phase(dev, smi: str) -> tuple[int, int]:
             k6 = _counter("k6.launches")
             k7 = _counter("k7.launches")
             k8 = _counter("k8.launches")
+            k9 = _counter("k9.launches")
             k4_total += k4
             k6_total += k6
             if k6 != STREAM_BLOCKS or (k4 > 0) != cfg.use_osd or k7 < 1 \
-                    or k8 != _k8_want(k6, cfg.mf_first):
+                    or k8 != _k8_want(k6, cfg.mf_first) or k9 != k6:
                 raise RuntimeError(f"StreamSession {name} depth {depth}: "
                                    f"sync kernel {k6} launches (want one a "
                                    f"block, {STREAM_BLOCKS}), OSD kernel "
                                    f"{k4}, BP + CRC kernel {k7}, LLR kernel "
-                                   f"{k8}")
+                                   f"{k8}, top-K kernel {k9}")
             runs[depth] = (rows, ms, k4, k6, k7, k8)
         card = runs[0][0]
         t0 = time.perf_counter()
@@ -2473,16 +2511,18 @@ def _cli_phase(dev, smi: str) -> tuple[int, int]:
         k4 = _counter("k4.launches")
         k6 = _counter("k6.launches")
         k7 = _counter("k7.launches")
+        k9 = _counter("k9.launches")
         _cli_same("--deep in process", buf.getvalue(), host_out["--deep"])
-    if rc != 0 or k6 < 1 or k4 < 1 or k7 < 1:
+    if rc != 0 or k6 < 1 or k4 < 1 or k7 < 1 or k9 != k6:
         raise RuntimeError(f"cli --deep in process: exit {rc}, sync kernel "
-                           f"{k6}, OSD kernel {k4}, BP + CRC kernel {k7} "
-                           "launches")
+                           f"{k6}, OSD kernel {k4}, BP + CRC kernel {k7}, "
+                           f"top-K kernel {k9} launches")
     _phase(17, f"[{smi}] python -m ft8_demodulator_tpu_torch.cli, stdout on "
                "the card == stdout with FT8_PLATFORM=cpu (score / SNR one "
                f"last digit apart: {edges} lines); wall time per process "
                "(start, import, kernel load and decode): " + "; ".join(lines)
-               + f"; --deep in this process: sync kernel launches {k6}, OSD "
+               + f"; --deep in this process: sync kernel launches {k6}, "
+               f"top-K kernel launches {k9}, OSD "
                f"kernel launches {k4}, BP + CRC kernel launches {k7}")
     return k4, k6
 
@@ -2504,10 +2544,10 @@ PAR_RANKS = 4
 PAR_PP_SLOTS = 4
 PAR_TIMEOUT_S = 300.0
 # the launches each rank counts: the frequency-major sync kernel (K6), the
-# OSD kernel (K4), BP + CRC (K7) and the LLR kernel (K8), as the profiler
-# names them
+# OSD kernel (K4), BP + CRC (K7), the LLR kernel (K8) and the top-K kernel
+# (K9), as the profiler names them
 LAUNCH_NAMES = "sync_kernel<false,...> / osd_eliminate_kernel / " \
-    "ldpc_bp_kernel / llr_kernel"
+    "ldpc_bp_kernel / llr_kernel / topk_select_kernel"
 # the regimes on PAR_RANKS ranks: (name, what the parent checks)
 PAR_REGIMES = ("DP x SP 2x2", "TP 4 osr 2x2", "TP 4 osr 4x4 OSD MF",
                "PP 2 stages OSD", "composed 1x2x2")
@@ -2572,9 +2612,9 @@ def _rank_ms(call, device) -> float | None:
 
 
 def _counted(calls: dict, device) -> dict:
-    """Each call once with the K6 / K4 / K7 / K8 counts from 0 (the phase's
-    main path), then once more timed on the card: name -> (result,
-    (K6, K4, K7, K8) launches of this rank, ms)."""
+    """Each call once with the K6 / K4 / K7 / K8 / K9 counts from 0 (the
+    phase's main path), then once more timed on the card: name -> (result,
+    (K6, K4, K7, K8, K9) launches of this rank, ms)."""
 
     out = {}
     for name, call in calls.items():
@@ -2583,7 +2623,7 @@ def _counted(calls: dict, device) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize()
         launches = tuple(_counter(f"{k}.launches")
-                         for k in ("k6", "k4", "k7", "k8"))
+                         for k in ("k6", "k4", "k7", "k8", "k9"))
         out[name] = (_host_result(result), launches, _rank_ms(call, device))
     return out
 
@@ -2695,18 +2735,18 @@ def _parallel_phase(dev, smi: str) -> tuple[int, int]:
     card = run_ranks(_nccl_rank, 1, "nccl", dev, args, PAR_TIMEOUT_S)[0]
     host = run_ranks(_nccl_rank, 1, "gloo", "cpu", args, PAR_TIMEOUT_S)[0]
     texts = []
-    for name, (result, (k6, k4, k7, k8), ms) in card.items():
+    for name, (result, (k6, k4, k7, k8, k9), ms) in card.items():
         _same_result(f"NCCL {name}", result, host[name][0])
         if name.startswith("stream"):
             _planted_once(f"NCCL {name}", result, planted)
         if k6 < 1 or (k4 > 0) != ("OSD" in name) or k7 < 1 \
-                or k8 != _k8_want(k6, "mf_first" in name):
+                or k8 != _k8_want(k6, "mf_first" in name) or k9 != k6:
             raise RuntimeError(f"NCCL {name}: K6 {k6}, K4 {k4}, K7 {k7}, "
-                               f"K8 {k8} launches")
+                               f"K8 {k8}, K9 {k9} launches")
         k6_total += k6
         k4_total += k4
         texts.append(f"{name} {_rows_text(result)} rows == CPU, "
-                     f"{LAUNCH_NAMES} {k6}/{k4}/{k7}/{k8}, "
+                     f"{LAUNCH_NAMES} {k6}/{k4}/{k7}/{k8}/{k9}, "
                      f"{_ms_text(ms)}")
     _phase(18, f"[{smi}] NCCL world size 1 (run_ranks, one rank on "
                f"{dev}): phase 16's {STREAM_SECONDS}-s {STREAM_FS / 1000:g} "
@@ -2757,15 +2797,16 @@ def _parallel_phase(dev, smi: str) -> tuple[int, int]:
         fronts = launches[:1] if name.startswith("PP") else launches
         backs = launches[1:] if name.startswith("PP") else launches
         # each rank's sync launches are each followed by one LLR launch
-        if any(k6 < 1 for k6, _, _, _ in fronts) \
-                or any(k7 < 1 for _, _, k7, _ in backs) or (
-                "OSD" in name and any(k4 < 1 for _, k4, _, _ in backs)) \
-                or any(k8 != _k8_want(k6, False)
-                       for k6, _, _, k8 in launches):
-            raise RuntimeError(f"{name}: K6/K4/K7/K8 launches per rank "
+        # and one top-K launch
+        if any(k6 < 1 for k6, *_ in fronts) \
+                or any(k7 < 1 for _, _, k7, *_ in backs) or (
+                "OSD" in name and any(k4 < 1 for _, k4, *_ in backs)) \
+                or any(k8 != _k8_want(k6, False) or k9 != k6
+                       for k6, _, _, k8, k9 in launches):
+            raise RuntimeError(f"{name}: K6/K4/K7/K8/K9 launches per rank "
                                f"{launches}")
-        k6_total += sum(k6 for k6, _, _, _ in launches)
-        k4_total += sum(k4 for _, k4, _, _ in launches)
+        k6_total += sum(k6 for k6, *_ in launches)
+        k4_total += sum(k4 for _, k4, *_ in launches)
         ms = [card[r][name][2] for r in range(PAR_RANKS)]
         texts.append(f"{name}: {_rows_text(card[ranks_in[0]][name][0])} "
                      f"rows on ranks {ranks_in} == CPU == one rank, "
@@ -2839,14 +2880,15 @@ def _soak_api(dev, soak) -> tuple[int, dict, str]:
                                       **t.decode_kwargs)
             torch.cuda.synchronize()
             launches = tuple(_counter(f"{k}.launches")
-                             for k in ("k6", "k4", "k7", "k8"))
+                             for k in ("k6", "k4", "k7", "k8", "k9"))
             host = decode_ft8_message(t.audio, t.fs, device="cpu",
                                       **t.decode_kwargs)
             _check_api_rows(name, card, host)
             if launches[0] < 1 or (launches[1] > 0 and not t.use_osd) \
                     or launches[2] < 1 or launches[3] != _k8_want(
-                        launches[0], t.decode_kwargs.get("mf_first", False)):
-                raise RuntimeError(f"{name}: K6 / K4 / K7 / K8 launches "
+                        launches[0], t.decode_kwargs.get("mf_first", False)) \
+                    or launches[4] != launches[0]:
+                raise RuntimeError(f"{name}: K6 / K4 / K7 / K8 / K9 launches "
                                    f"{launches}")
             if snr == SOAK_HALVES[0][0]:
                 why = soak.planted_fault(t, card)
@@ -2921,7 +2963,8 @@ def _soak_slots(dev, soak) -> tuple[int, int, list[str]]:
             w, p, nf, chunk=SOAK_SLOT_BATCH, **kw)))
         torch.cuda.synchronize()
         launches = {k: _counter(f"{k.lower()}.launches")
-                    for k in ("K1", "K3", "K5", "K6", "K8", "K4", "K7")}
+                    for k in ("K1", "K3", "K5", "K6", "K8", "K9", "K4",
+                              "K7")}
         front = ("K3" if run == "DEEP" else "K1", "K5") if block else ("K6",)
         want = {k: (SOAK_SLOT_BATCH if k == "K6" else 1) for k in front}
         want["K4"] = len(orders)
@@ -2931,6 +2974,8 @@ def _soak_slots(dev, soak) -> tuple[int, int, list[str]]:
         # route, none on the matched-filter one
         want["K8"] = 1 if block else _k8_want(SOAK_SLOT_BATCH,
                                               kw.get("mf_first", False))
+        # top-K: one the chunk; off the block route one a slot
+        want["K9"] = 1 if block else SOAK_SLOT_BATCH
         if {k: n for k, n in launches.items() if n} != \
                 {k: n for k, n in want.items() if n} \
                 or (run == "DEEP") != bool(orders):
@@ -3218,6 +3263,102 @@ def _llr_phase(dev, smi: str, waves, log: str, launches: int) -> dict:
             "library_ms": None, "library_note": LLR_NO_TPU_KERNEL}
 
 
+TOPK_SOURCE = "ft8_demodulator_tpu_torch/csrc/topk_select.cu"
+TOPK_NO_TPU_KERNEL = ("no TPU kernel: the JAX package selects with "
+                      "lax.top_k (ft8_demodulator_tpu/ops/sync.py)")
+
+
+def _topk_inputs(dev, waves) -> dict:
+    """The top-K layer's inputs on the batch paths: K5's scores of the
+    first chunk of phase 4's STANDARD decode (16 x 88 x 1,906, K 20,
+    min_score 10) and of phase 9's DEEP one (8 x 176 x 3,812, K 40,
+    min_score 1): (scores, search grid, K, min_score) by label."""
+    from ft8_demodulator_tpu_torch.demod import decode as dec
+    from ft8_demodulator_tpu_torch.ops import sync_cuda as sc
+    from ft8_demodulator_tpu_torch.ops import waterfall_cuda as wc
+    from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
+
+    out = {}
+    for label, osr, chunk, k, min_score in (
+            (f"STANDARD {CHUNK}xK{MAX_CANDIDATES}", (2, 2), CHUNK,
+             MAX_CANDIDATES, MIN_SCORE),
+            (f"DEEP {DEEP_CHUNK}xK{DEEP_CANDIDATES}", DEEP_OSR, DEEP_CHUNK,
+             DEEP_CANDIDATES, DEEP_MIN_SCORE)):
+        p = waterfall_params(FS, *osr)
+        nf = p.num_frames(waves.shape[1])
+        decoder = dec.slot_decoder(p, nf, dev)
+        w = waves[:chunk].contiguous()
+        if osr == DEEP_OSR:
+            mags, _ = wc.block_waterfall_mf_tf_fused_batch(
+                w, p, nf, decoder.waterfall_consts())
+        else:
+            mags = wc.block_waterfall_tf_fused_batch(
+                w, p, nf, decoder.waterfall_consts())
+        out[label] = (sc.sync_scores_tf_kernel(mags, decoder.g), decoder.g,
+                      k, min_score)
+    return out
+
+
+def _topk_phase(dev, smi: str, waves, log: str, launches: int) -> dict:
+    """Phase 22: K9 against the plain route and its bound.  Returns its
+    JSON record (launches: phase 4's)."""
+    from ft8_demodulator_tpu_torch.ops import sync as so
+    from ft8_demodulator_tpu_torch.ops import topk_cuda as tk
+
+    texts, times, errs = [], {}, {}
+    for label, (scores, g, k, min_score) in _topk_inputs(dev,
+                                                         waves).items():
+        args = (scores, g.num_times, g.t_start, k, min_score)
+        got = tk.topk_kernel(*args)
+        want = so.find_candidates_plain(scores, g, k, min_score)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("abs_time", "abs_freq", "score", "valid"),
+                              got, want):
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise RuntimeError(f"K9 vs plain on {label}: {name} "
+                                   f"differs in {int((a != b).sum())} of "
+                                   f"{b.numel()}")
+        valid = want[3]
+        errs[label] = float((got[2][valid] - want[2][valid]).abs().max()) \
+            if bool(valid.any()) else 0.0
+        kernel_ms, plain_ms, plain_ev, _ = _kernel_vs_plain_ms(
+            lambda: tk.topk_kernel(*args),
+            lambda: so.find_candidates_plain(scores, g, k, min_score),
+            "topk_select_kernel", reps=20)
+        bound_ms = tk.topk_bound(scores.shape[0], g.num_times, g.num_freqs,
+                                 k) * 1e3
+        times[label] = (kernel_ms, plain_ms, bound_ms)
+        texts.append(f"{label} ({tuple(scores.shape)}): K9 == plain bit for "
+                     f"bit (indices, scores, valid; {int(valid.sum())} valid "
+                     f"of {valid.numel()}), max |score diff| "
+                     f"{errs[label]:.1e}; K9 {kernel_ms:.4f} ms (bound "
+                     f"{bound_ms:.6f} ms by bytes, "
+                     f"{100 * bound_ms / kernel_ms:.1f} %), plain "
+                     f"{plain_ms:.4f} ms ({plain_ev} device events per "
+                     "call)")
+    report, keep = [], False
+    for line in _ptxas_report(log):
+        if line.endswith(":"):
+            keep = line.startswith("topk_select_kernel")
+        if keep:
+            report.append(line)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+            if spill and spill.group(1, 2) != ("0", "0"):
+                raise RuntimeError(f"topk_select_kernel spills: {report}")
+    if not report:
+        raise RuntimeError("no ptxas report of topk_select_kernel")
+    _phase(22, f"[{smi}] candidate top-K (K9) vs the plain route, device "
+               "time over 20 warm launches, min of 2 counted windows: "
+               + "; ".join(texts) + "; ptxas: " + " | ".join(report))
+    ms, plain_ms, bound_ms = times[f"STANDARD {CHUNK}xK{MAX_CANDIDATES}"]
+    return {"name": "topk_select", "route": "cuda", "source": TOPK_SOURCE,
+            "replaces": None, "launches": launches,
+            "max_abs_err": max(errs.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None, "library_note": TOPK_NO_TPU_KERNEL}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3295,11 +3436,13 @@ def main() -> int:
     k5_std_launches = _counter("k5.launches")
     k7_launches = _counter("k7.launches")
     k8_launches = _counter("k8.launches")
+    k9_launches = _counter("k9.launches")
     if launches != BATCH // CHUNK or k5_std_launches != BATCH // CHUNK \
-            or k8_launches != BATCH // CHUNK:
-        raise RuntimeError(f"waterfall / sync / LLR kernels launched "
-                           f"{launches} / {k5_std_launches} / {k8_launches} "
-                           f"times, want {BATCH // CHUNK}")
+            or k8_launches != BATCH // CHUNK \
+            or k9_launches != BATCH // CHUNK:
+        raise RuntimeError(f"waterfall / sync / LLR / top-K kernels launched"
+                           f" {launches} / {k5_std_launches} / {k8_launches} "
+                           f"/ {k9_launches} times, want {BATCH // CHUNK}")
     if k7_launches != BATCH // BP_CHUNK:
         raise RuntimeError(f"BP + CRC kernel launched {k7_launches} times, "
                            f"want one a BP group, {BATCH // BP_CHUNK}")
@@ -3314,7 +3457,8 @@ def main() -> int:
         raise RuntimeError(f"yield {decoded}/{BATCH}: planted payloads lost")
     _phase(4, f"decode_slots {BATCH} slots at {FS / 1000:g} kHz: yield "
               f"{decoded}/{BATCH}, waterfall kernel launches {launches}, "
-              f"sync kernel launches {k5_std_launches}, LLR kernel "
+              f"sync kernel launches {k5_std_launches}, top-K kernel "
+              f"launches {k9_launches}, LLR kernel "
               f"launches {k8_launches}, BP + CRC kernel launches "
               f"{k7_launches}, "
               f"{int(res.success.sum())} successful rows, first call "
@@ -3353,13 +3497,16 @@ def main() -> int:
     k2_launches = _counter("k1.launches")
     k7_20 = _counter("k7.launches")
     k8_20 = _counter("k8.launches")
+    k9_20 = _counter("k9.launches")
     sets20 = _decode_sets(res20, 4)
     decoded20 = sum(bytes(payloads20[b]) in {s[0] for s in sets20[b]}
                     for b in range(4))
-    if k2_launches != 1 or k7_20 != 1 or k8_20 != 1 or decoded20 != 4:
+    if k2_launches != 1 or k7_20 != 1 or k8_20 != 1 or k9_20 != 1 \
+            or decoded20 != 4:
         raise RuntimeError(f"decode_slots at 20 kHz: waterfall / BP + CRC "
-                           f"/ LLR kernel launches {k2_launches} / {k7_20} "
-                           f"/ {k8_20} (want 1), yield {decoded20}/4")
+                           f"/ LLR / top-K kernel launches {k2_launches} / "
+                           f"{k7_20} / {k8_20} / {k9_20} (want 1), yield "
+                           f"{decoded20}/4")
     lib20_text = _check_library(w20, p20, nf20, box=False)
     k2_ms, k2_plain_ms, k2_plain_ev, k2_lib_ms = _kernel_vs_plain_ms(
         lambda: wc.block_waterfall_tf_fused_batch(w20, p20, nf20),
@@ -3391,7 +3538,8 @@ def main() -> int:
               f"call), torch.stft yardstick {lib_ms:.4f} ms ({lib_text}); "
               f"decode_slots on 4 slots at 20 kHz: yield "
               f"{decoded20}/4, waterfall kernel launches {k2_launches}, LLR "
-              f"kernel launches {k8_20}, BP + CRC kernel launches {k7_20}; "
+              f"kernel launches {k8_20}, top-K kernel launches {k9_20}, "
+              f"BP + CRC kernel launches {k7_20}; "
               f"there batch 4 ({k2_ctas} thread blocks, {k2_waves:.2f} "
               f"waves) kernel {k2_ms:.4f} ms (bound {k2_bound[0]:.4f} ms by "
               f"{k2_bound[1]}), plain "
@@ -3418,6 +3566,7 @@ def main() -> int:
         k6_launches += k6_new
     bp_kernel = _bp_phase(dev, smi, waves, kl.log, k7_launches)
     llr_kernel = _llr_phase(dev, smi, waves, kl.log, k8_launches)
+    topk_kernel = _topk_phase(dev, smi, waves, kl.log, k9_launches)
     k5_err = max(v for k, v in sync_diffs.items() if k.startswith("K5"))
     k6_err = max(v for k, v in sync_diffs.items() if k.startswith("K6"))
 
@@ -3444,7 +3593,7 @@ def main() -> int:
         "plain_ms": kt["K6 DEEP"][1], "bound_ms": kt["K6 DEEP"][3][0],
         "bound_by": kt["K6 DEEP"][3][1], "library_ms": None,
         "library_note": NO_LIBRARY["sync_scores"]}, bp_kernel,
-        llr_kernel]}))
+        llr_kernel, topk_kernel]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

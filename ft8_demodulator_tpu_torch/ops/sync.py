@@ -7,10 +7,11 @@ bit-identical to the JAX stencil on the CPU.  The frequency-major
 functions (:func:`sync_scores`, :func:`find_candidates`, on (..., F, T)
 grids) run the time-major ones on the transposed view: the stencil is
 elementwise and the flat candidate index is f * num_times + t in both.
-Candidate selection reproduces ``lax.top_k``'s lowest-index tie order with
-stable sorts.  Every function takes leading batch dimensions, but for
-:func:`sync_scores_z`, the linear-power Costas z statistic of the
-repeat-stacked decoder, which takes one (F, T) grid.
+Candidate selection reproduces ``lax.top_k``'s tie order: with stable
+sorts on the CPU (:func:`find_candidates_plain`), with the kernel K9
+(``ops/topk_cuda.py``) on the card.  Every function takes leading batch
+dimensions, but for :func:`sync_scores_z`, the linear-power Costas z
+statistic of the repeat-stacked decoder, which takes one (F, T) grid.
 """
 
 from __future__ import annotations
@@ -24,10 +25,11 @@ import torch.nn.functional as F
 
 from ..protocol import constants as C
 from ..utils.profiling import host_wait
+from .topk_cuda import topk_kernel
 
 __all__ = ["SearchGrid", "search_grid", "sync_scores", "sync_scores_tf",
            "sync_scores_z", "find_candidates", "find_candidates_tf",
-           "cell_mask_tensors"]
+           "find_candidates_plain", "cell_mask_tensors"]
 
 # The reference scans start times from 10 symbols before the slot up to
 # num_blocks - 59 symbols.
@@ -257,13 +259,27 @@ def find_candidates_tf(scores_tf: torch.Tensor, g: SearchGrid,
     """Top-K candidates over a time-major (..., num_times, num_freqs) grid.
 
     Returns (abs_time, abs_freq, score, valid), each (..., K), sorted by
-    descending score with ties to the lowest (freq, time) flat index.
-    Exact row-max screening: at most K distinct frequency rows can hold
-    the top K, so the K + 12 rows with the largest maxima are screened
-    (ties to the lowest frequency) and the flat top-K runs over those rows
-    in screen order, as the JAX function does.  Cells below min_score are
-    -inf and yield valid = False.
+    descending score.  Exact row-max screening: at most K distinct
+    frequency rows can hold the top K, so the K + 12 rows with the largest
+    maxima are screened (ties to the lowest frequency) and the flat top-K
+    runs over those rows in screen order, as the JAX function does: ties
+    go to the lower screen rank, then the earlier time, not to the lower
+    (freq, time) flat index.  A grid of no more than K + 12 frequencies
+    takes the flat top-K over f * num_times + t, ties to the lowest.  Cells
+    below min_score are -inf and yield valid = False.  On a CUDA tensor
+    the kernel K9 (``ops/topk_cuda.py``) selects, one launch a call; the
+    plain route (:func:`find_candidates_plain`) is what it computes.
     """
+    if scores_tf.device.type == "cuda":
+        return topk_kernel(scores_tf, g.num_times, g.t_start, max_candidates,
+                           min_score)
+    return find_candidates_plain(scores_tf, g, max_candidates, min_score)
+
+
+def find_candidates_plain(scores_tf: torch.Tensor, g: SearchGrid,
+                          max_candidates: int, min_score: float):
+    """:func:`find_candidates_tf` in PyTorch on any device: what K9
+    computes, and the route of a CPU tensor."""
     masked = torch.where(scores_tf >= min_score, scores_tf, -torch.inf)
     num_times, num_freqs = masked.shape[-2:]
     lead = masked.shape[:-2]

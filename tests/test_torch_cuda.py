@@ -7,7 +7,10 @@ give equal results), the LLRs (K8 at the batch cells' and the station's
 shapes: the plain routes' LLRs before scaling bit for bit, the scale
 within 4 ulp and equal to the numpy model's, one launch a call and no
 host wait; its launches on the decode paths, none in a beacon cycle);
-the limits left on the card
+the candidate top-K (K9 at the four cells' shapes and on tie, flat,
+signed-zero and K 1 / 1,024 grids: the plain route bit for bit and the
+numpy model, one launch a call and no host synchronisation; its launches
+on the decode paths); the limits left on the card
 raise ValueErrors; the host decode API on the card against the CPU; the
 direct, refined and coherent matched-filter LLRs on the card against the
 CPU;
@@ -1121,3 +1124,211 @@ def test_k8_on_the_batch_and_station_paths(cuda):
     after = counters()
     assert after.get("k7.launches", 0) > before.get("k7.launches", 0)
     assert after.get("k8.launches", 0) == before.get("k8.launches", 0)
+
+
+# ---------------------------------------------------------------------------
+# the candidate top-K, K9, against the plain route on the card
+
+def _k9_scores(kind, cuda):
+    """The top-K layer's input at the cells' shapes: the STANDARD 16-slot
+    K5 chunk (time-major, K 20, min_score 10), the DEEP 8-slot chunk (K 40,
+    min_score 1), the station's frequency-major crop (K6's scores of
+    ``_k8_front("station")``'s band crop, K 20) and a beacon's stacked z
+    grid (20 kHz, R 8, min_z 2).  Returns (scores, search grid, K,
+    min_score, frequency_major)."""
+    from ft8_demodulator_tpu_torch.demod import stack as tstack
+    from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_real
+
+    cs = _chip_smoke()
+    if kind == "station":
+        p = waterfall_params(cs.FS, 2, 2)
+        wave = torch.as_tensor(cs._crowded_capture()[0], device=cuda)
+        nf = p.num_frames(wave.shape[0])
+        mag = waterfall_real(wave, p, nf)[40: 440, 10: nf - 10]
+        g = tsync.search_grid(mag.shape[0], mag.shape[1], 2, 2)
+        return tsc.sync_scores_kernel(mag, g), g, 20, 10.0, True
+    if kind == "beacon":
+        fs = 20000.0
+        p = waterfall_params(fs, 2, 2)
+        waves = torch.as_tensor(_beacon_repeats(5, -16.0, 8, fs),
+                                device=cuda)
+        nf = p.num_frames(waves.shape[1])
+        g = tsync.search_grid(p.num_freq_bins, nf, 2, 2)
+        power = tstack._stacked_power_and_spec(waves, p, nf, False, True)[0]
+        return tsync.sync_scores_z(power, g), g, 20, 2.0, True
+    deep = kind == "deep"
+    p = waterfall_params(cs.FS, *((4, 4) if deep else (2, 2)))
+    waves, _ = cs._synth_slots(cuda, batch=8 if deep else 16)
+    nf = p.num_frames(waves.shape[1])
+    decoder = tdec.slot_decoder(p, nf, cuda)
+    consts = decoder.waterfall_consts()
+    if deep:
+        mags, _ = twc.block_waterfall_mf_tf_fused_batch(waves, p, nf, consts)
+    else:
+        mags = twc.block_waterfall_tf_fused_batch(waves, p, nf, consts)
+    return (tsc.sync_scores_tf_kernel(mags, decoder.g), decoder.g,
+            40 if deep else 20, 1.0 if deep else 10.0, False)
+
+
+def _k9_call(scores_tf, g, k, min_score):
+    """K9 through find_candidates_tf: one k9 launch and no host wait or
+    synchronisation; returns its four outputs."""
+    before = counters()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tsync.find_candidates_tf(scores_tf, g, k, min_score)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = counters()
+    assert after.get("k9.launches", 0) == before.get("k9.launches", 0) + 1
+    assert after.get("waits", 0) == before.get("waits", 0)
+    return got
+
+
+def _assert_k9_plain(scores_tf, g, k, min_score):
+    got = _k9_call(scores_tf, g, k, min_score)
+    want = tsync.find_candidates_plain(scores_tf, g, k, min_score)
+    for name, a, b in zip(("abs_time", "abs_freq", "score", "valid"), got,
+                          want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+    return got
+
+
+@pytest.mark.parametrize("kind", ["standard", "deep", "station", "beacon"])
+def test_k9_matches_plain_route(cuda, kind):
+    """K9 against the plain route on the card at the four cells' shapes,
+    bit for bit, one launch and no host synchronisation a call; the
+    frequency-major grids through find_candidates (a transposed view) and
+    a strided crop of them."""
+    tsync.find_candidates_tf(torch.zeros(1, 40, device=cuda),
+                             tsync.SearchGrid(1, 1, 1, 0, 1, 40), 2, 0.0)
+    scores, g, k, min_score, fm = _k9_scores(kind, cuda)
+    if not fm:
+        got = _assert_k9_plain(scores, g, k, min_score)
+        assert got[0].shape == scores.shape[:1] + (k,)
+        assert got[3].any()
+        return
+    got = _assert_k9_plain(scores.transpose(-1, -2), g, k, min_score)
+    assert got[3].any()
+    before = counters().get("k9.launches", 0)
+    routed = tsync.find_candidates(scores, g, k, min_score)
+    assert counters().get("k9.launches", 0) == before + 1
+    for a, b in zip(routed, got):
+        assert torch.equal(a, b)
+    crop = scores[7: -9, 5: -3]
+    gc = g._replace(num_freqs=crop.shape[0], num_times=crop.shape[1])
+    assert not crop.is_contiguous()
+    _assert_k9_plain(crop.transpose(-1, -2), gc, k, min_score)
+
+
+def _k9_grid(case, cuda):
+    """(scores (lead, T, F), search grid, K, min_score) of an edge case, at
+    the 12-kHz STANDARD (88 x 1906) and DEEP (176 x 3812) search grids."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    std = tsync.SearchGrid(2, 2, 189, -20, 88, 1906)
+    deep = tsync.SearchGrid(4, 4, 189, -40, 176, 3812)
+
+    def ties(g, lead=2, levels=4):
+        s = torch.randint(0, levels, (lead, g.num_times, g.num_freqs),
+                          generator=gen, device=cuda).float()
+        ninf = torch.rand(s.shape, generator=gen, device=cuda) < 0.1
+        return s.masked_fill(ninf, -torch.inf)
+
+    if case == "ties 2x2 K20":
+        return ties(std), std, 20, 1.0
+    if case == "ties 4x4 K40":
+        return ties(deep), deep, 40, 1.0
+    if case == "ties 2x2 16 levels":      # the bound's cells sorted whole
+        return ties(std, levels=16), std, 20, 1.0
+    if case == "flat route":
+        g = std._replace(num_freqs=32)
+        return ties(g, 4), g, 20, 1.0
+    if case == "flat, fewer cells than K":
+        g = std._replace(num_times=3, num_freqs=5)
+        return ties(g, 3), g, 20, 1.0
+    if case == "fewer finite than K":
+        s = torch.full((2, 88, 1906), -torch.inf, device=cuda)
+        s[:, torch.arange(7) * 11, torch.arange(7) * 250] = torch.arange(
+            7, device=cuda).float() + 5.0
+        s[0, 3, 4] = 1.0                    # finite but below min_score
+        return s, std, 20, 2.0
+    if case == "min_score -inf":
+        return ties(std), std, 20, -np.inf
+    if case == "signed zeros":
+        # -2, -1 and zeros of both signs, in rows too: the two zeros are one
+        # key, so a row's maximum may be either
+        s = torch.randint(-2, 1, (2, 88, 1906), generator=gen,
+                          device=cuda).float()
+        neg = torch.rand(s.shape, generator=gen, device=cuda) < 0.5
+        s = torch.where((s == 0) & neg, torch.tensor(-0.0, device=cuda), s)
+        return s, std, 20, -1.0
+    if case == "K 1":
+        return ties(std), std, 1, 1.0
+    if case == "K 1024 screened":
+        return ties(deep, 1, 50), deep, 1024, 1.0
+    if case == "K 1024 flat":
+        g = deep._replace(num_freqs=600)
+        return ties(g, 2, 50), g, 1024, 1.0
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "ties 2x2 K20", "ties 4x4 K40", "ties 2x2 16 levels", "flat route",
+    "flat, fewer cells than K",
+    "fewer finite than K", "min_score -inf", "signed zeros", "K 1",
+    "K 1024 screened", "K 1024 flat"])
+def test_k9_matches_plain_route_on_edges(cuda, case):
+    """Integer-valued tie grids with 10 % -inf (4 levels: the radix select
+    of the cells; 16 levels: the few hundred cells that reach the K-th row
+    maximum sorted whole), the flat route, fewer
+    cells or finite cells than K, min_score -inf, zeros of both signs (one
+    key in both, each winner's zero kept), K 1 and K 1,024 (screened: the
+    cells' keys read again from the grid each pass): K9 equals the plain
+    route on the card bit for bit, and the numpy model of K9."""
+    import _torch_k9_model as k9
+
+    scores, g, k, min_score = _k9_grid(case, cuda)
+    got = _assert_k9_plain(scores, g, k, min_score)
+    want = k9.select(scores.cpu().numpy(), g.t_start, k, min_score)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.cpu().numpy(), b)
+    if case == "signed zeros":
+        zeros = got[2][got[2] == 0]
+        assert torch.signbit(zeros).any() and not torch.signbit(zeros).all()
+
+
+def test_k9_on_the_decode_paths(cuda, monkeypatch):
+    """decode_slots launches K9 once a chunk, a capture's decode once and a
+    BeaconSession cycle at least once, and no CUDA tensor reaches the plain
+    route's stable sort."""
+    from ft8_demodulator_tpu_torch.demod import BeaconSession
+
+    plain_sort = tsync._top_k_stable
+
+    def cpu_only(x, k):
+        assert not x.is_cuda, "a CUDA tensor took the plain top-K"
+        return plain_sort(x, k)
+
+    monkeypatch.setattr(tsync, "_top_k_stable", cpu_only)
+    cs = _chip_smoke()
+    waves, _ = cs._synth_slots(cuda, batch=16)
+    for osr, kw, chunks in (((2, 2), dict(chunk=8), 2),
+                            ((4, 4), dict(chunk=4, max_candidates=40,
+                                          min_score=1.0, use_osd=True,
+                                          mf_first=True), 4)):
+        p = waterfall_params(cs.FS, *osr)
+        nf = p.num_frames(waves.shape[1])
+        tdec.decode_slots(waves, p, nf, **kw)       # builds the decoder
+        before = counters()
+        tdec.decode_slots(waves, p, nf, **kw)
+        after = counters()
+        assert after["k9.launches"] - before["k9.launches"] == chunks
+    before = counters()["k9.launches"]
+    tdec.decode_ft8_message(cs._crowded_capture()[0], cs.FS, device=cuda)
+    assert counters()["k9.launches"] == before + 1
+    stream, *_ = cs._beacon_stream()
+    session = BeaconSession(cs.BEACON_FS, device=cuda, **cs.BEACON_SESSION)
+    before = counters().get("k9.launches", 0)
+    session.feed(stream[: int(cs.BEACON_FS * cs.SLOT_S) + 1])
+    assert counters().get("k9.launches", 0) > before
