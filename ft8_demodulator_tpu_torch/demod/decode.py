@@ -52,8 +52,15 @@ decodes in decode), and each place where the host waits for the card
 inside a ``ft8.<stage>.wait`` span, so a profiler trace of a decode splits
 its host and device time by stage and names the waits; the counters
 (``utils/profiling.py`` ``counters``) count slots, candidate rows, BP and
-OSD rows and iterations, and waits.  While no profiler records, a span is a
-shared null context and no counter reads a card value.
+OSD rows and iterations, and waits, and per deep retry the BP rows it sends
+(``refine.rows``, ``ap.rows``, ``ap_coherent.rows``) and, on the card, the
+candidates it decodes that were undecoded before it (``refine.accepted``,
+``ap.accepted``, ``ap_coherent.accepted``; ``ap.candidates``: the valid
+candidates still undecoded when the a-priori retry starts;
+``ap_coherent.null_accepted``: those of ``ap_coherent.accepted`` whose
+winning variant clamps no bit, the plain coherent branch).  While no
+profiler records, a span is a shared null context and no counter reads a
+card value.
 """
 
 from __future__ import annotations
@@ -89,7 +96,8 @@ from ..protocol.encode import encode_tones
 from ..protocol.message import ap_hypotheses
 from ..utils.device import entry_device
 from ..utils.metrics import SlotMetrics, summarize_slot
-from ..utils.profiling import count, count_on_card, host_wait, span
+from ..utils.profiling import (count, count_on_card, host_wait,
+                               recording, span)
 from .types import FT8Decode, FT8DecodeStatus, FT8Message, SlotDecodeResult
 
 __all__ = ["SlotDecoder", "decoder_arrays", "slot_decoder", "decode_slot",
@@ -252,10 +260,15 @@ def mf_retry(wave: torch.Tensor, p: WaterfallParams, res: SlotDecodeResult,
     """
     llrs = _mf_llrs(wave, p, res.abs_time + t0_hops, res.abs_freq + f0_rows,
                     mf_refine, is_complex)
+    first = res.success
     for v in (llrs if mf_refine else (llrs,)):
         res = _merge_results(res, finish_decode(
             v, res.abs_time, res.abs_freq, res.score, res.candidate_valid,
             max_iterations, use_osd))
+    if mf_refine:
+        count("refine.rows", 2 * first.numel())
+        if recording():
+            count_on_card("refine.accepted", res.success & ~first)
     return res
 
 
@@ -427,6 +440,26 @@ def decode_slot(wave: torch.Tensor, p: WaterfallParams, num_frames: int,
 # the CRC-arbitrated retries: coherent branches and a-priori hypotheses
 # ---------------------------------------------------------------------------
 
+def _first_variants(llrs: torch.Tensor, res: SlotDecodeResult,
+                    max_iterations: int, use_osd: bool
+                    ) -> tuple[SlotDecodeResult, torch.Tensor]:
+    """:func:`variant_retry`, and each candidate's variant index (K,)."""
+    b, k = llrs.shape[:2]
+    rep = lambda a: a.repeat(b, *([1] * (a.ndim - 1)))
+    sub = finish_decode(llrs.reshape(b * k, C.LDPC_N), rep(res.abs_time),
+                        rep(res.abs_freq), rep(res.score),
+                        rep(res.candidate_valid), max_iterations, use_osd)
+    succ = sub.success.reshape(b, k)
+    first = torch.argmax(succ.to(torch.int32), dim=0)
+    idx = first * k + torch.arange(k, device=succ.device)
+    return SlotDecodeResult(
+        success=succ.any(0), payload=sub.payload[idx], crc=sub.crc[idx],
+        crc_extracted=sub.crc_extracted[idx],
+        ldpc_errors=sub.ldpc_errors[idx], abs_time=res.abs_time,
+        abs_freq=res.abs_freq, score=res.score,
+        candidate_valid=res.candidate_valid), first
+
+
 def variant_retry(llrs: torch.Tensor, res: SlotDecodeResult,
                   max_iterations: int, use_osd: bool) -> SlotDecodeResult:
     """(B, K, 174) LLR variants -> per-candidate first valid decode.
@@ -436,20 +469,7 @@ def variant_retry(llrs: torch.Tensor, res: SlotDecodeResult,
     the success flags, as ``jnp.argmax``; variant 0 when none does).
     Merge into an existing result with ``_merge_results``.
     """
-    b, k = llrs.shape[:2]
-    rep = lambda a: a.repeat(b, *([1] * (a.ndim - 1)))
-    sub = finish_decode(llrs.reshape(b * k, C.LDPC_N), rep(res.abs_time),
-                        rep(res.abs_freq), rep(res.score),
-                        rep(res.candidate_valid), max_iterations, use_osd)
-    succ = sub.success.reshape(b, k)
-    idx = torch.argmax(succ.to(torch.int32), dim=0) * k \
-        + torch.arange(k, device=succ.device)
-    return SlotDecodeResult(
-        success=succ.any(0), payload=sub.payload[idx], crc=sub.crc[idx],
-        crc_extracted=sub.crc_extracted[idx],
-        ldpc_errors=sub.ldpc_errors[idx], abs_time=res.abs_time,
-        abs_freq=res.abs_freq, score=res.score,
-        candidate_valid=res.candidate_valid)
+    return _first_variants(llrs, res, max_iterations, use_osd)[0]
 
 
 def _coherent_llrs(wave: torch.Tensor, p: WaterfallParams,
@@ -478,16 +498,32 @@ def coherent_retry(wave: torch.Tensor, p: WaterfallParams,
                                              use_osd))
 
 
+@functools.lru_cache(maxsize=16)
+def _ap_tables(calls: tuple[str, ...], device: torch.device | None):
+    """The hypotheses of ``calls`` on ``device``, built once: ((values,
+    mask), the same with the null (unclamped) hypothesis first, the
+    coherent retry's)."""
+    vals, msk = ap_hypotheses(*calls)
+    v = torch.as_tensor(vals, device=device)
+    m = torch.as_tensor(msk, device=device)
+    return (v, m), (torch.cat([torch.zeros_like(v[:1]), v]),
+                    torch.cat([torch.zeros_like(m[:1]), m]))
+
+
+def _ap_calls(ap) -> tuple[str, ...]:
+    calls = () if ap is True else tuple(str(ap).upper().split())
+    if len(calls) > 2:
+        raise ValueError("ap accepts at most 'MYCALL DXCALL'")
+    return calls
+
+
 def ap_arrays(ap, device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The host ``ap`` argument (True, "MYCALL" or "MYCALL DXCALL") ->
     (values (V, 77) uint8, mask (V, 77) bool) hypothesis tensors
-    (``protocol/message.py`` ``ap_hypotheses``)."""
-    calls = [] if ap is True else str(ap).upper().split()
-    if len(calls) > 2:
-        raise ValueError("ap accepts at most 'MYCALL DXCALL'")
-    vals, msk = ap_hypotheses(*calls)
-    return (torch.as_tensor(vals, device=device),
-            torch.as_tensor(msk, device=device))
+    (``protocol/message.py`` ``ap_hypotheses``), on ``device`` once per
+    (calls, device): callers share them and must not write to them."""
+    return _ap_tables(_ap_calls(ap),
+                      None if device is None else torch.device(device))[0]
 
 
 def _ap_clamped(llrs: torch.Tensor, ap_values: torch.Tensor,
@@ -525,8 +561,13 @@ def ap_retry(wave: torch.Tensor, p: WaterfallParams, res: SlotDecodeResult,
     77 bits, so a wrong hypothesis does not validate."""
     llrs = _mf_llrs(wave, p, res.abs_time + t0_hops, res.abs_freq + f0_rows,
                     is_complex=is_complex)
-    return _merge_results(res, ap_retry_llrs(llrs, res, ap_values, ap_mask,
-                                             max_iterations, use_osd))
+    retry = ap_retry_llrs(llrs, res, ap_values, ap_mask, max_iterations,
+                          use_osd)
+    count("ap.rows", ap_values.shape[0] * res.success.numel())
+    if recording():
+        count_on_card("ap.candidates", res.candidate_valid & ~res.success)
+        count_on_card("ap.accepted", retry.success & ~res.success)
+    return _merge_results(res, retry)
 
 
 @span("ft8.ap")
@@ -542,8 +583,17 @@ def ap_coherent_retry(wave: torch.Tensor, p: WaterfallParams,
     cllrs = _coherent_llrs(wave, p, res, t0_hops, f0_rows, num_branches,
                            is_complex)
     clamped = _ap_clamped(cllrs, ap_values, ap_mask)      # (B, V, K, 174)
-    return _merge_results(res, variant_retry(
-        clamped.flatten(0, 1), res, max_iterations, use_osd))
+    retry, first = _first_variants(clamped.flatten(0, 1), res,
+                                   max_iterations, use_osd)
+    count("ap_coherent.rows", clamped.shape[0] * clamped.shape[1]
+          * res.success.numel())
+    if recording():
+        won = retry.success & ~res.success
+        null = ~ap_mask.to(won.device, torch.bool).any(1)
+        count_on_card("ap_coherent.accepted", won)
+        count_on_card("ap_coherent.null_accepted",
+                      won & null[first % clamped.shape[1]])
+    return _merge_results(res, retry)
 
 
 # ---------------------------------------------------------------------------
@@ -830,7 +880,8 @@ def decode_ft8_message(wave_data, sample_rate: float,
         and _pick_backend(p, None) == "block"
     hop_seconds = C.SYMBOL_PERIOD_S / p.time_osr
     freq_step = C.TONE_SPACING_HZ / p.freq_osr
-    ap_vm = ap_arrays(ap, device) if ap else None
+    ap_vm, ap_null_vm = _ap_tables(_ap_calls(ap), device) if ap \
+        else (None, None)
     f_lo, f_hi, t_lo, t_hi = 0, p.num_freq_bins, 0, num_frames
     if freq_min is not None or freq_max is not None:
         f_lo, f_hi = _crop(np.arange(p.num_freq_bins) * freq_step,
@@ -881,12 +932,9 @@ def decode_ft8_message(wave_data, sample_rate: float,
             if coherent:
                 # a null (unclamped) hypothesis first: the plain coherent
                 # retry inside the same extraction
-                null = torch.zeros_like(ap_vm[0][:1])
-                res = ap_coherent_retry(
-                    wave_d, p, res, t_lo, f_lo,
-                    torch.cat([null, ap_vm[0]]),
-                    torch.cat([null.bool(), ap_vm[1]]), max_iterations,
-                    use_osd, is_complex)
+                res = ap_coherent_retry(wave_d, p, res, t_lo, f_lo,
+                                        *ap_null_vm, max_iterations, use_osd,
+                                        is_complex)
         if first_res is None:
             first_res = res
         snr = estimate_snr(mag, res.payload, res.abs_time, res.abs_freq,

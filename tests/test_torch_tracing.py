@@ -232,3 +232,30 @@ def test_no_wait_for_a_constant_on_a_second_call(call, stages):
     assert stages <= names
     assert not names & {"ft8.llrs.wait", "ft8.snr.wait",
                         "ft8.coherent.wait"}
+
+
+def test_no_upload_of_the_hypotheses_on_a_second_call(monkeypatch):
+    """The a-priori hypotheses reach a device once per (calls, device),
+    the coherent retry's with the null hypothesis already first: a second
+    decode with the same ``ap`` builds and copies none (a rebuild would
+    call ``ap_hypotheses`` again) and opens no wait in its a-priori and
+    coherent stages, and ``ap_arrays`` hands out the same tensors."""
+    call = _capture(use_osd=True, use_mf=True, coherent=True,
+                    ap="K1ABC W9XYZ")
+    tdec._ap_tables.cache_clear()
+    call()
+    values, mask = tdec.ap_arrays("K1ABC W9XYZ", "cpu")
+
+    def rebuilt(*args):
+        raise AssertionError("the hypotheses were built again")
+
+    monkeypatch.setattr(tdec, "ap_hypotheses", rebuilt)
+    with _profile() as prof:
+        call()
+    names = {e.name for e in prof.events() if e.name.startswith("ft8.")}
+    assert {"ft8.ap", "ft8.coherent"} <= names
+    assert not names & {"ft8.ap.wait", "ft8.coherent.wait", "ft8.llrs.wait"}
+    again = tdec.ap_arrays("k1abc  w9xyz", torch.device("cpu"))
+    assert again[0] is values and again[1] is mask
+    (v, m), (nv, nm) = tdec._ap_tables(("K1ABC", "W9XYZ"), torch.device("cpu"))
+    assert v is values and torch.equal(nv[1:], v) and not nm[0].any()
