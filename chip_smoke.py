@@ -42,11 +42,18 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    cell + 1e-4 x the grid's mean power; its dB grid against the dB-only
    kernel's at 12 kHz <= 5e-3; the yardstick (a Hann and a rectangular
    torch.stft) against the float32 plain grids;
-8. the OSD kernel (reliability order -> permuted, packed and reduced
-   bases, one launch) against its plain version (the permute-pack, then
-   the elimination), bit for bit, on the orders of random LLRs with forced
-   zero ties: 4099 and 37 rows (not multiples of the kernel's 4
-   candidates per block);
+8. the OSD kernel K4: its elimination entry (reliability order ->
+   permuted, packed and reduced bases, one launch) against its plain
+   version (the permute-pack, then the elimination), bit for bit, on the
+   orders of random LLRs with forced zero ties: 4099 and 37 rows (not
+   multiples of the entry's 4 candidates per block); the whole OSD (LLRs
+   and a need mask -> codewords and accept flags, one launch) against the
+   CPU route (ops/osd.py: torch.sort, the plain elimination, _osd_tail)
+   and the numpy model (tests/_torch_k4_model.py) on 2,000 cliff rows, 40
+   % needed, with tied magnitudes and zeros of both signs: equal to the
+   CPU route on every row but the near ties the model names (a gap within
+   1e-5 that is not zero; counted), to the model bit for bit; ptxas's
+   report of the fused kernel (a spill raises);
 9. the DEEP path at full size: decode_slots on the same 256 slots at osr
    4x4 (K 40, min_score 1, 20 BP iterations, OSD, mf_first, chunk 8,
    bp_chunk 256); every planted payload must decode, the dual-output and
@@ -54,14 +61,22 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    once (one BP group), over exactly the rows BP left (the valid
    candidates that the same decode without OSD does not decode);
    OSD-accepted rows must be > 0 and no BP decode lost; the OSD kernel
-   equals its plain version bit for bit on that call's rows (their orders
-   taken from a second, uncounted call); the first 4 slots decoded on the
-   CPU must give the same sets;
-10. times: the dual-output kernel (batch 8, 12 kHz; and its yardstick) and
-   the OSD kernel at the DEEP call's rows (its one launch per batch) and
-   at 1024 rows, against their plain versions and bounds (device time, as
-   in phase 6); DEEP decode_slots slots/s at batch 256 over 5 runs; peak
-   device memory;
+   equals the CPU route on that call's rows (its LLRs and need mask taken
+   from a second, uncounted call), near ties as in phase 8, and the model
+   bit for bit; the kernels line's osd record gives the differing rows'
+   largest |plain difference| and how many near-tie rows differ; the
+   first 4 slots decoded on the CPU must give the same sets;
+10. times: the dual-output kernel (batch 8, 12 kHz; and its yardstick)
+   against its plain version and bound (device time, as in phase 6); the
+   OSD kernel at the DEEP call's rows (its one launch per batch), at
+   deep.weak's (3,620 needed of 10,240) and at deepest.qso's five sizes
+   (40, 80, 240, 1,400 and 1,678 rows), against its bound, the route it
+   replaced on the card (torch.sort, the elimination entry, _osd_tail) and
+   the plain route (device time), and each call's wall time back to back
+   beside that route's (its nonzero, compaction and scatter included);
+   one row's chain at 40 rows split: the kernel at order2 0 and the
+   elimination entry alone; DEEP decode_slots slots/s at batch 256 over 5 runs; peak device
+   memory;
 11. the sync stencil kernels against their plain versions, bit for bit
    (torch.equal, identical -inf masks; anything else raises): time-major
    on dB grids at 12 kHz osr 2x2 (batch 16) and 4x4 (batch 8) and 2 kHz
@@ -194,8 +209,9 @@ Phases, one line each (any failure raises, and the script exits non-zero):
    kernel (K1 or K3) against its plain version within phase 3's bounds
    (and K3's boxcar as in phase 7), the time-major sync kernel (or, on a
    geometry the block backend does not take, the frequency-major one) and
-   the OSD kernel, on the orders the decode passed it, bit for bit; any
-   failure raises with its reproduction tuple; the phase's seconds;
+   the OSD kernel against the CPU route on the LLRs and need mask the
+   decode passed it (near ties as in phase 8); any failure raises with its
+   reproduction tuple; the phase's seconds;
 20. BP + CRC (K7, csrc/ldpc_bp.cu) on the LLRs of phase 4's first BP
    group (5,120 rows) and of phase 12's crowded capture (20 rows): K7 ==
    the plain loop bit for bit (plain, min_errors, both CRCs, iterations),
@@ -294,8 +310,11 @@ DEEP_REPS = 5
 BOX_RTOL = 1e-4
 OSD_SOURCE = "ft8_demodulator_tpu_torch/csrc/osd_eliminate.cu"
 MF_REPLACES = "ft8_demodulator_tpu/ops/waterfall_pallas.py:444"
-OSD_REPLACES = "ft8_demodulator_tpu/ops/osd.py:212"
-OSD_TIMED_ROWS = 1024
+OSD_REPLACES = "ft8_demodulator_tpu/ops/osd.py:276 (with _osd_tail, :313)"
+# the OSD kernel's timed calls: deep.weak's needed rows among its batch's
+# candidates, and deepest.qso's calls of a capture (all rows needed)
+OSD_WEAK_ROWS = (3620, 10240)
+OSD_QSO_ROWS = (40, 80, 240, 1400, 1678)
 # the sync stencil kernels
 SYNC_SOURCE = "ft8_demodulator_tpu_torch/csrc/sync_stencil.cu"
 K5_REPLACES = "ft8_demodulator_tpu/ops/sync_pallas_tf.py:162"
@@ -320,7 +339,7 @@ PEAK_BYTES = 3.35e12
 # bit-exact sync stencil) run at half that rate
 PEAK_F32_INSTR = PEAK_F32 / 2
 NO_LIBRARY = {
-    "osd_eliminate": "no PyTorch call does GF(2) elimination",
+    "osd": "no PyTorch call does GF(2) elimination",
     "sync_scores": "the masks drop a term whose neighbour block lies outside"
                    " the slot, which a zero-padded conv2d would not "
                    "reproduce",
@@ -393,9 +412,11 @@ def _synth_slots(device, fs: float = FS, batch: int = BATCH,
 def _kernel_name(fn: str) -> str:
     """A hand kernel's name from its mangled entry: waterfall_kernel<true>,
     sync_kernel<false,4,4> (layout, then the osr it is built for; 0: any),
-    osd_eliminate_kernel, ldpc_bp_kernel, llr_kernel<true> (the boxcar
-    route), topk_select_kernel; other names as they are."""
+    osd_eliminate_kernel, osd_decode_kernel, ldpc_bp_kernel,
+    llr_kernel<true> (the boxcar route), topk_select_kernel; other names as
+    they are."""
     m = re.search(r"(waterfall_pack_kernel|osd_eliminate_kernel|"
+                  r"osd_decode_kernel|"
                   r"ldpc_bp_kernel|llr_kernel|waterfall_kernel|sync_kernel|"
                   r"topk_select_kernel)"
                   r"(?:ILb([01])E((?:Li\d+E)*))?", fn)
@@ -420,19 +441,19 @@ def _ptxas_report(log: str) -> list[str]:
     return out
 
 
-def _sync_ptxas(log: str) -> list[str]:
-    """ptxas's report of every sync_kernel instance; raises if one
+def _sync_ptxas(log: str, kernel: str = "sync_kernel") -> list[str]:
+    """ptxas's report of every instance of ``kernel``; raises if one
     spills."""
     report, keep = [], False
     for line in _ptxas_report(log):
         if line.endswith(":"):
-            keep = line.startswith("sync_kernel")
+            keep = line.startswith(kernel)
         if keep:
             report.append(line)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", line)
             if spill and spill.group(1, 2) != ("0", "0"):
-                raise RuntimeError(f"sync_kernel spills: {report}")
+                raise RuntimeError(f"{kernel} spills: {report}")
     return report
 
 
@@ -647,6 +668,8 @@ PROFILER_WINDOWS = 10
 MAX_LOST_CALLS = 2
 # the range around each call of a hand kernel's window
 CALL_RANGE = "chip_smoke.call"
+# unmarked calls before and after a hand kernel's marked ones
+MARK_PAD = 2
 # profiler windows taken again because they lacked device events ("what
 # events-seen/events-expected", or complete calls/calls), and hand-kernel
 # windows counted with a call lost ("what complete/calls")
@@ -657,16 +680,23 @@ _SHORT: list[str] = []
 def _trace_events(fn, reps: int, mark: bool = False) -> list[dict]:
     """The chrome-trace events of a torch.profiler trace of ``reps`` calls
     of ``fn``, up to a synchronize; ``mark`` runs each call in a
-    CALL_RANGE range."""
+    CALL_RANGE range, between MARK_PAD unmarked calls before and after
+    (a window's first or last launches may lack a record; the unmarked
+    calls count nowhere)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    pad = MARK_PAD if mark else 0
     with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(pad):
+            fn()
         for _ in range(reps):
             if mark:
                 with torch.profiler.record_function(CALL_RANGE):
                     fn()
             else:
                 fn()
+        for _ in range(pad):
+            fn()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
@@ -697,9 +727,10 @@ def _busy_ms(events: list[dict]) -> float:
 
 
 def _complete_calls(events: list[dict], name: str,
-                    kernels: int) -> tuple[list[dict], int]:
+                    kernels: int) -> tuple[list[dict], int, list[tuple]]:
     """(the ``name`` kernels of the complete calls, how many calls are
-    complete) in a trace of CALL_RANGE calls.  A call is complete when it
+    complete, (index, launches, device records) of the others) in a trace
+    of CALL_RANGE calls.  A call is complete when it
     made exactly ``kernels`` launches (the runtime's launch records inside
     its range) and each has its device record (by correlation id), a
     ``name`` kernel."""
@@ -709,11 +740,12 @@ def _complete_calls(events: list[dict], name: str,
                 for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "Launch" in e.get("name", "")]
-    kept, complete = [], 0
-    for e in events:
-        if e.get("ph") != "X" or e.get("cat") != "user_annotation" \
-                or e.get("name") != CALL_RANGE:
-            continue
+    kept, complete, lost = [], 0, []
+    calls = sorted((e for e in events if e.get("ph") == "X"
+                    and e.get("cat") == "user_annotation"
+                    and e.get("name") == CALL_RANGE),
+                   key=lambda e: float(e["ts"]))
+    for i, e in enumerate(calls):
         lo = float(e["ts"])
         hi = lo + float(e.get("dur", 0.0))
         mine = {c for t, c in launches if lo <= t <= hi}
@@ -722,7 +754,9 @@ def _complete_calls(events: list[dict], name: str,
         if len(mine) == kernels and len(got) == kernels:
             kept += got
             complete += 1
-    return kept, complete
+        else:
+            lost.append((i, len(mine), len(got)))
+    return kept, complete, lost
 
 
 def _device_ms(fn, reps: int, name: str | None = None,
@@ -745,13 +779,13 @@ def _device_ms(fn, reps: int, name: str | None = None,
     torch.cuda.synchronize()
     for _ in range(PROFILER_WINDOWS):
         if name:
-            kept, complete = _complete_calls(_trace_events(fn, reps, True),
-                                             name, kernels)
+            kept, complete, lost = _complete_calls(
+                _trace_events(fn, reps, True), name, kernels)
             if complete >= reps - MAX_LOST_CALLS:
                 if complete < reps:
-                    _SHORT.append(f"{name} {complete}/{reps}")
+                    _SHORT.append(f"{name} {complete}/{reps} {lost}")
                 return _busy_ms(kept) / complete, kernels
-            _RETAKEN.append(f"{name} {complete}/{reps} calls")
+            _RETAKEN.append(f"{name} {complete}/{reps} calls {lost}")
             continue
         per_call = len(_device_events(_trace_events(fn, 1)))
         events = _device_events(_trace_events(fn, reps))
@@ -810,34 +844,182 @@ def _check_osd(order, tables, label: str) -> None:
                            f"{order.shape[0]} rows differ")
 
 
-def _osd_bound(rows: int) -> tuple[float, str]:
-    """The OSD kernel's bound: the int64 orders and the table in, the
-    reduced bases and pivot columns out; one XOR of six words per row and
-    pivot (91 x 90 x 6 per candidate) at the f32 rate."""
+def _osd_bound(rows: int, needed: int) -> tuple[float, str]:
+    """The OSD kernel's bound.  Bytes: the need mask read and the codewords
+    and flags written for every row, the LLRs of the needed rows read, the
+    table once.  Operations, a needed row: the integer ones (the rank's
+    174 x 174 key compares and the elimination's XORs of six words a row
+    and pivot, 91 x 90 x 6) and the float32 adds (each of the 91 rows'
+    corrections and each of the order-2 pairs' overlaps over 174 columns).
+    Integer operations issue on half of the float32 lanes (64 of 128 an SM
+    a clock) and share them with the adds, so the least time is the larger
+    of 2 x int and int + adds at PEAK_F32_INSTR."""
+    from ft8_demodulator_tpu_torch.ops import osd
     from ft8_demodulator_tpu_torch.ops.osd_cuda import TABLE_WORDS
 
-    return _bound(rows * 91 * 90 * 6,
-                  8 * rows * 174 + 4 * TABLE_WORDS + 4 * rows * 91 * (6 + 1),
-                  PEAK_F32)
+    pairs = osd.DEFAULT_ORDER2 * (osd.DEFAULT_ORDER2 - 1) // 2
+    int_ops = 174 * 174 + 91 * 90 * 6
+    adds = (91 + pairs) * 174
+    return _bound(needed * max(2 * int_ops, int_ops + adds),
+                  rows * (1 + 4 * 174 + 1) + needed * 4 * 174
+                  + 4 * TABLE_WORDS, PEAK_F32_INSTR)
 
 
-def _capture_osd_orders(fn) -> list:
-    """Run ``fn`` (a decode) with ops/osd.py's kernel entry wrapped to keep
-    each call's (order, tables); the entry is restored after."""
+def _cliff_osd_rows(rows: int, seed: int, device):
+    """(LLRs, need): random codewords at the BP cliff on a grid of halves
+    (tied magnitudes), a tenth of the values zero of either sign, 40 %
+    of the rows needed."""
+    from ft8_demodulator_tpu_torch.protocol import constants as pc
+
+    rng = np.random.default_rng(seed)
+    pay = rng.integers(0, 2, (rows, 77)).astype(np.float32)
+    cw = (pay @ pc.ENCODE_MATRIX.T) % 2
+    llr = np.round(((2 * cw - 1) * 2.0 + 1.5 * rng.standard_normal(
+        cw.shape)) * 2) / 2
+    llr[rng.random(llr.shape) < 0.05] = 0.0
+    llr[rng.random(llr.shape) < 0.05] = -0.0
+    return (torch.as_tensor(llr.astype(np.float32), device=device),
+            torch.as_tensor(rng.random(rows) < 0.4, device=device))
+
+
+def _check_osd_decode(llr, need, label: str) -> tuple[str, dict]:
+    """The OSD kernel (one launch) against the CPU route on (llr, need):
+    plain and ok equal on every row but the near ties the numpy model names
+    (tests/_torch_k4_model.py: an admissible distance within 1e-5 relative
+    of the smallest, or a valid candidate's distance within 1e-5 of the
+    gate, by a gap that is not zero), and equal to the model bit for bit on
+    every needed row.  Raises on any other difference.  Returns a summary
+    and what it measured: the rows that differ from the CPU route, those of
+    them that are near ties, and the largest |plain difference| over all
+    rows, near ties included."""
     from ft8_demodulator_tpu_torch.ops import osd
 
-    seen, entry = [], osd.reduce_basis_from_order
+    k4m = _tests_module("_torch_k4_model")
+    llr, need = llr.reshape(-1, 174), need.reshape(-1)
+    plain, ok = osd.osd_kernel(llr, need, osd.osd_tables(llr.device),
+                               osd.DEFAULT_LAMBDA, osd.DEFAULT_ORDER2,
+                               osd.DEFAULT_ORDER3)
+    torch.cuda.synchronize()
+    want_plain, want_ok = osd.osd_decode_masked(llr.cpu(), need.cpu())
+    plain, ok, needc = plain.cpu(), ok.cpu(), need.cpu()
+    differ = (plain != want_plain).any(-1) | (ok != want_ok)
+    if bool(ok[~needc].any()) or bool((plain[~needc] != 0).any()):
+        raise RuntimeError(f"OSD kernel on {label}: an unneeded row is not "
+                           "(zeros, False)")
+    near = torch.zeros_like(needc)
+    idx = needc.nonzero()[:, 0]
+    search = k4m.decode(llr[idx].cpu().numpy())
+    near[idx] = torch.as_tensor(k4m.near_ties(search))
+    if bool((differ & ~near).any()):
+        raise RuntimeError(f"OSD kernel vs the CPU route on {label}: "
+                           f"{int((differ & ~near).sum())} of {len(idx)} "
+                           f"needed rows differ beyond near ties")
+    if not (torch.equal(plain[idx], torch.as_tensor(search.plain))
+            and torch.equal(ok[idx], torch.as_tensor(search.ok))):
+        raise RuntimeError(f"OSD kernel vs its numpy model on {label}")
+    measured = {"rows_differ": int(differ.sum()),
+                "near_tie_rows_differ": int((differ & near).sum()),
+                "max_abs_err": float((plain - want_plain).abs().max())
+                if plain.numel() else 0.0}
+    return (f"{len(idx)} needed of {needc.numel()} rows, {int(ok.sum())} "
+            f"accepted, {int(near.sum())} near ties, "
+            f"{measured['rows_differ']} rows differ (max |plain diff| "
+            f"{measured['max_abs_err']:g}); == the model bit for bit",
+            measured)
 
-    def keep(order, tables):
-        seen.append((order, tables))
-        return entry(order, tables)
 
-    osd.reduce_basis_from_order = keep
+def _capture_osd_inputs(fn) -> list:
+    """Run ``fn`` (a decode) with ops/osd.py's kernel entry wrapped to keep
+    each call's (llr, need); the entry is restored after."""
+    from ft8_demodulator_tpu_torch.ops import osd
+
+    seen, entry = [], osd.osd_kernel
+
+    def keep(llr, need, *args):
+        seen.append((llr, need))
+        return entry(llr, need, *args)
+
+    osd.osd_kernel = keep
     try:
         fn()
     finally:
-        osd.reduce_basis_from_order = entry
+        osd.osd_kernel = entry
     return seen
+
+
+def _replaced_osd_route(llr, need):
+    """ops/osd.py's OSD of a masked call on the card before the fused
+    kernel: the needed rows compacted by nonzero, torch.sort, the
+    elimination entry, _osd_tail in passes of 1,024 rows, scattered back."""
+    from ft8_demodulator_tpu_torch.ops import osd
+
+    plain = torch.zeros(llr.shape, dtype=torch.int32, device=llr.device)
+    ok = torch.zeros(need.shape, dtype=torch.bool, device=llr.device)
+    idx = need.nonzero()[:, 0]
+    if idx.numel():
+        plain[idx], ok[idx] = osd._osd_rows(
+            llr[idx], osd.DEFAULT_LAMBDA, osd.DEFAULT_ORDER2,
+            osd.DEFAULT_ORDER3, osd.DEFAULT_CHUNK)
+    return plain, ok
+
+
+def _plain_osd_route(llr, need):
+    """The same with the plain elimination: all PyTorch."""
+    from ft8_demodulator_tpu_torch.ops import osd
+    from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
+
+    entry = osd.reduce_basis_from_order
+    osd.reduce_basis_from_order = oc.reduce_basis_from_order_plain
+    try:
+        return _replaced_osd_route(llr, need)
+    finally:
+        osd.reduce_basis_from_order = entry
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """Wall ms a call of ``fn``, back to back after a warm call, ended by a
+    synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _osd_times(llr, need, reps: int = 20) -> dict:
+    """The OSD kernel's device ms, its bound, the replaced and plain
+    routes' device ms and events, and the wall ms a call of the kernel's
+    route (osd_decode_masked) and of the replaced one, on (llr, need)."""
+    from ft8_demodulator_tpu_torch.ops import osd
+
+    tables = osd.osd_tables(llr.device)
+    needed = int(need.sum())
+    kernel = lambda: osd.osd_kernel(llr, need, tables, osd.DEFAULT_LAMBDA,
+                                    osd.DEFAULT_ORDER2, osd.DEFAULT_ORDER3)
+    ms, rep_ms, rep_ev, _ = _kernel_vs_plain_ms(
+        kernel, lambda: _replaced_osd_route(llr, need), "osd_decode_kernel",
+        reps)
+    plain_ms, plain_ev = _device_ms(lambda: _plain_osd_route(llr, need), 2)
+    return {"rows": llr.shape[0], "needed": needed, "ms": ms,
+            "bound": _osd_bound(llr.shape[0], needed),
+            "replaced_ms": rep_ms, "replaced_events": rep_ev,
+            "plain_ms": plain_ms, "plain_events": plain_ev,
+            "wall_ms": _wall_ms(lambda: osd.osd_decode_masked(llr, need),
+                                reps),
+            "replaced_wall_ms": _wall_ms(
+                lambda: _replaced_osd_route(llr, need), reps)}
+
+
+def _osd_text(label: str, t: dict) -> str:
+    return (f"{label}: {t['needed']} needed of {t['rows']} rows, kernel "
+            f"{t['ms'] * 1e3:.1f} us (bound {t['bound'][0] * 1e3:.2f} us by "
+            f"{t['bound'][1]}), replaced route {t['replaced_ms'] * 1e3:.1f} "
+            f"us ({t['replaced_events']} device events), plain route "
+            f"{t['plain_ms']:.2f} ms ({t['plain_events']} events); wall a "
+            f"call {t['wall_ms']:.3f} ms, replaced route "
+            f"{t['replaced_wall_ms']:.3f} ms")
 
 
 def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
@@ -848,6 +1030,7 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     from ft8_demodulator_tpu_torch.ops import osd_cuda as oc
     from ft8_demodulator_tpu_torch.ops import waterfall_cuda as wc
     from ft8_demodulator_tpu_torch.ops.waterfall import waterfall_params
+    from ft8_demodulator_tpu_torch.utils.build import kernel_library
 
     mf = wc.block_waterfall_mf_tf_fused_batch
     mf_plain = wc.block_waterfall_mf_tf_fused_batch_plain
@@ -897,9 +1080,16 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     tables = osd.osd_tables(dev)
     for rows, seed in ((4099, 1), (37, 2)):
         _check_osd(_tied_orders(rows, seed, dev), tables, f"{rows} orders")
-    _phase(8, "OSD kernel (order -> reduced bases, one launch) == plain "
-              "(permute-pack + elimination) bit for bit on 4099 and 37 rows "
-              "(random LLRs, 20 % zero ties)")
+    cliff_text, _ = _check_osd_decode(*_cliff_osd_rows(2000, 8, dev),
+                                      "2,000 cliff rows")
+    k4_ptxas = _sync_ptxas(kernel_library().log, "osd_decode_kernel")
+    _phase(8, "OSD kernel's elimination entry (order -> reduced bases, one "
+              "launch) == plain (permute-pack + elimination) bit for bit on "
+              "4099 and 37 rows (random LLRs, 20 % zero ties); the whole OSD "
+              "(one launch) == the CPU route but near ties, and == its numpy "
+              "model bit for bit, on cliff rows with ties and signed zeros: "
+              f"{cliff_text}; "
+              "ptxas: " + " ".join(k4_ptxas))
 
     p = waterfall_params(FS, *DEEP_OSR)
     nf = p.num_frames(waves.shape[1])
@@ -907,7 +1097,6 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
               max_iterations=BP_ITERATIONS, mf_first=True, chunk=DEEP_CHUNK,
               bp_chunk=BP_CHUNK)
     torch.cuda.synchronize()
-    k4 = oc.reduce_basis_from_order
     _reset_counts()
     t0 = time.perf_counter()
     res = decode_slots(waves, p, nf, use_osd=True, **kw)
@@ -954,13 +1143,14 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
         raise RuntimeError(f"OSD kernel: {osd_launches} launches over "
                            f"{osd_rows} rows, want 1 over the {needed} rows "
                            "BP left")
-    seen = _capture_osd_orders(
+    seen = _capture_osd_inputs(
         lambda: decode_slots(waves, p, nf, use_osd=True, **kw))
-    if len(seen) != 1 or seen[0][0].shape[0] != needed:
+    if len(seen) != 1 or int(seen[0][1].sum()) != needed:
         raise RuntimeError(f"the uncounted DEEP call gave the OSD kernel "
-                           f"{[o.shape[0] for o, _ in seen]} rows")
-    deep_order = seen[0][0]
-    _check_osd(deep_order, tables, f"the DEEP call's {needed} rows")
+                           f"{[int(n.sum()) for _, n in seen]} needed rows")
+    deep_llr, deep_need = seen[0]
+    deep_text, deep_check = _check_osd_decode(
+        deep_llr, deep_need, f"the DEEP call's {needed} rows")
     _phase(9, f"DEEP decode_slots {BATCH} slots at {FS / 1000:g} kHz osr "
               f"{DEEP_OSR[0]}x{DEEP_OSR[1]}: yield {decoded}/{BATCH}, "
               f"dual-output kernel launches {mf_launches}, sync kernel "
@@ -969,8 +1159,8 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
               f"launches {osd_launches} reducing {osd_rows} rows (the rows "
               f"BP left), {int(res.success.sum())} successful rows of which "
               f"{osd_accepted} OSD-accepted, {unplanted} unplanted decodes, "
-              f"first call {first_s:.2f} s; OSD kernel == plain bit for bit "
-              f"on that call's {needed} rows")
+              f"first call {first_s:.2f} s; OSD kernel == the CPU route on "
+              f"that call's rows: {deep_text}")
 
     host = decode_slots(waves[:DEEP_CPU_SLOTS].cpu(), p, nf, use_osd=True,
                         **dict(kw, chunk=DEEP_CPU_SLOTS))
@@ -993,17 +1183,31 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
     dft_flop = 4 * (nf + p.time_osr - 1) * p.hop * kx * DEEP_CHUNK
     mf_bound = _waterfall_bound(p, DEEP_CHUNK, waves.shape[1], box=True)
     mf_ctas, mf_waves = _waterfall_grid(p, DEEP_CHUNK, box=True)
-    # the OSD kernel at the DEEP call's rows (its one launch a batch) and
-    # at 1024 rows
-    osd_t = {}
-    for label, order in (("DEEP", deep_order),
-                         ("1024", _tied_orders(OSD_TIMED_ROWS, 3, dev))):
-        ms, plain_ms, plain_ev, _ = _kernel_vs_plain_ms(
-            lambda: k4(order, tables),
-            lambda: oc.reduce_basis_from_order_plain(order, tables),
-            "osd_eliminate_kernel", plain_reps=5)
-        osd_t[label] = (order.shape[0], ms, plain_ms, plain_ev,
-                        _osd_bound(order.shape[0]))
+    # the OSD kernel at the DEEP call's rows (its one launch a batch), at
+    # deep.weak's and at deepest.qso's calls
+    weak_llr, _ = _cliff_osd_rows(OSD_WEAK_ROWS[1], 9, dev)
+    weak_need = torch.zeros(OSD_WEAK_ROWS[1], dtype=torch.bool, device=dev)
+    weak_need[torch.randperm(OSD_WEAK_ROWS[1], generator=torch.Generator()
+                             .manual_seed(9))[:OSD_WEAK_ROWS[0]]] = True
+    osd_t = {"DEEP": _osd_times(deep_llr, deep_need),
+             "deep.weak": _osd_times(weak_llr, weak_need)}
+    for rows in OSD_QSO_ROWS:
+        llr, _ = _cliff_osd_rows(rows, rows, dev)
+        osd_t[f"deepest.qso {rows}"] = _osd_times(
+            llr, torch.ones(rows, dtype=torch.bool, device=dev))
+    # one row's chain, on deepest.qso's smallest call: the whole kernel,
+    # the kernel at order2 0 (no pairs) and the elimination entry alone on
+    # the rows' stable sort order
+    chain_llr, _ = _cliff_osd_rows(OSD_QSO_ROWS[0], OSD_QSO_ROWS[0], dev)
+    chain_need = torch.ones(OSD_QSO_ROWS[0], dtype=torch.bool, device=dev)
+    chain_order = torch.sort(-chain_llr.abs(), dim=-1, stable=True).indices
+    chain = {
+        "order2 0": _device_ms(lambda: osd.osd_kernel(
+            chain_llr, chain_need, tables, osd.DEFAULT_LAMBDA, 0, 0), 20,
+            "osd_decode_kernel")[0],
+        "elimination only": _device_ms(
+            lambda: oc.reduce_basis_from_order(chain_order, tables), 20,
+            "osd_eliminate_kernel")[0]}
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -1022,16 +1226,14 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
                f"bound {mf_bound[0]:.4f} ms by {mf_bound[1]}), "
                f"plain {mf_plain_ms:.4f} ms ({mf_plain_ev} device events "
                f"per call), torch.stft yardstick {mf_lib_ms:.4f} ms; OSD "
-               f"kernel (order in, reduced bases out): "
-               + "; ".join(
-                   f"{rows} rows{' (the DEEP batch)' if key == 'DEEP' else ''}"
-                   f" kernel {ms * 1e3:.1f} us (bound {bd[0] * 1e3:.2f} us by"
-                   f" {bd[1]}), plain {pms * 1e3:.1f} us ({ev} device events"
-                   f" per call)"
-                   for key, (rows, ms, pms, ev, bd) in osd_t.items())
-               + f"; per DEEP batch {osd_launches} launch, "
-               f"{osd_launches * osd_t['DEEP'][1] * 1e3:.1f} us "
-               f"(device time, min of 2 counted windows); DEEP "
+               f"kernel (LLRs and need in, codewords out; device time, min "
+               f"of 2 counted windows): "
+               + "; ".join(_osd_text(k, t) for k, t in osd_t.items())
+               + f"; one row's chain at {OSD_QSO_ROWS[0]} rows: whole "
+               f"{osd_t[f'deepest.qso {OSD_QSO_ROWS[0]}']['ms'] * 1e3:.1f} "
+               "us, " + ", ".join(f"{k} {v * 1e3:.1f} us"
+                                  for k, v in chain.items())
+               + f"; per DEEP batch {osd_launches} launch; DEEP "
                f"decode_slots batch {BATCH}: slots/s over {DEEP_REPS} runs "
                f"min {rates[0]:.1f}, median {rates[len(rates) // 2]:.1f}, "
                f"max {rates[-1]:.1f}; peak memory {peak_mib:.1f} MiB")
@@ -1042,12 +1244,15 @@ def _deep_phases(dev, smi: str, waves, payloads) -> list[dict]:
          "max_abs_err": max(db_errs.values()), "ms": mf_ms,
          "plain_ms": mf_plain_ms, "bound_ms": mf_bound[0],
          "bound_by": mf_bound[1], "library_ms": mf_lib_ms},
-        {"name": "osd_eliminate", "route": "cuda", "source": OSD_SOURCE,
+        {"name": "osd", "route": "cuda", "source": OSD_SOURCE,
          "replaces": OSD_REPLACES, "launches": osd_launches,
-         "max_abs_err": 0.0, "ms": osd_t["DEEP"][1],
-         "plain_ms": osd_t["DEEP"][2], "bound_ms": osd_t["DEEP"][4][0],
-         "bound_by": osd_t["DEEP"][4][1], "library_ms": None,
-         "library_note": NO_LIBRARY["osd_eliminate"]},
+         "max_abs_err": deep_check["max_abs_err"],
+         "near_tie_rows_differ": deep_check["near_tie_rows_differ"],
+         "ms": osd_t["DEEP"]["ms"],
+         "plain_ms": osd_t["DEEP"]["plain_ms"],
+         "bound_ms": osd_t["DEEP"]["bound"][0],
+         "bound_by": osd_t["DEEP"]["bound"][1], "library_ms": None,
+         "library_note": NO_LIBRARY["osd"]},
     ]
 
 
@@ -2546,7 +2751,7 @@ PAR_TIMEOUT_S = 300.0
 # the launches each rank counts: the frequency-major sync kernel (K6), the
 # OSD kernel (K4), BP + CRC (K7), the LLR kernel (K8) and the top-K kernel
 # (K9), as the profiler names them
-LAUNCH_NAMES = "sync_kernel<false,...> / osd_eliminate_kernel / " \
+LAUNCH_NAMES = "sync_kernel<false,...> / osd_decode_kernel / " \
     "ldpc_bp_kernel / llr_kernel / topk_select_kernel"
 # the regimes on PAR_RANKS ranks: (name, what the parent checks)
 PAR_REGIMES = ("DP x SP 2x2", "TP 4 osr 2x2", "TP 4 osr 4x4 OSD MF",
@@ -2918,7 +3123,7 @@ def _soak_api(dev, soak) -> tuple[int, dict, str]:
                                       for k, n in sorted(k6.items()))
             + ", by instance " + ", ".join(
                 f"{k} {n}" for k, n in sorted(by_instance.items()))
-            + f"; osd_eliminate_kernel launches {k4_total}, ldpc_bp_kernel "
+            + f"; osd_decode_kernel launches {k4_total}, ldpc_bp_kernel "
             f"launches {k7_total}")
     return k4_total, k6, text
 
@@ -2959,7 +3164,7 @@ def _soak_slots(dev, soak) -> tuple[int, int, list[str]]:
         block = _pick_backend(p, None) == "block"
         _reset_counts()
         out = []
-        orders = _capture_osd_orders(lambda: out.append(decode_slots(
+        osd_calls = _capture_osd_inputs(lambda: out.append(decode_slots(
             w, p, nf, chunk=SOAK_SLOT_BATCH, **kw)))
         torch.cuda.synchronize()
         launches = {k: _counter(f"{k.lower()}.launches")
@@ -2967,7 +3172,7 @@ def _soak_slots(dev, soak) -> tuple[int, int, list[str]]:
                               "K7")}
         front = ("K3" if run == "DEEP" else "K1", "K5") if block else ("K6",)
         want = {k: (SOAK_SLOT_BATCH if k == "K6" else 1) for k in front}
-        want["K4"] = len(orders)
+        want["K4"] = len(osd_calls)
         # BP + CRC: one group of the batch; off the block route one a slot
         want["K7"] = 1 if block else SOAK_SLOT_BATCH
         # LLRs: one the chunk; off the block route one a slot on the Hann
@@ -2978,9 +3183,9 @@ def _soak_slots(dev, soak) -> tuple[int, int, list[str]]:
         want["K9"] = 1 if block else SOAK_SLOT_BATCH
         if {k: n for k, n in launches.items() if n} != \
                 {k: n for k, n in want.items() if n} \
-                or (run == "DEEP") != bool(orders):
+                or (run == "DEEP") != bool(osd_calls):
             raise RuntimeError(f"{name}: launches {launches}, want {want} "
-                               f"({len(orders)} OSD calls)")
+                               f"({len(osd_calls)} OSD calls)")
         k4_total += launches["K4"]
         k6_total += launches["K6"]
         card_sets = _decode_sets(out[0], SOAK_SLOT_BATCH)
@@ -3017,11 +3222,10 @@ def _soak_slots(dev, soak) -> tuple[int, int, list[str]]:
                     mag, g), so.sync_scores(mag, g))
             checks.append(f"non-block geometry: K6 == plain on "
                           f"{SOAK_SLOT_BATCH} slots")
-        for j, (order, tables) in enumerate(orders):
-            _check_osd(order, tables, f"{name} OSD call {j}")
-        if orders:
-            rows = sum(order.shape[0] for order, _ in orders)
-            checks.append(f"K4 == plain on {rows} rows")
+        for j, (llr, need) in enumerate(osd_calls):
+            checks.append(f"K4 == the CPU route on OSD call {j}: "
+                          + _check_osd_decode(llr, need,
+                                              f"{name} OSD call {j}")[0])
         found = sum(len(set(pl) & {d[0] for d in card_sets[b]})
                     for b, pl in enumerate(planted))
         texts.append(f"{fs / 1000:g} kHz {tau}x{phi} {slot_s:g} s {run}: "

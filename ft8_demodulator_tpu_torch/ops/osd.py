@@ -4,9 +4,8 @@ Port of ``ft8_demodulator_tpu/ops/osd.py``.  When belief propagation does
 not yield a CRC-valid codeword, OSD re-derives one from the 91 most
 reliable linearly independent bit positions: sort the bits by |LLR|,
 permute the code's (91, 174) basis into that order and row-reduce it over
-GF(2) (``ops/osd_cuda.py``: one CUDA kernel does both on the card, for all
-of a call's rows in one launch; its plain version on the CPU), and take
-the codeword that agrees with the hard decision on the pivots (order 0).
+GF(2), and take the codeword that agrees with the hard decision on the
+pivots (order 0).
 The search also tries every single pivot-row flip (order 1), XOR-pairs of
 the ``order2`` least reliable pivot rows and triples of the ``order3``
 least reliable ones, and keeps the accepted candidate closest to the
@@ -19,13 +18,19 @@ reliability-weighted disagreement with the hard decision must stay within
 each basis row ride along through the elimination in packed bits 174..187,
 so a flip's CRC check is one XOR of 14-bit integers.
 
-The JAX package builds the permuted basis with a matmul outside its
-elimination kernel and selects rows with one-hot multiply-reduces (TPU
-workarounds); here the kernel builds the basis from the sort order, and
-the rows are gathers.
-The gate's float32 sums run in another order than XLA's, so a candidate
-whose distance sits within a few ulp of ``lam`` times its mass can fall on
-the other side; the tests state the margins they see.
+On a CUDA tensor the whole OSD of a call is one launch of the K4 kernel
+(``ops/osd_cuda.py osd_kernel``): the sort, the elimination, the search
+and the winner, a warp a row.  On the CPU it is the plain route below,
+the kernel's plain version: a stable ``torch.sort``, the elimination's
+plain version (``ops/osd_cuda.py reduce_basis_from_order``) and
+:func:`_osd_tail` in passes of ``chunk`` rows.  The JAX package builds the
+permuted basis with a matmul outside its elimination kernel and selects
+rows with one-hot multiply-reduces (TPU workarounds); here the basis comes
+from the sort order, and the rows are gathers.
+The gate's float32 sums run in another order than XLA's (and the kernel's
+in another than the plain route's), so a candidate whose distance sits
+within a few ulp of ``lam`` times its mass, or of another candidate's, can
+fall on the other side; the tests state the margins they see.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ import torch
 
 from ..protocol import constants as C
 from ..utils.profiling import count, count_on_card, host_wait, span
-from .osd_cuda import _pack, reduce_basis_from_order
+from .osd_cuda import (_pack, check_kernel_orders, osd_kernel,
+                       reduce_basis_from_order)
 
 __all__ = ["OSDTables", "osd_tables", "osd_decode_batch",
            "osd_decode_masked", "DEFAULT_LAMBDA", "DEFAULT_ORDER2",
@@ -54,8 +60,8 @@ _SYND_MASK = (1 << C.CRC_BITS) - 1
 DEFAULT_LAMBDA = 0.33
 DEFAULT_ORDER2 = 16
 DEFAULT_ORDER3 = 0
-# rows per pass of the OSD search: bounds the (rows, 91, 192) unpacked
-# basis (the elimination takes all of a call's rows at once)
+# rows per pass of the CPU route's search: bounds the (rows, 91, 192)
+# unpacked basis (the elimination takes all of a call's rows at once)
 DEFAULT_CHUNK = 1024
 
 
@@ -261,20 +267,25 @@ def _check_orders(order2: int, order3: int) -> int:
     return order3 if order3 >= 3 else 0   # C(order3, 3) == 0: no triples
 
 
+def _none(flat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(zeros like the plain codewords, False for every row) of (R, 174)
+    LLRs: what a row OSD does not search returns."""
+    return (torch.zeros(flat.shape, dtype=torch.int32, device=flat.device),
+            torch.zeros(flat.shape[:1], dtype=torch.bool, device=flat.device))
+
+
 def _osd_rows(flat: torch.Tensor, lam: float, order2: int, order3: int,
               chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(R, 174) LLRs -> (plain (R, 174) int32, ok (R,) bool).
+    """(R, 174) LLRs on the CPU -> (plain (R, 174) int32, ok (R,) bool):
+    the plain route.
 
-    Reliability sort -> reduced bases (one kernel launch for all R rows)
-    -> the search, in passes of ``chunk`` rows (the body is
-    row-independent).  The sort is stable: tied |LLR| (zero LLRs are
-    common) keep their natural order, as ``lax.sort`` does.
+    Reliability sort -> reduced bases (all R rows at once) -> the search,
+    in passes of ``chunk`` rows (the body is row-independent).  The sort is
+    stable: tied |LLR| (zero LLRs are common) keep their natural order, as
+    ``lax.sort`` does.
     """
     if flat.shape[0] == 0:
-        return (torch.zeros(flat.shape, dtype=torch.int32,
-                            device=flat.device),
-                torch.zeros(flat.shape[:1], dtype=torch.bool,
-                            device=flat.device))
+        return _none(flat)
     order = torch.sort(-flat.abs(), dim=-1, stable=True).indices
     llr_sorted = torch.gather(flat, 1, order)
     red, pcol = reduce_basis_from_order(order, osd_tables(flat.device))
@@ -298,8 +309,12 @@ def osd_decode_batch(llrs: torch.Tensor, lam: float = DEFAULT_LAMBDA,
     triples).
     """
     order3 = _check_orders(order2, order3)
-    plain, ok = _osd_rows(llrs.reshape(-1, _N), lam, order2, order3,
-                          DEFAULT_CHUNK)
+    flat = llrs.reshape(-1, _N)
+    if flat.device.type == "cuda":
+        plain, ok = osd_kernel(flat, None, osd_tables(flat.device), lam,
+                               order2, order3)
+    else:
+        plain, ok = _osd_rows(flat, lam, order2, order3, DEFAULT_CHUNK)
     return plain.reshape(llrs.shape), ok.reshape(llrs.shape[:-1])
 
 
@@ -314,22 +329,32 @@ def osd_decode_masked(llrs: torch.Tensor, need: torch.Tensor,
 
     (..., 174) LLRs + (...,) bool -> (plain (..., 174) int32, ok (...,)
     bool).  Needed rows get exactly :func:`osd_decode_batch`'s result;
-    the others return (zeros, False) and cost nothing: the needed rows are
-    compacted by a boolean index, their bases reduced in one kernel launch,
-    searched in passes of ``chunk`` rows, and scattered back.  Runs in a
+    the others return (zeros, False).  On a card the host reads the needed
+    count once (``ft8.osd.wait``) and, if any, launches the kernel once over
+    all rows (an unneeded row costs a warp that writes zeros); on the CPU
+    the needed rows are compacted by a boolean index, run through the plain
+    route in passes of ``chunk`` rows, and scattered back.  Runs in a
     ``ft8.osd`` span; counts the rows searched (``osd.rows``) and, while a
     profiler records, the rows accepted (``osd.accepted``, on the card).
     """
     order3 = _check_orders(order2, order3)
     flat = llrs.reshape(-1, _N)
     needf = need.reshape(-1)
-    plain = torch.zeros(flat.shape, dtype=torch.int32, device=llrs.device)
-    ok = torch.zeros(needf.shape, dtype=torch.bool, device=llrs.device)
-    with host_wait("ft8.osd.wait"):
-        idx = needf.nonzero()[:, 0]
-    count("osd.rows", idx.numel())
-    if idx.numel():
-        plain[idx], ok[idx] = _osd_rows(flat[idx], lam, order2, order3,
-                                        chunk)
+    if flat.device.type == "cuda":
+        check_kernel_orders(order2, order3)
+        with host_wait("ft8.osd.wait"):
+            rows = int(needf.sum())
+        plain, ok = osd_kernel(flat, needf, osd_tables(flat.device), lam,
+                               order2, order3) if rows else _none(flat)
+    else:
+        with host_wait("ft8.osd.wait"):
+            idx = needf.nonzero()[:, 0]
+        rows = idx.numel()
+        plain, ok = _none(flat)
+        if rows:
+            plain[idx], ok[idx] = _osd_rows(flat[idx], lam, order2, order3,
+                                            chunk)
+    count("osd.rows", rows)
+    if rows:
         count_on_card("osd.accepted", ok)
     return plain.reshape(llrs.shape), ok.reshape(need.shape)

@@ -1,17 +1,26 @@
-"""Reduced OSD bases from the reliability order, on the card.
+"""OSD on the card: the whole search, or the reduced bases alone.
 
-Counterpart of the TPU kernel in ``ft8_demodulator_tpu/ops/osd.py:212``
-(``_reduce_basis_pallas_batch``, :189) and of the permute-pack that feeds
-it (``_permute_pack``, :90).  The CUDA kernel ``csrc/osd_eliminate.cu``
-builds each candidate's reliability-permuted basis from its sort order and
-the natural basis in shared memory, then row-reduces it over GF(2), one
-warp per candidate with the 91 rows in registers (three per lane); its
-header note has the design.
+Counterpart of the TPU kernel in ``ft8_demodulator_tpu/ops/osd.py:276``
+(the ``pallas_call`` of ``_reduce_basis_pallas_batch``, :189), of the
+permute-pack that feeds it (``_permute_pack``, :90) and of the search
+around it (``_osd_tail``, :313).  The CUDA source ``csrc/osd_eliminate.cu``
+(K4) has two entries, one warp per row; its header note has the design:
 
-What bounds it on the card: the chain of ~100 dependent pivot steps per
-candidate (1.4 KB of order in, 2.5 KB out), so the kernel wants many
-candidates in flight; ``ops/osd.py`` hands it all of an OSD call's rows in
-one launch (7,260 in a DEEP batch).
+* :func:`osd_kernel`: LLRs and a need mask in, each needed row's OSD
+  codeword and accept flag out, in one launch: the stable reliability sort,
+  the permuted basis and its GF(2) elimination, the order-0/1/2/3 search
+  with its CRC and gate, the winner in natural bit order.  ``ops/osd.py``
+  runs it for every OSD call on a CUDA tensor; its plain version is the
+  CPU route there (``_osd_rows``).
+* :func:`reduce_basis_from_order`: reliability orders in, reduced bases and
+  pivot columns out (the elimination alone).  Its plain version,
+  :func:`reduce_basis_from_order_plain`, is the CPU route's elimination.
+
+What bounds both on the card: each row's chain of dependent steps on one
+warp (the elimination's ~100 pivot steps; in the fused kernel also the
+ranking and the search's sums), so the kernels want many rows in flight;
+``ops/osd.py`` hands the fused kernel all of an OSD call's rows in one
+launch.
 
 A basis is (91, 6) 32-bit words, held here as int32 (the kernel reads the
 same bits as uint32): bit j of row k is bit j % 32 of word j // 32; code
@@ -19,11 +28,8 @@ columns 0..173 come in the candidate's reliability order and bits
 174..187 carry each row's CRC syndrome.  :func:`_permute_pack` builds it
 from the order; :func:`reduce_basis_batch_plain` is the elimination's
 arithmetic (the JAX package's ``_reduce_basis_packed``, batched over
-candidates); :func:`reduce_basis_from_order_plain`, the two composed, is
-the kernel's plain version, and the kernel equals it bit for bit.
-:func:`reduce_basis_from_order` takes the plain version for a CPU tensor;
-for a CUDA tensor it launches the kernel or raises, and counts the launch
-in the counter ``k4.launches`` (``utils/profiling.py``).
+candidates).  Both entries count their launches in ``k4.launches``
+(``utils/profiling.py``); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -36,14 +42,16 @@ import torch
 from ..protocol import constants as C
 from ..utils.profiling import count
 
-__all__ = ["reduce_basis_from_order", "reduce_basis_from_order_plain",
-           "reduce_basis_batch_plain"]
+__all__ = ["osd_kernel", "check_kernel_orders", "reduce_basis_from_order",
+           "reduce_basis_from_order_plain", "reduce_basis_batch_plain",
+           "MAX_ORDER2"]
 
 _N, _K = C.LDPC_N, C.LDPC_K
 _W = (_N + 31) // 32          # 6 words per 174-bit row (+ syndrome bits)
 _GROUPS = (_K + 31) // 32     # 32-bit words of a column's row bits
 TABLE_WORDS = _GROUPS * _N + _K
 _MAX_ROWS = 2 ** 31 - 1       # the C entry takes the count as an int
+MAX_ORDER2 = 32               # the fused search's limit (one row a lane)
 
 
 def _word_weights(device) -> torch.Tensor:
@@ -121,12 +129,17 @@ def _library():
     lib.ft8_osd_reduce.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_void_p]
     lib.ft8_osd_reduce.restype = ctypes.c_int
-    lib.ft8_osd_table_words.argtypes = []
-    lib.ft8_osd_table_words.restype = ctypes.c_int
-    if lib.ft8_osd_table_words() != TABLE_WORDS:
-        raise RuntimeError(f"the kernel's table has "
-                           f"{lib.ft8_osd_table_words()} words, the "
-                           f"wrapper's {TABLE_WORDS}")
+    lib.ft8_osd_decode.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.ft8_osd_decode.restype = ctypes.c_int
+    for name, want in (("ft8_osd_table_words", TABLE_WORDS),
+                       ("ft8_osd_max_order2", MAX_ORDER2)):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        if fn() != want:
+            raise RuntimeError(f"{name}: the kernel's {fn()}, the "
+                               f"wrapper's {want}")
     lib.ft8_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ft8_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -176,3 +189,57 @@ def reduce_basis_from_order(order: torch.Tensor, tables
                            + lib.ft8_cuda_error_string(err).decode())
     count("k4.launches")
     return out, pcol
+
+
+def check_kernel_orders(order2: int, order3: int) -> None:
+    """Raise ValueError where the fused search's compile-time limits do not
+    take (order2, order3)."""
+    if not 0 <= order3 <= order2 <= MAX_ORDER2:
+        raise ValueError(f"the card's OSD search takes 0 <= order3 <= order2"
+                         f" <= {MAX_ORDER2}, got order2 {order2}, order3 "
+                         f"{order3}")
+
+
+def osd_kernel(llr: torch.Tensor, need: torch.Tensor | None, tables,
+               lam: float, order2: int, order3: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(R, 174) float32 LLRs on a card and their (R,) bool need mask (None:
+    every row) -> (plain (R, 174) int32, ok (R,) bool), one launch: each
+    needed row's OSD as ``ops/osd.py``'s CPU route decides it (order3 < 3
+    searches no triples), the others (zeros, False).  ``tables``: the
+    ``ops.osd.OSDTables`` of the card.  Counts the launch in
+    ``k4.launches``; raises for what the kernel does not take.
+    """
+    check_kernel_orders(order2, order3)
+    rows = llr.shape[0]
+    if llr.dim() != 2 or llr.shape[1] != _N or llr.dtype != torch.float32 \
+            or llr.device.type != "cuda" or rows > _MAX_ROWS:
+        raise ValueError(f"llr must be (R <= {_MAX_ROWS}, {_N}) float32 on a"
+                         f" card, got {tuple(llr.shape)} {llr.dtype} on "
+                         f"{llr.device}")
+    if need is not None and (need.shape != (rows,) or need.dtype != torch.bool
+                             or need.device != llr.device):
+        raise ValueError(f"need must be ({rows},) bool on {llr.device}, got "
+                         f"{tuple(need.shape)} {need.dtype} on {need.device}")
+    table = tables.basis_cols
+    if table.device != llr.device:
+        raise ValueError(f"table on {table.device}, LLRs on {llr.device}")
+    plain = torch.empty((rows, _N), dtype=torch.int32, device=llr.device)
+    ok = torch.empty((rows,), dtype=torch.bool, device=llr.device)
+    if rows == 0:
+        return plain, ok
+    lib = _library()
+    llr = llr.contiguous()
+    if need is not None:
+        need = need.contiguous()
+    need_ptr = None if need is None else need.data_ptr()
+    with torch.cuda.device(llr.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ft8_osd_decode(llr.data_ptr(), need_ptr, table.data_ptr(),
+                                 plain.data_ptr(), ok.data_ptr(), rows, lam,
+                                 order2, order3, stream)
+    if err != 0:
+        raise RuntimeError("osd_decode launch failed: "
+                           + lib.ft8_cuda_error_string(err).decode())
+    count("k4.launches")
+    return plain, ok

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions: the fused
-waterfall (dB only and dual output), the OSD kernel (reliability order ->
-reduced bases), the sync stencil (time-major and frequency-major, the
+waterfall (dB only and dual output), the OSD kernel (K4: the whole search
+from LLRs and a need mask against the CPU route and its numpy model, and
+its elimination entry from reliability orders), the sync stencil (time-major and frequency-major, the
 generic instance's shrunk tiles included) and BP + CRC (K7; the slot
 decodes and the host API through K7 or through the plain loop on the card
 give equal results), the LLRs (K8 at the batch cells' and the station's
@@ -287,6 +288,152 @@ def test_one_osd_launch_per_masked_call(cuda, rows, chunk):
                                                  chunk=chunk)
     assert torch.equal(plain.cpu(), want_plain)
     assert torch.equal(ok.cpu(), want_ok)
+
+
+def _cliff_llrs(rows, seed, scale=1.7):
+    """LLRs of random codewords at the BP cliff: many rows OSD accepts."""
+    rng = np.random.default_rng(seed)
+    payloads = rng.integers(0, 256, (rows, 10), dtype=np.uint8)
+    payloads[:, 9] &= 0xF8
+    cw = _cw_bits(payloads)
+    return ((2 * cw - 1) * 2.0 + scale * rng.standard_normal(cw.shape)) \
+        .astype(np.float32)
+
+
+def _osd_card_vs_cpu(llr, need, cuda, **kw):
+    """osd_decode_masked on the card (one K4 launch) against the CPU route:
+    plain and ok equal on every row but those where an admissible distance
+    lies within 1e-5 relative of the smallest, or a valid candidate's
+    distance within 1e-5 of the gate, by a gap that is not zero (counted
+    and printed; their float32 sums run in another order).  Bit-equal
+    distances exempt nothing: the first index decides on both routes.
+    Returns (card plain, card ok, numpy model's search)."""
+    import _torch_k4_model as k4
+
+    flat = llr.reshape(-1, 174)
+    before = counters().get("k4.launches", 0)
+    plain, ok = tosd.osd_decode_masked(torch.as_tensor(llr, device=cuda),
+                                       torch.as_tensor(need, device=cuda),
+                                       **kw)
+    torch.cuda.synchronize()
+    assert counters().get("k4.launches", 0) == before + bool(need.any())
+    assert plain.shape == llr.shape and ok.shape == need.shape
+    want_plain, want_ok = tosd.osd_decode_masked(torch.as_tensor(llr),
+                                                 torch.as_tensor(need), **kw)
+    plain = plain.cpu().reshape(-1, 174)
+    ok = ok.cpu().reshape(-1)
+    needf = need.reshape(-1)
+    model = k4.decode(flat[needf], **{k: v for k, v in kw.items()
+                                      if k != "chunk"})
+    differ = np.zeros(needf.shape, bool)
+    differ[:] = ((plain != want_plain.reshape(-1, 174)).any(-1)
+                 | (ok != want_ok.reshape(-1))).numpy()
+    near = np.zeros(needf.shape, bool)
+    near[needf] = k4.near_ties(model)
+    print(f"K4 vs CPU route: {int(needf.sum())} needed rows, "
+          f"{int(differ.sum())} differ, {int(near.sum())} near ties "
+          f"exempt, {int((differ & near).sum())} of them differ")
+    assert not (differ & ~near).any()
+    assert not ok[~torch.as_tensor(needf)].any()
+    assert (plain[~torch.as_tensor(needf)] == 0).all()
+    return plain, ok, model
+
+
+@pytest.mark.parametrize("order2,order3", [(16, 0), (0, 0), (16, 3),
+                                           (32, 5)])
+def test_k4_osd_matches_cpu_route_on_cliff_llrs(cuda, order2, order3):
+    """K4 against the CPU route at the BP cliff, and against its numpy
+    model bit for bit (the model runs the kernel's float32 sums in its
+    order)."""
+    llr = _cliff_llrs(600, order2 + order3)
+    need = np.ones(600, bool)
+    plain, ok, model = _osd_card_vs_cpu(llr, need, cuda, order2=order2,
+                                        order3=order3)
+    assert int(ok.sum()) >= 100
+    assert torch.equal(plain, torch.as_tensor(model.plain))
+    assert torch.equal(ok, torch.as_tensor(model.ok))
+
+
+def test_k4_osd_ties_and_zeros(cuda):
+    """Tied magnitudes (LLRs on a grid of halves), exact zeros of both
+    signs, a few rows with NaNs: the stable sort's order decides the basis,
+    so the codewords must agree bit for bit."""
+    rng = np.random.default_rng(23)
+    llr = np.round(_cliff_llrs(400, 5, scale=1.4) * 2) / 2
+    llr[rng.random(llr.shape) < 0.1] = 0.0
+    llr[rng.random(llr.shape) < 0.05] = -0.0
+    llr[:4, rng.choice(174, 6, replace=False)] = np.nan
+    llr = llr.astype(np.float32)
+    plain, ok, model = _osd_card_vs_cpu(llr, np.ones(400, bool), cuda)
+    assert int(ok.sum()) >= 50
+    assert torch.equal(plain, torch.as_tensor(model.plain))
+    assert torch.equal(ok, torch.as_tensor(model.ok))
+
+
+def test_k4_osd_rejects_noise_with_the_order0_codeword(cuda):
+    rng = np.random.default_rng(29)
+    llr = (3.0 * rng.standard_normal((300, 174))).astype(np.float32)
+    plain, ok, _ = _osd_card_vs_cpu(llr, np.ones(300, bool), cuda)
+    assert not ok.any()
+    want, _ = tosd.osd_decode_batch(torch.as_tensor(llr))
+    assert torch.equal(plain, want)
+
+
+@pytest.mark.parametrize("shape", [(0,), (1,), (13,), (73, 100)])
+def test_k4_osd_masked_rows_and_shapes(cuda, shape):
+    """Unneeded rows come back (zeros, False), leading (slots, K) shapes
+    keep their form, one launch a call over any number of rows (none when
+    nothing is needed), and osd.rows counts the needed rows."""
+    rows = int(np.prod(shape))
+    rng = np.random.default_rng(rows)
+    llr = _cliff_llrs(rows, rows + 1).reshape(*shape, 174)
+    need = rng.random(shape) < 0.4
+    if rows == 1:
+        need[...] = True
+    before = counters().get("osd.rows", 0)
+    _osd_card_vs_cpu(llr, need, cuda)
+    # the card and the CPU route each count their needed rows
+    assert counters().get("osd.rows", 0) == before + 2 * int(need.sum())
+    full, full_ok = tosd.osd_decode_batch(torch.as_tensor(llr, device=cuda))
+    assert full.shape == llr.shape and full_ok.shape == need.shape
+
+
+def test_k4_osd_refuses_orders_beyond_its_limits(cuda):
+    llr = torch.zeros((2, 174), device=cuda)
+    need = torch.ones(2, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="order2"):
+        tosd.osd_decode_masked(llr, need, order2=33)
+    with pytest.raises(ValueError, match="order2"):
+        tosd.osd_decode_batch(llr, order2=33)
+    with pytest.raises(ValueError, match="order2"):
+        tosd.osd_decode_masked(llr, ~need, order2=33)
+
+
+def test_k4_osd_call_launches_three_kernels_at_most(cuda):
+    """While a profiler records, one osd_decode_masked call runs the need
+    count, K4 and osd.accepted's count on the card, and nothing else."""
+    llr = torch.as_tensor(_cliff_llrs(256, 31), device=cuda)
+    need = torch.as_tensor(np.random.default_rng(31).random(256) < 0.5,
+                           device=cuda)
+    tosd.osd_decode_masked(llr, need)               # warm
+    torch.cuda.synchronize()
+    reset_counters()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        tosd.osd_decode_masked(llr, need)
+        torch.cuda.synchronize()
+    events = prof.events()
+    ranges = {e.name for e in events
+              if e.device_type == torch.autograd.DeviceType.CPU}
+    # the card's events less copies and the ranges' device annotations
+    kernels = [e.name for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in ranges
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    assert 2 <= len(kernels) <= 3, kernels
+    assert sum("osd_decode_kernel" in k for k in kernels) == 1, kernels
+    assert counters(traced=True).get("k4.launches") == 1
 
 
 def test_launch_counter(cuda):

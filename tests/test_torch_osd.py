@@ -80,6 +80,18 @@ def test_permuted_pack_equals_jax_matmul_pack(rng):
     np.testing.assert_array_equal(got, want)
 
 
+def test_k4_counting_rank_equals_jax_sort_ranks(rng):
+    """The card kernel's reliability rank (tests/_torch_k4_model.py: |LLR|
+    keys counted, ties by natural index) is the JAX package's stable
+    lax.sort rank, zeros of both signs included."""
+    import _torch_k4_model as k4
+
+    llr = _tied_llrs(rng, 24)
+    llr[:, rng.choice(174, 12, replace=False)] = -0.0
+    _, ranks = _jax_order_ranks(llr)
+    np.testing.assert_array_equal(k4.ranks(llr), np.asarray(ranks))
+
+
 def test_plain_elimination_equals_jax_and_pallas_interpret(rng):
     """The kernel's plain version (reliability order in: the permute-pack,
     then the elimination) equals the JAX elimination and the Pallas kernel
