@@ -21,8 +21,26 @@ blocks, and can snapshot its full state to disk and resume later.
   order, later.  The decode synchronises inside anyway (BP tests after
   every iteration whether all rows halted, and the OSD counts the rows it
   needs), so only the final copy is deferred.
+* A row is a duplicate when its (payload, slot) key, the slot index of
+  its start time rounded, was delivered before, as in the JAX package, or
+  when the same payload was delivered less than ``dedup_window_s``
+  (default half a slot, 7.5 s; 0 keeps the slot key alone) from it.  One transmission found at neighbouring start times, or by two blocks
+  at their edge, lies a few hops from itself, and a message repeated by a
+  station comes a T/R period (15 s) later at the earliest; the slot key
+  alone delivers such a transmission twice when its start times round to
+  two slots, as a stream that is not aligned to the UTC slots makes
+  happen.  The delivery times and the window are not part of a
+  checkpoint: a resumed session has the slot keys alone for the rows
+  delivered before it, and the default window.
 * Checkpoints keep the JAX package's npz keys and dtypes, so a checkpoint
   written by either package loads in the other.
+* Spans (``utils/profiling.py``): ``ft8.buffer`` (each feed's append, and
+  each block's slice, pad and upload), ``ft8.waterfall``, ``ft8.rows``
+  (delivery) and ``ft8.rows.wait`` (the block result's read-back, one wait
+  a block); host counters ``stream.blocks``, ``stream.rows`` (success rows
+  read back), ``stream.weak`` (dropped under -26 dB) and
+  ``stream.duplicates`` (dropped by dedup), counted on every block and
+  delivery, 0 included.
 """
 
 from __future__ import annotations
@@ -36,6 +54,7 @@ from ..ops.waterfall import WaterfallParams, waterfall_real
 from ..protocol import constants as C
 from ..protocol.message import CallsignHashTable, unpack_message
 from ..utils.device import entry_device
+from ..utils.profiling import count, host_wait, span
 from .decode import (coherent_retry, decode_waterfall, decode_waterfall_mf,
                      estimate_snr, mf_retry)
 from .types import FT8Decode, FT8DecodeStatus, FT8Message
@@ -55,7 +74,8 @@ def _decode_block_packed(chunk: torch.Tensor, p: WaterfallParams,
                          num_frames: int, valid_frames: int) -> torch.Tensor:
     """One streaming block: audio -> packed (K, 18) float32 results on the
     device of ``chunk``."""
-    mag = waterfall_real(chunk, p, num_frames)
+    with span("ft8.waterfall"):
+        mag = waterfall_real(chunk, p, num_frames)
     if cfg.mf_first:
         res = decode_waterfall_mf(mag, chunk, p, g, 0, 0,
                                   cfg.max_candidates, cfg.min_score,
@@ -86,7 +106,8 @@ class StreamSession:
     def __init__(self, fs: float, config: DecoderConfig = STANDARD,
                  block_seconds: float = float(C.SLOT_PERIOD_S),
                  pipeline_depth: int = 0,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 dedup_window_s: float = C.SLOT_PERIOD_S / 2):
         self.device = entry_device(device)
         self.fs = float(fs)
         self.config = config
@@ -101,6 +122,9 @@ class StreamSession:
         self._buffer = np.zeros(0, np.float32)
         self._offset_samples = 0      # absolute sample index of buffer[0]
         self._seen: set[tuple[bytes, int]] = set()
+        # each delivered payload's latest start (absolute frames)
+        self._delivered_at: dict[bytes, int] = {}
+        self.dedup_window_s = float(dedup_window_s)
         # decoded-but-uncopied block results: (device tensor, frame_offset)
         self._pending: list[tuple[torch.Tensor, int]] = []
         # copied success rows not yet formatted/delivered:
@@ -127,9 +151,12 @@ class StreamSession:
         """
         chunk = np.asarray(samples, np.float32)
         if chunk.size:
-            self._buffer = np.concatenate([self._buffer, chunk])
+            with span("ft8.buffer"):
+                self._buffer = np.concatenate([self._buffer, chunk])
         while len(self._buffer) >= self.block_len + self.lookahead:
             self._dispatch_block()
+        if not (self._pending or self._undelivered):
+            return []       # most feeds: no block, nothing to deliver
         self._fetch_pending(keep=self.pipeline_depth)
         return self._deliver()
 
@@ -160,7 +187,8 @@ class StreamSession:
         """Decode the next block; its uncopied device result queues on
         self._pending."""
         take = min(len(self._buffer), self.block_len + self.lookahead)
-        chunk_d = self._device_chunk(take)
+        with span("ft8.buffer"):
+            chunk_d = self._device_chunk(take)
         num_frames = self._num_frames
         block_frames = self.block_len // self.p.hop
         # the very first block scans the slot decoder's 10-symbol pre-roll
@@ -178,8 +206,10 @@ class StreamSession:
         packed = _decode_block_packed(chunk_d, self.p, g, self.config,
                                       num_frames, self.p.num_frames(take))
         self._pending.append((packed, self._offset_samples // self.p.hop))
+        count("stream.blocks")
         consumed = take if final else self.block_len
-        self._buffer = self._buffer[consumed:]
+        with span("ft8.buffer"):
+            self._buffer = self._buffer[consumed:]
         self._offset_samples += consumed
 
     def _fetch_pending(self, keep: int) -> None:
@@ -187,18 +217,26 @@ class StreamSession:
         still pending; success rows queue for delivery."""
         while len(self._pending) > keep:
             packed_d, frame_offset = self._pending.pop(0)
-            packed = packed_d.cpu().numpy()
-            for row in packed[packed[:, _COL_SUCCESS] > 0]:
+            with host_wait("ft8.rows.wait"):
+                packed = packed_d.cpu().numpy()
+            rows = packed[packed[:, _COL_SUCCESS] > 0]
+            count("stream.rows", len(rows))
+            for row in rows:
                 self._undelivered.append((row, frame_offset))
 
+    @span("ft8.rows")
     def _deliver(self) -> list[FT8Decode]:
         """Format + dedup all copied-but-undelivered rows."""
         out: list[FT8Decode] = []
         hop_seconds = C.SYMBOL_PERIOD_S / self.p.time_osr
         freq_step = C.TONE_SPACING_HZ / self.p.freq_osr
+        # frames within the window of a delivery: the same transmission
+        near = self.dedup_window_s / hop_seconds
+        weak = duplicates = 0
         for row, frame_offset in self._undelivered:
             snr = float(row[_COL_SNR])
             if snr < -26.0:
+                weak += 1
                 continue    # implausibly weak: CRC-lucky false accept
             t_abs = int(row[_COL_TIME]) + frame_offset
             payload = bytes(int(v) for v in
@@ -207,9 +245,13 @@ class StreamSession:
             # payload-keyed dedup: CRC-14 collisions must not drop messages
             key = (payload,
                    int(round(t_abs * hop_seconds / C.SLOT_PERIOD_S)))
-            if key in self._seen:
+            last = self._delivered_at.get(payload)
+            if key in self._seen or (last is not None
+                                     and abs(t_abs - last) < near):
+                duplicates += 1
                 continue
             self._seen.add(key)
+            self._delivered_at[payload] = t_abs
             h = int(row[_COL_CRC])
             out.append(FT8Decode(
                 message=FT8Message(payload=payload, hash=h),
@@ -225,6 +267,8 @@ class StreamSession:
                 snr_db=round(min(max(snr, -30.0), 30.0), 1),
             ))
         self._undelivered.clear()
+        count("stream.weak", weak)
+        count("stream.duplicates", duplicates)
         return out
 
     # -- checkpoint / resume ---------------------------------------------------

@@ -259,3 +259,106 @@ def test_no_upload_of_the_hypotheses_on_a_second_call(monkeypatch):
     assert again[0] is values and again[1] is mask
     (v, m), (nv, nm) = tdec._ap_tables(("K1ABC", "W9XYZ"), torch.device("cpu"))
     assert v is values and torch.equal(nv[1:], v) and not nm[0].any()
+
+
+# the stream: StreamSession with the benchmark's ``stream`` configuration
+# on 30 s of 2-kHz audio, one full block and the flushed rest
+def _stream_config():
+    from ft8_demodulator_tpu_torch.config import DecoderConfig
+
+    return DecoderConfig(bins_per_tone=4, steps_per_symbol=4,
+                         max_candidates=40, min_score=1.0, use_osd=True,
+                         use_mf=True, mf_refine=True, coherent=True)
+
+
+def _stream_audio() -> np.ndarray:
+    rng = np.random.default_rng(5)
+    audio = rng.standard_normal(int(FS * 30)).astype(np.float32)
+    payloads = rng.integers(0, 256, size=(2, 10), dtype=np.uint8)
+    payloads[:, 9] &= 0xF8
+    for p, t, f in zip(payloads, (9.0, 17.0), (400.0, 700.0)):
+        sig = ft8_passband(p, FS, f, 0.0, device="cpu").numpy()
+        audio[int(t * FS): int(t * FS) + len(sig)] += 0.5 * sig
+    return audio
+
+
+def _stream_rows(audio):
+    from ft8_demodulator_tpu_torch.demod.stream_session import StreamSession
+
+    sess = StreamSession(FS, _stream_config(), device="cpu")
+    rows = []
+    for piece in np.array_split(audio, 7):
+        rows.extend(sess.feed(piece))
+    return [(r.message.payload, r.time_sec, r.freq_hz, r.score, r.snr_db)
+            for r in rows + sess.flush()]
+
+
+@pytest.fixture(scope="module")
+def stream_traced():
+    """The stream's rows, profiler events and traced counters, and the
+    reference's rows and counts of the same stream."""
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from port_bench.reference import decode as rdec
+    from port_bench.reference import stream as rstream
+
+    audio = _stream_audio()
+    profiling.reset_counters()
+    with _profile() as prof:
+        rows = _stream_rows(audio)
+    traced = profiling.counters(traced=True)
+    profiling.reset_counters()
+    cfg = dict(bins_per_tone=4, steps_per_symbol=4, max_candidates=40,
+               min_score=1.0, max_iterations=20, use_osd=True, use_mf=True,
+               mf_refine=True, coherent=True,
+               stream={"dedup_window_s": 7.5})
+    with rdec.exact_float32():
+        blocks, delivery = rstream.decode_stream(
+            lambda lo, hi: audio[lo:hi], len(audio), FS, cfg, "cpu",
+            block_seconds=15.0)
+    ref = [(r.payload, r.time_s, r.freq_hz, r.score, r.snr_db)
+           for b in blocks for r in b]
+    names = [e.name for e in prof.events() if e.name.startswith("ft8.")]
+    return audio, rows, names, traced, ref, delivery.counts
+
+
+def test_stream_spans_waits_and_counters(stream_traced):
+    """Under a profiler the session's buffer, waterfall and delivery spans
+    appear, one read-back wait a block, and the stream counters equal the
+    reference's block, row, weak and duplicate counts."""
+    _, rows, names, traced, ref, counts = stream_traced
+    assert {"ft8.buffer", "ft8.waterfall", "ft8.rows",
+            "ft8.rows.wait"} <= set(names)
+    assert counts["blocks"] == 2 and counts["duplicates"] > 0
+    assert names.count("ft8.rows.wait") == counts["blocks"]
+    assert names.count("ft8.waterfall") == counts["blocks"]
+    assert {k: traced[f"stream.{k}"] for k in counts} == counts
+    assert [r[:3] for r in rows] == [r[:3] for r in ref]
+
+
+def test_stream_read_back_is_one_wait_a_block(stream_traced, monkeypatch):
+    """With no profiler recording: no range is entered and nothing is
+    counted on the card, the rows are the traced run's, and the read-back
+    adds one ``waits`` a block (the count without its wait is less by the
+    blocks)."""
+    from ft8_demodulator_tpu_torch.demod import stream_session
+
+    audio, rows, _, _, _, counts = stream_traced
+
+    def entered(self):
+        raise AssertionError(f"range {self.name} entered with no profiler")
+
+    monkeypatch.setattr(record_function, "__enter__", entered)
+    assert _stream_rows(audio) == rows
+    assert profiling.counters(traced=True) == {} and not profiling._ON_CARD
+    waits = profiling.counters()["waits"]
+    assert profiling.counters()["stream.blocks"] == counts["blocks"]
+    profiling.reset_counters()
+    monkeypatch.setattr(stream_session, "host_wait",
+                        lambda name, n=1: profiling.span(name))
+    assert _stream_rows(audio) == rows
+    assert waits - profiling.counters()["waits"] == counts["blocks"]
