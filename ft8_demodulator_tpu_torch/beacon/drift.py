@@ -13,17 +13,23 @@ corrector:
   4. degree-2 fit over the three sync windows; phase-integral compensation
      exp(-j 2 pi (k t^2/2 + a t^3/3)).
 
-The waterfalls and the rotations run on the device; the tracks, fits and
-correlations are host numpy, copied from the JAX module.  The corrector is
-range ``ft8.drift``, host work included, its copies between host and card
-``ft8.drift.wait``.  Counters:
-``drift.cycles`` (calls) and ``drift.locked`` (calls that found a
-continuous segment).  The rotation's cycle count is float64 on the host,
-reduced mod 1 before the float32 rotate.
+The waterfalls and the rotations run on the device
+(:func:`correct_drift_tensor`, complex64 in and out); the two argmax tracks
+are read back, and the fits and correlations are host numpy, copied from
+the JAX module.  :func:`correct_frequency_drift` wraps that core with one
+upload and one read-back; ``BeaconSession`` uploads the real cycle and
+forms its analytic signal on the device (:func:`analytic_signal`).  The
+corrector is range ``ft8.drift``, host work included, its copies between
+host and card ``ft8.drift.wait``.  Counters: ``drift.cycles`` (calls),
+``drift.locked`` (calls that found a continuous segment) and
+``drift.copy_bytes`` (the bytes of those copies).  The rotation's cycle
+count is float64 on the device, each operation numpy's, reduced mod 1
+before the float32 rotate.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 
 import numpy as np
@@ -107,6 +113,64 @@ def detect_signal_continuity(max_freq_indices: np.ndarray,
 # device ops
 # ---------------------------------------------------------------------------
 
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device``: one of the corrector's copies."""
+    with host_wait("ft8.drift.wait"):
+        x = torch.as_tensor(a, device=device)
+    count("drift.copy_bytes", a.nbytes)
+    return x
+
+
+def to_host(x: torch.Tensor) -> np.ndarray:
+    """Tensor -> host array: one of the corrector's copies."""
+    with host_wait("ft8.drift.wait"):
+        a = x.cpu().numpy()
+    count("drift.copy_bytes", a.nbytes)
+    return a
+
+
+@functools.lru_cache(maxsize=4)
+def _hilbert_weights(n: int, device: torch.device) -> torch.Tensor:
+    """scipy.signal.hilbert's spectrum weights: 1 at DC (and Nyquist for
+    even n), 2 on the positive bins, 0 on the negative ones."""
+    h = torch.zeros(n, dtype=torch.float64, device=device)
+    h[0] = 1.0
+    h[1:(n + 1) // 2] = 2.0
+    if n % 2 == 0:
+        h[n // 2] = 1.0
+    return h
+
+
+def analytic_signal(x: torch.Tensor) -> torch.Tensor:
+    """Real (n,) -> its analytic signal, complex128 on ``x``'s device:
+    ``scipy.signal.hilbert``'s algorithm (the float64 FFT, the negative
+    frequencies zeroed and the positive ones doubled, the inverse FFT)."""
+    spec = torch.fft.fft(x.to(torch.float64))
+    return torch.fft.ifft(spec * _hilbert_weights(x.shape[-1], x.device))
+
+
+@functools.lru_cache(maxsize=4)
+def _time_axis(n: int, fs: float, device: torch.device):
+    """(t, 2, 3): t = arange(n) / fs in float64 on ``device``, and the
+    phase's divisors as float64 device scalars.  On the card a division
+    by a host number is a product with its reciprocal, which is not
+    numpy's division; by a device scalar it is the division."""
+    f64 = functools.partial(torch.tensor, dtype=torch.float64, device=device)
+    t = torch.arange(n, dtype=torch.float64, device=device) / f64(fs)
+    return t, f64(2.0), f64(3.0)
+
+
+def _phase_cycles(n: int, rate_hz_per_s: float, acc_hz_per_s2: float,
+                  fs: float, device: torch.device) -> torch.Tensor:
+    """The drift's float64 cycle count k t^2/2 + a t^3/3 reduced mod 1,
+    float32 on ``device``: numpy's separate operations in numpy's order,
+    so equal to the host formula bit for bit."""
+    t, two, three = _time_axis(n, float(fs), device)
+    phase = (float(rate_hz_per_s) * t * t / two
+             + float(acc_hz_per_s2) * t * t * t / three)
+    return (phase - torch.floor(phase)).to(torch.float32)
+
+
 def _apply_phase_cycles(wave: torch.Tensor, cyc: torch.Tensor
                         ) -> torch.Tensor:
     """Complex64 samples times exp(-j 2 pi cyc)."""
@@ -124,7 +188,7 @@ def apply_polynomial_drift(wave_ri, rate_hz_per_s: float,
     ``wave_ri``: (n, 2) [re, im] (returned so, float32) or complex
     (returned complex64), numpy or a tensor.  The cumulative phase reaches
     ~1e6 cycles on long, fast captures, where float32 loses a sizeable
-    fraction of a cycle: the cycle count is float64 on the host, reduced
+    fraction of a cycle: the cycle count is float64 on the device, reduced
     mod 1 before the float32 rotate.
     """
     device = entry_device(device)
@@ -132,13 +196,8 @@ def apply_polynomial_drift(wave_ri, rate_hz_per_s: float,
     as_pair = not x.is_complex()
     z = torch.view_as_complex(x.to(torch.float32).contiguous()) if as_pair \
         else x.to(torch.complex64)
-    n = z.shape[-1]
-    t = np.arange(n, dtype=np.float64) / float(fs)
-    phase = (float(rate_hz_per_s) * t * t / 2.0
-             + float(acc_hz_per_s2) * t * t * t / 3.0)
-    with host_wait("ft8.drift.wait"):
-        cyc = torch.as_tensor((phase - np.floor(phase)).astype(np.float32),
-                              device=device)
+    cyc = _phase_cycles(z.shape[-1], rate_hz_per_s, acc_hz_per_s2, fs,
+                        z.device)
     out = _apply_phase_cycles(z, cyc)
     return torch.view_as_real(out) if as_pair else out
 
@@ -151,9 +210,7 @@ def _argmax_track(wave: torch.Tensor, fs: float, bins_per_tone: int,
     p = waterfall_params(fs, bins_per_tone, steps_per_symbol)
     num_frames = p.num_frames(wave.shape[-1])
     mag = waterfall_complex(wave, p, num_frames)
-    with host_wait("ft8.drift.wait"):
-        track = torch.argmax(mag, dim=0).cpu().numpy()
-    return track, mag.shape[0], p
+    return to_host(torch.argmax(mag, dim=0)), mag.shape[0], p
 
 
 # ---------------------------------------------------------------------------
@@ -178,40 +235,45 @@ def correct_frequency_drift(wave_complex, fs: float,
     ``device`` (the card unless the caller asks for the CPU).
 
     Returns (corrected_wave, drift_rate_per_sample) as numpy, the input's
-    convention (complex, or stacked (n, 2) [re, im] float32).
+    convention (complex64, or stacked (n, 2) [re, im] float32).
     ``return_model`` appends the fitted model: ``f_center_hz`` (mean
     frequency of the detected track after the linear stage),
     ``sync_time_s`` (stage-3 fine time sync), ``rate_hz_per_s`` /
     ``acc_hz_per_s2`` (stage-4 polynomial) and ``segment_s`` (detected
     span); fields are None on the failure paths that fall back to earlier
-    stages.
+    stages.  The work is :func:`correct_drift_tensor`'s, between one
+    upload of the capture as complex64 and one read-back.
     """
     device = entry_device(device)
-    merged = dict(DEFAULT_PARAMS)
-    if params:
-        merged.update(params)
-    p = merged
-
     wave_in = np.asarray(wave_complex)
     complex_in = np.iscomplexobj(wave_in)
     if complex_in:
         ri = np.stack([wave_in.real, wave_in.imag], -1).astype(np.float32)
     else:
         ri = wave_in.astype(np.float32)
+    z = torch.view_as_complex(to_device(ri, device))
+    zc, rate, model = correct_drift_tensor(z, fs, sym_bin, sym_t, params)
+    r = to_host(zc if complex_in else torch.view_as_real(zc))
+    return (r, rate, model) if return_model else (r, rate)
+
+
+def correct_drift_tensor(z: torch.Tensor, fs: float,
+                         sym_bin: float = C.TONE_SPACING_HZ,
+                         sym_t: float = C.SYMBOL_PERIOD_S,
+                         params: dict | None = None):
+    """:func:`correct_frequency_drift` on a complex64 (n,) tensor, on its
+    device: (the corrected complex64 tensor there, the drift rate per
+    sample, the model).  Its copies are the two argmax tracks' read-backs;
+    the caller times it inside its own ``ft8.drift`` span."""
+    p = dict(DEFAULT_PARAMS)
+    if params:
+        p.update(params)
+    device = z.device
     count("drift.cycles")
-    with host_wait("ft8.drift.wait"):
-        z = torch.view_as_complex(torch.as_tensor(ri, device=device))
 
     model: dict = {"f_center_hz": None, "sync_time_s": None,
                    "rate_hz_per_s": None, "acc_hz_per_s2": None,
                    "segment_s": None}
-
-    def out(zc, rate):
-        with host_wait("ft8.drift.wait"):
-            r = torch.view_as_real(zc).cpu().numpy()
-        if complex_in:
-            r = r[..., 0] + 1j * r[..., 1]
-        return (r, rate, model) if return_model else (r, rate)
 
     bins_per_tone = p["bins_per_tone"]
     steps_per_symbol = p["steps_per_symbol"]
@@ -227,7 +289,7 @@ def correct_frequency_drift(wave_complex, fs: float,
     if not segments:
         logger.warning("No continuous signal segments detected, "
                        "returning original signal")
-        return out(z, 0.0)
+        return z, 0.0, model
 
     start_idx, end_idx = max(segments, key=lambda s: s[1] - s[0])
 
@@ -251,7 +313,7 @@ def correct_frequency_drift(wave_complex, fs: float,
                                       device)
 
     if not p["precise_sync"]:
-        return out(z_linear, f_shift_rate / fs)
+        return z_linear, f_shift_rate / fs, model
 
     # ---- stage 3: fine time sync on the de-rotated track
     track2, _, _ = _argmax_track(z_linear, fs, bins_per_tone,
@@ -307,15 +369,15 @@ def correct_frequency_drift(wave_complex, fs: float,
 
     if len(reg_x) < 10:
         logger.warning("Not enough sync points found, using linear fit")
-        return out(z_linear, f_shift_rate / fs)
+        return z_linear, f_shift_rate / fs, model
 
     degree = p["poly_degree"]
     if len(reg_x) <= degree + 1:
         logger.warning("Not enough data for high-order fitting")
-        return out(z_linear, f_shift_rate / fs)
+        return z_linear, f_shift_rate / fs, model
     if degree not in (1, 2):
         logger.warning("poly_degree must be 1 or 2, using linear fit")
-        return out(z_linear, f_shift_rate / fs)
+        return z_linear, f_shift_rate / fs, model
 
     cf = _polyfit(reg_x, reg_y, degree)
     rate_final = float(cf[1]) if len(cf) > 1 else 0.0
@@ -335,4 +397,4 @@ def correct_frequency_drift(wave_complex, fs: float,
     first = np.polyval(cf[::-1], reg_x[0])
     last = np.polyval(cf[::-1], reg_x[-1])
     rate_real = (first - last) / (reg_x[0] - reg_x[-1]) + f_shift_rate
-    return out(z_final, rate_real / fs)
+    return z_final, rate_real / fs, model

@@ -6,8 +6,9 @@ a sample stream in feeds of any size, slices it into 15-s FT8 cycles,
 keeps a ring of the newest ``max_repeats`` cycles and after each completed
 cycle decodes the stack of the ring on ``device``, so a beacon too weak
 for one cycle surfaces once enough cycles have accumulated.  With
-``correction`` each cycle is made analytic (``scipy.signal.hilbert`` on
-the host) and drift-corrected on the device before it enters the ring,
+``correction`` each cycle is uploaded once, made analytic there in
+float64 (``scipy.signal.hilbert``'s algorithm), rounded to complex64 and
+drift-corrected on the device, then read back into the ring as complex64,
 the corrector's model beside it (``drift_models``).
 
 Results deduplicate across the session, and ``save`` / ``load`` snapshot
@@ -126,19 +127,17 @@ class BeaconSession:
     def _push(self, cycle: np.ndarray) -> None:
         model = None
         if self.correction:
-            import scipy.signal
+            from ..beacon import drift
 
-            from ..beacon import correct_frequency_drift
-
-            # the corrector's input, so its time is the corrector's
+            # the analytic signal is the corrector's input, so its time is
+            # the corrector's
             with span("ft8.drift"):
-                analytic = scipy.signal.hilbert(cycle.astype(np.float64))
-            corrected, _, model = correct_frequency_drift(
-                analytic, self.fs,
-                params={"bins_per_tone": self.bins_per_tone,
-                        "steps_per_symbol": self.steps_per_symbol},
-                return_model=True, device=self.device)
-            cycle = np.asarray(corrected)
+                z = drift.analytic_signal(drift.to_device(cycle, self.device))
+                corrected, _, model = drift.correct_drift_tensor(
+                    z.to(torch.complex64), self.fs,
+                    params={"bins_per_tone": self.bins_per_tone,
+                            "steps_per_symbol": self.steps_per_symbol})
+                cycle = drift.to_host(corrected)
         self._cycles.append(cycle)
         self._models.append(model)
         if len(self._cycles) > self.max_repeats:

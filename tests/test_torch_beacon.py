@@ -390,16 +390,16 @@ def test_beacon_session_keeps_each_ring_cycles_drift_model(monkeypatch,
     """With correction, the corrector's model of each cycle in the ring
     stays beside it, oldest first, and leaves with it; a checkpoint does
     not hold them, so a loaded session's are None."""
-    import ft8_demodulator_tpu_torch.beacon as beacon
+    from ft8_demodulator_tpu_torch.beacon import drift
 
     calls = []
 
-    def corrector(wave, fs, params=None, return_model=False, device="cpu"):
+    def corrector(z, fs, params=None):
         calls.append(len(calls))
         model = {"segment_s": (0.0, 1.0), "sync_time_s": float(calls[-1])}
-        return np.asarray(wave).real.astype(np.float32), 0.0, model
+        return z, 0.0, model
 
-    monkeypatch.setattr(beacon, "correct_frequency_drift", corrector)
+    monkeypatch.setattr(drift, "correct_drift_tensor", corrector)
     monkeypatch.setattr(
         "ft8_demodulator_tpu_torch.demod.beacon_session.decode_ft8_stacked",
         lambda *a, **kw: [])

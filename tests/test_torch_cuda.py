@@ -18,7 +18,8 @@ CPU;
 chip_smoke.py's library yardstick (torch.stft) against the float32 plain
 waterfall; the beacon path on the card against the CPU: the waterfall
 backends (block complex, matmul, fft), the z statistics, the stacked
-decode, known-payload detection and tracking, the drift corrector and
+decode, known-payload detection and tracking, the drift corrector (its
+float64 analytic signal and cycle counts on the card, the host's) and
 the beacon session; the satellite channel's Doppler ops and noise, the
 streaming session (rows, kernel launches, a checkpoint), and parallel/'s
 stream and tensor-parallel decodes on two gloo ranks sharing the card,
@@ -980,6 +981,41 @@ def test_drift_corrector_card_matches_cpu(cuda):
         assert card[2][key] == pytest.approx(value, rel=1e-9, abs=0)
     np.testing.assert_allclose(card[0], host[0], rtol=0,
                                atol=1e-4 * np.abs(z).max())
+
+
+def test_drift_signal_path_on_the_card_matches_the_host(cuda):
+    """The corrector's float64 signal path on the card at one 15-s, 20-kHz
+    cycle: the analytic signal within 1e-12 of the peak of
+    scipy.signal.hilbert's, each rotation's float32 cycle count equal to
+    the host's float64 numpy formula bit for bit, and a corrected session
+    cycle within 1e-4 of the peak of the CPU's with the same model."""
+    import scipy.signal
+
+    from ft8_demodulator_tpu_torch.beacon import drift as tdrift
+    from ft8_demodulator_tpu_torch.demod import BeaconSession
+
+    fs, n = 20000.0, 300000
+    x = _beacon_repeats(8, 0.0, 1, fs, drift_hz_s=3.0)[0]
+    want = scipy.signal.hilbert(x.astype(np.float64))
+    got = tdrift.analytic_signal(torch.as_tensor(x, device=cuda)).cpu()
+    assert np.abs(got.numpy() - want).max() <= 1e-12 * np.abs(want).max()
+    t = np.arange(n, dtype=np.float64) / fs
+    for rate in (1.0, -1.0, 2.0, -2.0, 3.0, -3.0, 4.0, -4.0):
+        for acc in (0.0, 0.05, -0.05):
+            phase = rate * t * t / 2.0 + acc * t * t * t / 3.0
+            host = (phase - np.floor(phase)).astype(np.float32)
+            card = tdrift._phase_cycles(n, rate, acc, fs, cuda).cpu().numpy()
+            assert np.array_equal(card, host), (rate, acc)
+    sessions = [BeaconSession(fs, max_repeats=1, correction=True,
+                              device=d) for d in (cuda, "cpu")]
+    for s in sessions:
+        s._push(x)
+    (a, b), (ma, mb) = ([s._cycles[0] for s in sessions],
+                        [s.drift_models[0] for s in sessions])
+    assert ma["rate_hz_per_s"] == pytest.approx(3.0, abs=0.5)
+    for key, value in mb.items():
+        assert ma[key] == pytest.approx(value, rel=1e-9, abs=0), key
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * np.abs(b).max())
 
 
 def test_beacon_session_card_matches_cpu(cuda, tmp_path):

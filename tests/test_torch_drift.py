@@ -12,6 +12,11 @@
 * ``apply_polynomial_drift`` against JAX within ``ROTATE_ATOL`` = 2e-5, and
   a 60-s, 900-Hz/s rotation within 0.02 of the exact float64 one (the
   host's float64 cycle count, reduced mod 1).
+* The device path: ``analytic_signal`` within 1e-12 of the peak of
+  ``scipy.signal.hilbert`` (even and odd n); the on-device cycle count
+  equal to the host's float64 formula's float32 bit for bit; the core
+  (``correct_drift_tensor``) and the public wrapper give the same wave,
+  rate and model.
 * ``detect_signal_continuity``: the same segments and metric.
 * ``BeaconSession(correction=True)`` on a beacon drifting 3 Hz/s at 12
   kHz: the corrected cycles and the rows JAX's session gives.
@@ -142,6 +147,54 @@ def test_apply_polynomial_drift_long_capture_precision():
     cyc = rate * t * t / 2.0
     want = np.exp(-2j * np.pi * (cyc - np.floor(cyc)))
     assert float(np.abs(out - want).max()) < 0.02
+
+
+@pytest.mark.parametrize("n", [300000, 299999])
+def test_analytic_signal_matches_scipy_hilbert(n):
+    """The session's analytic step, the float64 FFT on the device, is
+    scipy.signal.hilbert's transform within 1e-12 of the peak."""
+    import scipy.signal
+
+    x = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    want = scipy.signal.hilbert(x.astype(np.float64))
+    got = tdrift.analytic_signal(torch.as_tensor(x))
+    assert got.dtype == torch.complex128 and got.shape == (n,)
+    err = np.abs(got.numpy() - want).max()
+    assert err <= 1e-12 * np.abs(want).max(), err
+
+
+def _host_cycles(n, rate, acc, fs):
+    """The host formula the rotation's cycle count once had: float64
+    numpy, reduced mod 1, then float32."""
+    t = np.arange(n, dtype=np.float64) / float(fs)
+    phase = float(rate) * t * t / 2.0 + float(acc) * t * t * t / 3.0
+    return (phase - np.floor(phase)).astype(np.float32)
+
+
+@pytest.mark.parametrize("acc", [0.0, 0.05, -0.05])
+@pytest.mark.parametrize("n,fs", [(300000, 20000.0), (480000, 8000.0)],
+                         ids=["cycle", "long_capture"])
+def test_device_cycle_count_equals_host_formula(n, fs, acc):
+    """Rates of +-1 ... +-4 Hz/s at one 15-s 20-kHz cycle and at the
+    60-s, 8-kHz long capture (and its 900 Hz/s): bit for bit."""
+    for rate in (1.0, -1.0, 2.0, -2.0, 3.0, -3.0, 4.0, -4.0, 900.0):
+        got = tdrift._phase_cycles(n, rate, acc, fs, torch.device("cpu"))
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(),
+                                      _host_cycles(n, rate, acc, fs))
+
+
+def test_core_and_wrapper_give_the_same_correction(chirped):
+    """correct_drift_tensor on the complex64 capture and the numpy wrapper
+    on it: the same corrected wave, rate and model."""
+    got, rate, model = tdrift.correct_frequency_drift(
+        chirped, FS, return_model=True, device="cpu")
+    core, core_rate, core_model = tdrift.correct_drift_tensor(
+        torch.as_tensor(chirped), FS)
+    assert core.dtype == torch.complex64
+    np.testing.assert_array_equal(core.numpy(), got)
+    assert core_rate == rate and core_model == model
+    assert model["acc_hz_per_s2"] is not None
 
 
 def test_detect_signal_continuity_matches_jax():

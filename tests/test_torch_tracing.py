@@ -261,6 +261,42 @@ def test_no_upload_of_the_hypotheses_on_a_second_call(monkeypatch):
     assert v is values and torch.equal(nv[1:], v) and not nm[0].any()
 
 
+def test_a_corrected_cycle_moves_its_bytes_in_four_waits(monkeypatch):
+    """One drift-corrected 15-s, 20-kHz cycle of a session: the real cycle
+    up, the two argmax tracks and the corrected cycle down, each one
+    ``ft8.drift.wait`` inside ``ft8.drift``, and ``drift.copy_bytes``
+    their bytes; the rotations copy nothing."""
+    from ft8_demodulator_tpu_torch.demod import BeaconSession, beacon_session
+    from ft8_demodulator_tpu_torch.ops.gfsk import ft8_baseband
+
+    fs, n = 20000.0, 300000
+    rng = np.random.default_rng(9)
+    payload = rng.integers(0, 256, 10, dtype=np.uint8)
+    payload[9] &= 0xF8
+    bb = ft8_baseband(payload, fs, 550.0, device="cpu").numpy()
+    t = (int(0.5 * fs) + np.arange(len(bb))) / fs
+    cycle = 0.1 * rng.standard_normal(n)
+    cycle[int(0.5 * fs): int(0.5 * fs) + len(bb)] += \
+        (bb * np.exp(1j * np.pi * 2.0 * t * t)).real
+    monkeypatch.setattr(beacon_session, "decode_ft8_stacked",
+                        lambda *a, **kw: [])
+    s = BeaconSession(fs, correction=True, device="cpu")
+    with _profile() as prof:
+        s.feed(cycle.astype(np.float32))
+    traced = profiling.counters(traced=True)
+    assert traced["drift.locked"] == 1
+    assert s.drift_models[0]["acc_hz_per_s2"] is not None
+    frames = waterfall_params(fs, 2, 2).num_frames(n)
+    assert traced["drift.copy_bytes"] == 4 * n + 2 * 8 * frames + 8 * n
+    spans = [(e.time_range.start, e.time_range.end, e.name)
+             for e in prof.events() if e.name.startswith("ft8.drift")]
+    waits = [(a, b) for a, b, name in spans if name == "ft8.drift.wait"]
+    outer = [(a, b) for a, b, name in spans if name == "ft8.drift"]
+    assert len(waits) == 4 == traced["waits"]
+    assert all(any(c <= a and b <= d for c, d in outer) for a, b in waits)
+    assert s._cycles[0].dtype == np.complex64
+
+
 # the stream: StreamSession with the benchmark's ``stream`` configuration
 # on 30 s of 2-kHz audio, one full block and the flushed rest
 def _stream_config():
